@@ -1,0 +1,526 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass or the script exits non-zero:
+
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  2. build of every kernel in src/repro_torch/csrc/ with nvcc (sm_90a);
+  3. each kernel against its plain PyTorch version on the card, f32 (2e-5)
+     and bf16 (2e-2), at the CPU tests' shapes and the main path's; then,
+     at the main path's shapes, the kernel's time, the plain version's, one
+     PyTorch library call's (yardstick only) and the least time the card
+     could take (bytes at 3.35 TB/s or flops at the dtype's dense peak);
+  4. the llama2-7b smoke model on the card (kernels) against the same
+     weights on the CPU (plain path): logits within 2e-3, greedy tokens equal;
+  5. the main path at full width: llama2-7b in bf16, random weights from a
+     seed, calibrated with `measure_service_time`, then served through
+     `InferenceEngine` under `ICCServer` (priority and fifo) over a Poisson
+     trace; every kernel's launch count must have grown as one prefill or
+     decode step predicts.
+
+Before the last line it prints the card line and one JSON line
+{"kernels": [...]}; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+It imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+MODEL_TOL = 2e-3
+TPU_KERNELS = {  # the Pallas function each kernel replaces
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+    "flash_attention": "src/repro/kernels/flash_attention.py:94",
+    "decode_attention": "src/repro/kernels/decode_attention.py:86",
+}
+
+
+def say(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the card
+# ---------------------------------------------------------------------------
+
+
+def phase_card(torch):
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(f"card: {card}")
+    say(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    import re
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all csrc/*.cu) into "
+        f"{_build.BUILD_ROOT.relative_to(ROOT)}")
+    log = next(_build.BUILD_ROOT.glob("*/build.log"), None)
+    if log is not None:  # absent when an earlier run built the library
+        text = log.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
+        say(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{sum(1 for b in spills if b)} with spill stores (max {max(spills)} bytes)")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions; timing
+# ---------------------------------------------------------------------------
+
+
+class Timer:
+    """Mean device ms of one call: CUDA events around each call, the 50 MB
+    L2 flushed before each (the main path streams ~0.4 GB of weights between
+    two calls of a kernel, so its caller finds L2 cold). A ~1 ms device spin
+    before each timed call lets the host enqueue the whole call before the
+    card reaches it, so host overhead never shows as device time."""
+
+    def __init__(self, torch, iters=20):
+        self.torch = torch
+        self.iters = iters
+        self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(self.iters):
+            self.flush.zero_()
+            torch.cuda._sleep(2_000_000)  # ~1 ms at the H100's clock
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            total += s.elapsed_time(e)
+        return total / self.iters
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def assert_close(torch, out, want, dtype, what):
+    tol = TOLS[dtype]
+    ok = torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
+    err = max_err(out, want)
+    check(ok and math.isfinite(err), f"{what}: kernel disagrees with plain, max|err| {err:.3g}")
+    return err
+
+
+def decode_positions(torch, B, Sc, lengths):
+    """kv_pos (B, Sc) with rows filled 0..len-1 then empty, pos = len - 1."""
+    kv_pos = torch.full((B, Sc), -1, dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+    pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    return kv_pos.cuda(), pos.cuda()
+
+
+def phase_kernels(torch, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
+
+    worst = {"rmsnorm": 0.0, "flash_attention": 0.0, "decode_attention": 0.0}
+    n_checks = 0
+
+    # --- correctness sweep: the CPU tests' shapes plus the main path's ----
+    for dtype in ("float32", "bfloat16"):
+        for shape in [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 4096)]:
+            x = randn(shape, dtype)
+            for g in (1.0 + 0.1 * randn(shape[-1:], "float32"),
+                      1.0 + 0.1 * randn(shape[-1:], dtype)):
+                err = assert_close(torch, rmsnorm(x, g), ref.rmsnorm(x, g), dtype,
+                                   f"rmsnorm {shape} {dtype} gamma {g.dtype}")
+                worst["rmsnorm"] = max(worst["rmsnorm"], err)
+                n_checks += 1
+        for B, H, K, Sq, Sk, dh in [(1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32),
+                                     (1, 4, 1, 40, 72, 16), (1, 2, 2, 17, 33, 16),
+                                     (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128)]:
+            q, k, v = randn((B, Sq, H, dh), dtype), randn((B, Sk, K, dh), dtype), \
+                randn((B, Sk, K, dh), dtype)
+            for causal, window, kv_len in [(True, 0, None), (True, 8, None),
+                                           (False, 0, None), (False, 0, Sk - 5)]:
+                if causal and Sq > Sk:
+                    continue
+                err = assert_close(
+                    torch, flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len),
+                    ref.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len),
+                    dtype, f"flash_attention {(B, H, K, Sq, Sk, dh)} causal={causal} "
+                    f"window={window} kv_len={kv_len} {dtype}")
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+                n_checks += 1
+        for B, H, K, Sc, dh, lengths in [
+            (2, 4, 2, 64, 16, [57, 0]),  # second row all empty: emits 0
+            (1, 8, 8, 70, 32, [63]),
+            (8, 32, 32, 576, 128, [16 + 2 * b for b in range(8)]),
+            (1, 32, 32, 576, 128, [576]),
+        ]:
+            q = randn((B, H, dh), dtype)
+            k, v = randn((B, Sc, K, dh), dtype), randn((B, Sc, K, dh), dtype)
+            kv_pos, pos = decode_positions(torch, B, Sc, lengths)
+            for window in (0, 16):
+                out = decode_attention(q, k, v, kv_pos, pos, window=window)
+                err = assert_close(
+                    torch, out, ref.decode_attention(q, k, v, kv_pos, pos, window=window),
+                    dtype, f"decode_attention {(B, H, K, Sc, dh)} window={window} {dtype}")
+                worst["decode_attention"] = max(worst["decode_attention"], err)
+                n_checks += 1
+                if 0 in lengths:
+                    check(float(out[lengths.index(0)].abs().max()) == 0.0,
+                          "decode_attention: an all-empty row must emit 0")
+        # ring cache: out-of-order absolute positions with a window
+        q, k, v = randn((1, 2, 16), dtype), randn((1, 16, 2, 16), dtype), randn((1, 16, 2, 16), dtype)
+        kv_pos = torch.tensor([[16, 17, 18, 19] + list(range(4, 16))], dtype=torch.int32).cuda()
+        pos = torch.tensor([19], dtype=torch.int32).cuda()
+        err = assert_close(torch, decode_attention(q, k, v, kv_pos, pos, window=8),
+                           ref.decode_attention(q, k, v, kv_pos, pos, window=8), dtype,
+                           f"decode_attention ring cache {dtype}")
+        worst["decode_attention"] = max(worst["decode_attention"], err)
+        n_checks += 1
+    torch.cuda.synchronize()
+    say(f"kernels: {n_checks} kernel-vs-plain checks passed; worst max|err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+    # --- timing at the main path's shapes (bf16) ---------------------------
+    rows = []
+
+    def row(name, shape, fn, plain, library, nbytes, flops, errfn):
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        r = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": TPU_KERNELS[name], "shape": shape, "dtype": "bfloat16",
+            "ms": timer(fn), "plain_ms": timer(plain),
+            "library_ms": timer(library) if library else None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errfn(),
+        }
+        rows.append(r)
+        say(f"time {name} {shape}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
+            f" ms, bound {b_ms:.4f} ms ({b_by}), max|err| {r['max_abs_err']:.3g}")
+        return r
+
+    rms_lib = getattr(F, "rms_norm", None)  # torch >= 2.4
+    d = 4096
+    for n in (8, 15, 512):  # decode step (max_batch 8), Table-I prompt, long prompt
+        x = randn((n, d), "bfloat16")
+        g = 1.0 + 0.1 * randn((d,), "bfloat16")
+        row("rmsnorm", f"({n}, {d})", lambda: rmsnorm(x, g), lambda: ref.rmsnorm(x, g),
+            rms_lib and (lambda: rms_lib(x, (d,), g, 1e-5)), 2 * (2 * n * d) + 2 * d, 4.0 * n * d,
+            lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
+
+    H, dh = 32, 128
+    for S in (15, 512):
+        q, k, v = randn((1, S, H, dh), "bfloat16"), randn((1, S, H, dh), "bfloat16"), \
+            randn((1, S, H, dh), "bfloat16")
+        pairs = S * (S + 1) // 2  # causal (q, k) pairs each head computes
+        row("flash_attention", f"B=1 S={S} H=K={H} dh={dh} causal",
+            lambda: flash_attention(q, k, v), lambda: ref.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
+            2 * 4 * S * H * dh, 4.0 * pairs * dh * H,
+            lambda: max_err(flash_attention(q, k, v), ref.flash_attention(q, k, v)))
+
+    Sc = 576
+    for B, lengths, label in [(8, [16 + 2 * b for b in range(8)], "ICC batch, 16-30 valid"),
+                              (1, [576], "calibration 512+64, 576 valid")]:
+        q = randn((B, H, dh), "bfloat16")
+        k, v = randn((B, Sc, H, dh), "bfloat16"), randn((B, Sc, H, dh), "bfloat16")
+        kv_pos, pos = decode_positions(torch, B, Sc, lengths)
+        mask = ((kv_pos >= 0) & (kv_pos <= pos[:, None]))[:, None, None, :]
+        n_valid = sum(lengths)
+        row("decode_attention", f"B={B} Sc={Sc} H=K={H} dh={dh} ({label})",
+            lambda: decode_attention(q, k, v, kv_pos, pos),
+            lambda: ref.decode_attention(q, k, v, kv_pos, pos),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask),
+            2 * n_valid * H * dh * 2 + B * Sc * 4 + B * 4 + 2 * B * H * dh * 2,
+            4.0 * n_valid * H * dh,
+            lambda: max_err(decode_attention(q, k, v, kv_pos, pos),
+                            ref.decode_attention(q, k, v, kv_pos, pos)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: smoke model, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_smoke_model(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import GenRequest, InferenceEngine
+
+    cfg = dataclasses.replace(get_config("llama2-7b", smoke=True), dtype="float32")
+    model = build_model(cfg)
+    p_cpu = model.init(seed=0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randint(0, cfg.vocab_size, (2, 15), generator=gen)
+
+    worst = 0.0
+    lc, _ = model.forward(p_cpu, x)
+    lg, _ = model.forward(p_gpu, x.cuda())
+    worst = max(worst, max_err(lg.cpu(), lc))
+    _, cc = model.prefill(p_cpu, x[:, :12])
+    _, cg = model.prefill(p_gpu, x[:, :12].cuda())
+    for c in (cc, cg):
+        for key in ("k", "v"):
+            c[key] = torch.nn.functional.pad(c[key], (0, 0, 0, 0, 0, 3))
+        c["pos"] = torch.nn.functional.pad(c["pos"], (0, 3), value=-1)
+    for i in range(3):
+        pos = torch.full((2,), 12 + i, dtype=torch.int32)
+        dc, cc = model.decode(p_cpu, cc, x[:, 12 + i], pos)
+        dg, cg = model.decode(p_gpu, cg, x[:, 12 + i].cuda(), pos.cuda())
+        worst = max(worst, max_err(dg.cpu(), dc), max_err(dg.cpu(), lc[:, 12 + i]))
+    check(worst <= MODEL_TOL, f"smoke model: card vs CPU max|err| {worst:.3g} > {MODEL_TOL}")
+
+    reqs = [GenRequest(uid=i, prompt=torch.randint(0, cfg.vocab_size, (6 + 3 * i,),
+                                                   generator=gen), max_new_tokens=8)
+            for i in range(4)]
+    toks = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        out = InferenceEngine(model, p, max_batch=3, max_seq=48, device=dev).generate(reqs)
+        toks[dev] = [out[r.uid].tokens for r in reqs]
+    check(toks["cpu"] == toks["cuda"], f"smoke engine: greedy tokens differ {toks}")
+    say(f"smoke model (llama2-7b smoke, f32): card vs CPU logits max|err| {worst:.3g} "
+        f"(<= {MODEL_TOL}), greedy tokens equal over {len(reqs)} requests")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path at full width
+# ---------------------------------------------------------------------------
+
+
+def poisson_trace(cfg, n, rate, n_input, n_output, b_total, seed=0):
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import GenRequest, ICCRequest
+
+    rng = np.random.default_rng(seed)
+    t, reqs = 0.0, []
+    for uid in range(n):
+        t += rng.exponential(1.0 / rate)
+        gen = torch.Generator().manual_seed(uid)
+        prompt = torch.randint(0, cfg.vocab_size, (n_input,), generator=gen)
+        reqs.append(ICCRequest(GenRequest(uid=uid, prompt=prompt, max_new_tokens=n_output),
+                               t_gen=t, t_comm=float(rng.uniform(0.008, 0.03)),
+                               b_total=b_total))
+    return reqs
+
+
+def phase_full_width(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import ICCServer, InferenceEngine, measure_service_time
+
+    cfg = get_config("llama2-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say(f"llama2-7b full width: {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
+        f"dh={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    ops.reset_launches()  # the main path's run starts here
+    cal = {}
+    for n_in, n_out, max_seq in ((15, 15, 256), (512, 64, 576)):
+        t = measure_service_time(model, params, n_in, n_out, max_seq=max_seq, repeats=3)
+        cal[(n_in, n_out)] = t
+        say(f"measure_service_time {n_in}-in/{n_out}-out (batch 1): prefill "
+            f"{t['prefill_s'] * 1e3:.3f} ms, decode {t['decode_s'] * 1e3:.3f} ms "
+            f"({t['decode_s'] / (n_out - 1) * 1e3:.3f} ms/step), total {t['total_s'] * 1e3:.3f} ms")
+
+    svc = cal[(15, 15)]["total_s"]
+    M, Sc = 8, 576
+    rate = M / svc  # offered load: what 8 slots serve at batch-1 speed
+    b_total = 3.0 * svc
+    for policy in ("priority", "fifo"):
+        trace = poisson_trace(cfg, 32, rate, 15, 15, b_total)
+        eng = InferenceEngine(model, params, max_batch=M, max_seq=Sc, device="cuda")
+        eng.warmup(trace[0].req.prompt)
+        srv = ICCServer(eng, policy=policy, est_latency=svc)
+        t0 = time.perf_counter()
+        st = srv.run(trace)
+        wall = time.perf_counter() - t0
+        res = list(eng.results.values())
+        check(all(1 <= r.n_tokens <= 15 for r in res), "served requests have 1..15 tokens")
+        check(all(0 <= tok < cfg.padded_vocab for r in res for tok in r.tokens),
+              "generated token ids out of range")
+        e2e = np.array(st.e2e) if st.e2e else np.array([np.nan])
+        pre = np.mean([r.prefill_s for r in res]) * 1e3 if res else float("nan")
+        steps = [r.decode_s / (r.n_tokens - 1) for r in res if r.n_tokens > 1]
+        say(f"ICCServer {policy}: {st.n_total} requests (rate {rate:.2f}/s, b_total "
+            f"{b_total * 1e3:.1f} ms), served {len(res)}, satisfied {st.n_satisfied}, "
+            f"satisfaction {st.satisfaction:.3f}, dropped {st.n_dropped}, e2e p50 "
+            f"{np.nanpercentile(e2e, 50) * 1e3:.1f} ms p95 {np.nanpercentile(e2e, 95) * 1e3:.1f} ms, "
+            f"prefill mean {pre:.3f} ms, decode step mean "
+            f"{np.mean(steps) * 1e3 if steps else float('nan'):.3f} ms, wall {wall:.1f} s")
+        check(st.n_total == 32 and st.n_dropped + len(res) == 32,
+              f"{policy}: every request is served or dropped")
+    torch.cuda.synchronize()
+
+    n = dict(ops.LAUNCHES)
+    say(f"launches on the main path: {n}")
+    check(all(v > 0 for v in n.values()), f"a kernel of the main path never launched: {n}")
+    L = cfg.n_layers
+    check(n["flash_attention"] % L == 0 and n["decode_attention"] % L == 0,
+          f"attention launches are not whole forwards of {L} layers: {n}")
+    forwards = (n["flash_attention"] + n["decode_attention"]) // L
+    check(n["rmsnorm"] == (2 * L + 1) * forwards,
+          f"rmsnorm launches {n['rmsnorm']} != {2 * L + 1} x {forwards} forwards")
+    profile_decode(torch, model, params, cfg, M, Sc)
+    return n
+
+
+def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
+    """Where a batch-8 decode step's time goes: wall per step without the
+    profiler, then device busy time per step by kernel group under it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import GenRequest, InferenceEngine
+
+    eng = InferenceEngine(model, params, max_batch=M, max_seq=Sc, device="cuda")
+    gen = torch.Generator().manual_seed(7)
+    for uid in range(M):
+        eng.submit(GenRequest(uid=uid, prompt=torch.randint(0, cfg.vocab_size, (15,),
+                                                            generator=gen),
+                              max_new_tokens=2 * steps + 3))
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        launches += e.count
+        name = e.key.lower()
+        if "decode_attention" in name:
+            groups["decode_attention"] += us
+        elif "rmsnorm" in name:
+            groups["rmsnorm"] += us
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "gemv")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    busy = sum(groups.values()) / steps / 1e3
+    say(f"decode step profile (batch {M}, {steps} steps): wall {wall:.3f} ms/step "
+        f"unprofiled; device busy {busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall), "
+        + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items())
+        + f"; {launches / steps:.0f} kernel launches/step")
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        say("FAIL: src/repro_torch is not beside chip_smoke.py")
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is False; this script needs a CUDA card")
+        return 2
+    card = phase_card(torch)
+    phase_build()
+    rows = phase_kernels(torch, Timer(torch))
+    phase_smoke_model(torch)
+    launches = phase_full_width(torch)
+
+    seen = set()
+    kernels = []
+    for r in rows:  # the first row of each kernel is its main-path (ICC) shape
+        if r["name"] not in seen:
+            seen.add(r["name"])
+            kernels.append(dict(r, launches=launches[r["name"]]))
+    say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

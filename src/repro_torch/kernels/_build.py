@@ -1,0 +1,133 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every `csrc/*.cu` is compiled by `nvcc` for sm_90a (one process per source,
+all started together), linked into one shared library with a plain C
+interface and loaded with `ctypes`. The library lives under
+`build/repro_torch/<hash of the sources>/` at the root of the checkout, so an
+edited source rebuilds and an unchanged one is reused. The build happens at
+the first kernel launch, never at import: the CPU tests import every module
+on machines that have no `nvcc`.
+
+A missing `nvcc` or a failed build raises; there is no stub.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+__all__ = ["LAUNCHES", "library", "check", "stream_of", "dtype_code"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# Kernel launches, one count per kernel, raised by each wrapper where it
+# launches its kernel and nowhere else.
+LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F, _I, _I, _P],
+    "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
+    "decode_attention_fwd": [_P] * 6 + [_I] * 4 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cands.append(str(Path(home) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be built"
+    )
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            log, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{log}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *[str(o) for _, o, _ in procs], "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (out.parent / "build.log").write_text("\n".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent process never sees half a file
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        out = BUILD_ROOT / _sources_hash() / "librepro_kernels.so"
+        if not out.is_file():
+            _build(out)
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported by the kernel")
+    return DTYPE_CODES[t.dtype]

@@ -1,0 +1,59 @@
+"""Prefill flash attention on the card: wrapper over `csrc/flash_attention.cu`.
+
+Replaces the Pallas kernel `repro/kernels/flash_attention.py:flash_attention`;
+the plain version is `ref.flash_attention`. The kernel reads q, k, v and
+writes o through strides, so callers pass the model layout as it is.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64, 128)  # dh values the kernel is instantiated for
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, dh)
+    k: torch.Tensor,  # (B, Sk, K, dh)
+    v: torch.Tensor,  # (B, Sk, K, dh)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention over arange positions; returns (B, Sq, H, dh), q's dtype."""
+    B, Sq, H, dh = q.shape
+    Bk, Sk, K, dhk = k.shape
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention kernel: tensors must be on the card")
+    if k.shape != v.shape or Bk != B or dhk != dh or H % K:
+        raise ValueError(
+            f"flash_attention kernel: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)}"
+        )
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("flash_attention kernel: q, k, v dtypes differ")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: dh={dh} not in {HEAD_DIMS}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention kernel: the dh axis must be contiguous")
+    kv_len = Sk if kv_len is None else min(int(kv_len), Sk)
+    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    lib = _build.library()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, K, Sq, Sk,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        dh, int(causal), int(window), kv_len, 1.0 / math.sqrt(dh),
+        _build.dtype_code(q, "flash_attention"), _build.stream_of(q),
+    )
+    _build.check(err, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

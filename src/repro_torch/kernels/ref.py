@@ -1,0 +1,101 @@
+"""Plain PyTorch versions of the three hand-written kernels.
+
+Each computes what its CUDA kernel computes, in the kernel's own layout and
+rounding: f32 scores and softmax, f32 accumulation, one rounding to the
+input dtype at the end. Where `repro.kernels.ref` differs from the Pallas
+kernels, these follow the kernels:
+
+  * rows whose every KV slot is masked emit 0 (the online-softmax l = 0
+    rule), not the mean of V;
+  * rmsnorm returns x's dtype even when gamma is f32.
+
+The CPU path of `ops` runs these; `chip_smoke.py` holds each kernel against
+its plain version on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+__all__ = ["flash_attention", "decode_attention", "rmsnorm"]
+
+NEG_INF = -1e30
+
+
+def _masked_softmax_mix(s: torch.Tensor, ok: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(s where ok) @ v in f32; rows with no valid slot give 0.
+
+    s: (..., Sq, Sk) f32 scores, ok: broadcastable bool, v: (..., Sk, dh) f32.
+    """
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (p @ v) / l
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, dh)
+    k: torch.Tensor,  # (B, Sk, K, dh)
+    v: torch.Tensor,  # (B, Sk, K, dh)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Prefill attention over arange positions; GQA maps head h to h // G.
+
+    Returns (B, Sq, H, dh) in q's dtype."""
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    qf = q.float().reshape(B, Sq, K, G, dh).permute(0, 2, 3, 1, 4)  # (B,K,G,Sq,dh)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]  # (B,K,1,Sk,dh)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(dh))  # (B,K,G,Sq,Sk)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = kpos < (Sk if kv_len is None else kv_len)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (kpos > qpos - window)
+    out = _masked_softmax_mix(s, ok, vf)  # (B,K,G,Sq,dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, dh)
+    k: torch.Tensor,  # (B, Sc, K, dh) — the cache layout
+    v: torch.Tensor,  # (B, Sc, K, dh)
+    kv_pos: torch.Tensor,  # (B, Sc) absolute positions, -1 = empty slot
+    pos: torch.Tensor,  # (B,) query positions
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """One query token per sequence against its cache; returns (B, H, dh)."""
+    B, H, dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf = q.float().reshape(B, K, G, dh)
+    kf = k.float().permute(0, 2, 3, 1)  # (B,K,dh,Sc)
+    vf = v.float().permute(0, 2, 1, 3)  # (B,K,Sc,dh)
+    s = (qf @ kf) * (1.0 / math.sqrt(dh))  # (B,K,G,Sc)
+    p = pos.to(kv_pos.dtype)[:, None]
+    ok = (kv_pos >= 0) & (kv_pos <= p)
+    if window > 0:
+        ok = ok & (kv_pos > p - window)
+    out = _masked_softmax_mix(s, ok[:, None, None, :], vf)  # (B,K,G,dh)
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm: f32 mean of squares, normalise, round to x's dtype,
+    times gamma, round to x's dtype again."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return (y.float() * gamma.float()).to(x.dtype)

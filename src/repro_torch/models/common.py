@@ -1,0 +1,111 @@
+"""Shared building blocks for the port's models (counterpart of
+`repro/models/common.py`).
+
+Parameters live in `nn.Module`s that mirror the reference's nested dicts
+leaf for leaf; the compute is plain functions on tensors. Forward only: every
+parameter is created with `requires_grad=False`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+
+__all__ = [
+    "DTYPES",
+    "RuntimeFlags",
+    "resolve_device",
+    "param",
+    "init_normal_",
+    "rms_norm",
+    "activation_fn",
+]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeFlags:
+    """Per-invocation execution knobs (orthogonal to the architecture).
+
+    The same fields as the reference's. The port runs `attention_impl` in
+    {auto, naive, pallas} ("pallas" names the flash kernel, as in the
+    reference) and no window override; other values raise where they are
+    read. The MoE, SSM, remat and sharding fields have no effect in this
+    slice (forward-only dense decoder on one card)."""
+
+    attention_impl: str = "auto"  # auto | naive | chunked | pallas
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    mamba_chunk: int = 256
+    mlstm_chunk: int = 256
+    window_override: int = 0  # force sliding-window serving (long_500k dense)
+    remat: bool = True  # activation checkpointing around each layer (train)
+    naive_below: int = 2048  # "auto" uses naive attention below this seq len
+    moe_dispatch: str = "scatter"  # scatter | einsum (Mesh-TF baseline)
+    attn_seq_shard: bool = False  # context parallelism over the model axis
+
+    def attn_impl_for(self, on_cuda: bool) -> str:
+        """"auto" takes the flash kernel on the card and the naive plain
+        path on the CPU."""
+        impl = self.attention_impl
+        if impl == "auto":
+            return "pallas" if on_cuda else "naive"
+        if impl not in ("naive", "pallas"):
+            raise NotImplementedError(f"attention_impl={impl!r} is not ported yet")
+        return impl
+
+    def window_for(self, cfg_window: int) -> int:
+        if self.window_override:
+            raise NotImplementedError("window_override (ring caches) is not ported yet")
+        return cfg_window
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device an entry point runs on. A CUDA device without a card
+    raises: the CPU is used only when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def param(shape: Sequence[int], device, dtype) -> nn.Parameter:
+    """An uninitialised inference-only parameter."""
+    return nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+@torch.no_grad()
+def init_normal_(p: torch.Tensor, gen: torch.Generator, scale: Optional[float] = None) -> None:
+    """N(0, scale^2) drawn in f32 on p's device, then cast: the reference's
+    `Initializer.param` (fan-in scale on the leading dim by default)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(p.shape[0])
+    z = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
+    p.copy_(z.mul_(scale))
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm through the kernel on the card, its plain version on the CPU."""
+    return ops.rmsnorm(x, gamma, eps)
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name!r}")

@@ -1,0 +1,241 @@
+"""Decoder-only stack, dense family (counterpart of
+`repro/models/transformer.py`).
+
+Parameters: a `Decoder` module whose `layers` is an `nn.ModuleList` of
+per-layer `Block`s; the reference keeps a leading layer axis on each leaf
+instead (`convert.py` splits it). The uniform stack is a Python loop over
+the blocks.
+
+Cache: {"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}, the reference's
+layout; decode updates it in place.
+
+Not ported yet (they raise): MoE, hybrid (zamba2), ssm (xlstm), enc-dec,
+frontend embeddings, tied embeddings.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .attention import Attention, attention_forward, decode_attention, init_attention
+from .common import DTYPES, RuntimeFlags, init_normal_, param, rms_norm
+from .mlp import MLP, init_mlp, mlp_forward
+from .rope import rope_tables
+
+__all__ = [
+    "Block",
+    "Decoder",
+    "init_decoder_params",
+    "decoder_forward",
+    "decoder_prefill",
+    "decoder_decode",
+    "init_decode_cache",
+    "logits_from_hidden",
+    "embed_inputs",
+]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.n_experts or cfg.embeds_input:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tied embeddings are not ported yet")
+
+
+class Block(nn.Module):
+    """Pre-norm attention + MLP residual block."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.attn_norm = param((cfg.d_model,), device, dtype)
+        self.attn = Attention(cfg, device=device, dtype=dtype)
+        self.mlp_norm = param((cfg.d_model,), device, dtype)
+        self.mlp = MLP(cfg, device=device, dtype=dtype)
+
+
+class Decoder(nn.Module):
+    """All parameters of a dense decoder; `init_decoder_params` fills them."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        _check_supported(cfg)
+        dtype = dtype or DTYPES[cfg.dtype]
+        self.embed = param((cfg.padded_vocab, cfg.d_model), device, dtype)
+        self.final_norm = param((cfg.d_model,), device, dtype)
+        self.lm_head = param((cfg.d_model, cfg.padded_vocab), device, dtype)
+        self.layers = nn.ModuleList(
+            Block(cfg, device=device, dtype=dtype) for _ in range(cfg.n_layers)
+        )
+
+
+@torch.no_grad()
+def init_decoder_params(
+    cfg: ModelConfig, gen: torch.Generator, device, dtype=None
+) -> Decoder:
+    """Random weights with the reference's shapes and scales: embed 0.02,
+    wo 1/sqrt(H*dh), fan-in otherwise, norms ones. Drawn on `device` from
+    `gen` (a generator of that device)."""
+    p = Decoder(cfg, device=device, dtype=dtype)
+    init_normal_(p.embed, gen, scale=0.02)
+    p.final_norm.fill_(1.0)
+    init_normal_(p.lm_head, gen)
+    for blk in p.layers:
+        blk.attn_norm.fill_(1.0)
+        blk.mlp_norm.fill_(1.0)
+        init_attention(blk.attn, gen)
+        init_mlp(blk.mlp, gen)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# shared forward pieces
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(params: Decoder, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) int -> (B, S, d)."""
+    if inputs.dim() != 2:
+        raise NotImplementedError("frontend embeddings are not ported yet")
+    return params.embed[inputs.long()]
+
+
+def logits_from_hidden(params: Decoder, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return h @ params.lm_head
+
+
+def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int):
+    h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    a, kv = attention_forward(lp.attn, h, cfg, rt, positions, rope, causal=True,
+                              window=window)
+    x = x + a
+    h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    return x + mlp_forward(lp.mlp, h, cfg), kv
+
+
+def _attn_block_decode(lp: Block, x, cfg, pos, rope, flat_slot, ck, cv, cache_pos,
+                       window: int):
+    h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    x = x + decode_attention(lp.attn, h, pos, rope, flat_slot, ck, cv, cache_pos,
+                             window=window)
+    h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    return x + mlp_forward(lp.mlp, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# uniform (dense) stack
+# ---------------------------------------------------------------------------
+
+
+def _uniform_stack(params: Decoder, cfg, rt, x, positions, collect_cache: bool):
+    window = rt.window_for(cfg.window)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for lp in params.layers:
+        x, kv = _attn_block_apply(lp, x, cfg, rt, positions, rope, window)
+        if collect_cache:
+            kvs.append(kv)
+    return x, kvs
+
+
+def _uniform_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
+    """Write-then-attend decode. The new position goes into cache["pos"]
+    before the first layer, so every layer's kernel sees the fresh slot."""
+    window = rt.window_for(cfg.window)
+    Sc = cache["k"].shape[2]
+    slot = (pos % Sc).long()  # ring-buffer slot (full cache: pos < Sc)
+    flat_slot = torch.arange(x.shape[0], device=x.device) * Sc + slot
+    cache["pos"].view(-1).index_copy_(0, flat_slot, pos)
+    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    for i, lp in enumerate(params.layers):
+        x = _attn_block_decode(
+            lp, x, cfg, pos, rope, flat_slot, cache["k"][i], cache["v"][i], cache["pos"],
+            window,
+        )
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
+def _arange_positions(inputs: torch.Tensor, positions: Optional[torch.Tensor]):
+    """Prefill positions. The flash kernel assumes arange positions, so a
+    call on the card with any other positions raises."""
+    B, S = inputs.shape[:2]
+    if positions is not None:
+        if inputs.is_cuda:
+            raise ValueError("explicit positions: the flash kernel takes arange only")
+        return positions
+    return torch.arange(S, dtype=torch.int32, device=inputs.device).expand(B, S)
+
+
+@torch.no_grad()
+def decoder_forward(
+    params: Decoder,
+    cfg: ModelConfig,
+    rt: RuntimeFlags,
+    inputs: torch.Tensor,  # (B, S) tokens
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """Full forward to logits. Returns (logits (B, S, V), aux)."""
+    positions = _arange_positions(inputs, positions)
+    x = embed_inputs(params, cfg, inputs)
+    x, _ = _uniform_stack(params, cfg, rt, x, positions, collect_cache=False)
+    return logits_from_hidden(params, cfg, x), {}
+
+
+def init_decode_cache(
+    cfg: ModelConfig, batch: int, cache_len: int, device, dtype=None
+) -> dict:
+    """Zeroed decode cache, every slot empty (pos -1).
+
+    cache_len: KV capacity (== seq_len, or window size for ring caches)."""
+    _check_supported(cfg)
+    dtype = dtype or DTYPES[cfg.dtype]
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def decoder_prefill(
+    params: Decoder,
+    cfg: ModelConfig,
+    rt: RuntimeFlags,
+    inputs: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """Process the prompt; returns (last-position logits (B, V), cache)."""
+    positions = _arange_positions(inputs, positions)
+    x = embed_inputs(params, cfg, inputs)
+    x, kvs = _uniform_stack(params, cfg, rt, x, positions, collect_cache=True)
+    cache = {
+        "k": torch.stack([k for k, _ in kvs]),  # (L, B, S, K, dh)
+        "v": torch.stack([v for _, v in kvs]),
+        "pos": positions.to(torch.int32).contiguous(),
+    }
+    return logits_from_hidden(params, cfg, x[:, -1]), cache
+
+
+@torch.no_grad()
+def decoder_decode(
+    params: Decoder,
+    cfg: ModelConfig,
+    rt: RuntimeFlags,
+    cache: dict,
+    token: torch.Tensor,  # (B,) int tokens
+    pos: torch.Tensor,  # (B,) int32
+) -> Tuple[torch.Tensor, dict]:
+    """One decode step: returns (logits (B, V), the cache updated in place)."""
+    x = params.embed[token.long()]
+    x, cache = _uniform_decode(params, cfg, rt, x, pos.to(torch.int32), cache)
+    return logits_from_hidden(params, cfg, x), cache

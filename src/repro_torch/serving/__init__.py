@@ -1,0 +1,17 @@
+"""Serving: continuous-batching engine + ICC priority scheduling."""
+
+from .calibrate import measure_service_time, measured_service_fn
+from .engine import GenRequest, GenResult, InferenceEngine, SamplingParams
+from .icc import ICCRequest, ICCServer, ServeStats
+
+__all__ = [
+    "GenRequest",
+    "GenResult",
+    "ICCRequest",
+    "ICCServer",
+    "InferenceEngine",
+    "SamplingParams",
+    "ServeStats",
+    "measure_service_time",
+    "measured_service_fn",
+]

@@ -1,0 +1,226 @@
+"""Continuous-batching inference engine (counterpart of
+`repro/serving/engine.py`).
+
+A fixed pool of `max_batch` decode slots over one batched cache; requests
+are prefilled individually (batch 1) and spliced into a free slot, decode
+advances all slots in lock-step (one `Model.decode` per tick).
+
+Timing: CUDA calls return before the card finishes, so the engine
+synchronises the device before every clock read; `prefill_s` and
+`decode_s` are device time plus host overhead, never enqueue time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..models.common import resolve_device
+from ..models.model import Model
+from ..models.transformer import Decoder
+
+__all__ = ["GenRequest", "GenResult", "InferenceEngine", "SamplingParams", "sample_token"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 0.0  # 0 = greedy
+    top_k: int = 0  # 0 = full distribution
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class GenRequest:
+    uid: int
+    prompt: Any  # (S,) int tokens: a tensor, numpy array or list
+    max_new_tokens: int
+    eos_token: Optional[int] = None
+    sampling: SamplingParams = SamplingParams()
+
+
+@dataclasses.dataclass
+class GenResult:
+    uid: int
+    tokens: List[int]
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+
+    @property
+    def n_tokens(self) -> int:
+        return len(self.tokens)
+
+
+def _generator_seed(seed: int, uid: int, position: int) -> int:
+    """A 63-bit seed from (seed, uid, position); negative uids are fine."""
+    h = 0
+    for v in (seed, uid, position):
+        h = (h * 0x100000001B3 + (v % (1 << 64))) % (1 << 63)
+    return h
+
+
+def sample_token(logits: torch.Tensor, sp: SamplingParams, uid: int, position: int) -> int:
+    """One token from (V,) logits. Deterministic in (seed, uid, position),
+    so batched == sequential results hold. The draws are the port's own
+    (a CPU `torch.Generator`), not JAX's threefry bits."""
+    if sp.temperature <= 0.0:
+        return int(torch.argmax(logits))
+    gen = torch.Generator().manual_seed(_generator_seed(sp.seed, uid, position))
+    scaled = logits.float().cpu() / sp.temperature
+    if sp.top_k > 0:
+        vals, idx = torch.topk(scaled, sp.top_k)
+        choice = torch.multinomial(torch.softmax(vals, -1), 1, generator=gen)
+        return int(idx[choice])
+    return int(torch.multinomial(torch.softmax(scaled, -1), 1, generator=gen))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        model: Model,
+        params: Decoder,
+        max_batch: int = 8,
+        max_seq: int = 256,
+        enc_len: int = 0,
+        device="cuda",
+    ):
+        if enc_len:
+            raise NotImplementedError("enc-dec serving is not ported yet")
+        self.device = resolve_device(device)
+        if params.embed.device.type != self.device.type:
+            raise ValueError(
+                f"params on {params.embed.device}, engine device {self.device}"
+            )
+        self.model = model
+        self.params = params
+        self.M = max_batch
+        self.Sc = max_seq
+        self._dtype = params.embed.dtype
+        self.reset()
+
+    # ------------------------------------------------------------- slots
+    def reset(self) -> None:
+        """Clear all slots and results; every cache slot becomes empty."""
+        self.active = [False] * self.M
+        self.pos = [0] * self.M
+        self.last_tok = [0] * self.M
+        self.results: Dict[int, GenResult] = {}
+        self._slot_req: List[Optional[GenRequest]] = [None] * self.M
+        self._remaining = [0] * self.M
+        self._cache = self.model.init_cache(self.M, self.Sc, self.device, self._dtype)
+
+    def warmup(self, sample_prompt: Any) -> None:
+        """Run one short request so the first timed request pays no
+        one-time costs (kernel build, library load, allocator growth)."""
+        self.generate([GenRequest(uid=-987654, prompt=sample_prompt, max_new_tokens=2)])
+        self.reset()
+
+    def free_slots(self) -> List[int]:
+        return [i for i, a in enumerate(self.active) if not a]
+
+    def active_uids(self) -> List[int]:
+        """uids of the requests currently occupying decode slots."""
+        return [r.uid for r in self._slot_req if r is not None]
+
+    @property
+    def n_active(self) -> int:
+        return sum(self.active)
+
+    def _splice(self, cache1: dict, slot: int, plen: int) -> None:
+        """Insert a batch-1 prefill cache into slot `slot`: K/V at [:plen],
+        positions arange(plen), the rest of the row empty (-1)."""
+        self._cache["k"][:, slot, :plen] = cache1["k"][:, 0]
+        self._cache["v"][:, slot, :plen] = cache1["v"][:, 0]
+        row = self._cache["pos"][slot]
+        row[:plen] = cache1["pos"][0]
+        row[plen:] = -1
+
+    # ----------------------------------------------------------- serving
+    def submit(self, req: GenRequest) -> int:
+        """Prefill + occupy a slot. Returns the slot index."""
+        slots = self.free_slots()
+        if not slots:
+            raise RuntimeError("no free slot")
+        slot = slots[0]
+        prompt = torch.as_tensor(req.prompt).to(self.device, torch.long)[None]
+        plen = prompt.shape[1]
+        # Decode writes position p into slot p % Sc; p < Sc keeps every
+        # written slot empty beforehand (see models/attention.py).
+        if plen + req.max_new_tokens - 1 > self.Sc:
+            raise ValueError(
+                f"request {req.uid}: {plen} + {req.max_new_tokens} tokens exceed "
+                f"max_seq={self.Sc}"
+            )
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, cache1 = self.model.prefill(self.params, prompt)
+        tok = sample_token(logits[0], req.sampling, req.uid, 0)
+        self._splice(cache1, slot, plen)
+        _sync(self.device)
+        self.active[slot] = True
+        self.pos[slot] = plen
+        self.last_tok[slot] = tok
+        self._slot_req[slot] = req
+        self._remaining[slot] = req.max_new_tokens - 1
+        self.results[req.uid] = GenResult(
+            req.uid, [tok], prefill_s=time.perf_counter() - t0
+        )
+        if self._remaining[slot] <= 0 or tok == req.eos_token:
+            self._finish(slot)
+        return slot
+
+    def _finish(self, slot: int) -> None:
+        self.active[slot] = False
+        self._slot_req[slot] = None
+        self._remaining[slot] = 0
+
+    def step(self) -> int:
+        """One lock-step decode tick for all active slots. Returns #active."""
+        if self.n_active == 0:
+            return 0
+        _sync(self.device)
+        t0 = time.perf_counter()
+        tok = torch.tensor(self.last_tok, dtype=torch.long, device=self.device)
+        pos = torch.tensor(self.pos, dtype=torch.int32, device=self.device)
+        logits, self._cache = self.model.decode(self.params, self._cache, tok, pos)
+        nxt = torch.argmax(logits, dim=-1).tolist()
+        # per-slot stochastic sampling where requested (greedy is batched)
+        for slot in range(self.M):
+            req = self._slot_req[slot]
+            if req is not None and req.sampling.temperature > 0.0:
+                nxt[slot] = sample_token(
+                    logits[slot], req.sampling, req.uid,
+                    len(self.results[req.uid].tokens),
+                )
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        for slot in range(self.M):
+            if not self.active[slot]:
+                continue
+            self.pos[slot] += 1
+            self.last_tok[slot] = nxt[slot]
+            req = self._slot_req[slot]
+            res = self.results[req.uid]
+            res.tokens.append(nxt[slot])
+            res.decode_s += dt
+            self._remaining[slot] -= 1
+            if self._remaining[slot] <= 0 or nxt[slot] == req.eos_token:
+                self._finish(slot)
+        return self.n_active
+
+    def generate(self, reqs: List[GenRequest]) -> Dict[int, GenResult]:
+        """Convenience: run a request list to completion (batched greedily)."""
+        pending = list(reqs)
+        while pending or self.n_active:
+            while pending and self.free_slots():
+                self.submit(pending.pop(0))
+            if self.n_active:
+                self.step()
+        return {r.uid: self.results[r.uid] for r in reqs}

@@ -1,0 +1,111 @@
+"""The port stands alone: it imports neither JAX nor anything of `repro`,
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_))",
+    re.MULTILINE,
+)
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
+print(json.dumps({"imported": names, "forbidden": bad}))
+"""
+
+
+def test_importing_every_module_pulls_in_no_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["forbidden"] == []
+    for mod in ("repro_torch.kernels.ops", "repro_torch.serving.icc",
+                "repro_torch.launch.serve", "repro_torch.convert"):
+        assert mod in res["imported"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")] + ["chip_smoke.py"]
+))
+def test_source_has_no_jax_or_repro_import(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+class TestEntryPointsNeedTheCard:
+    def _model(self):
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+
+        cfg = dataclasses.replace(get_config("llama2-7b", smoke=True), dtype="float32")
+        return build_model(cfg)
+
+    def test_model_init(self, no_card):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            self._model().init(seed=0)
+        assert self._model().init(seed=0, device="cpu").embed.device.type == "cpu"
+
+    def test_init_cache(self, no_card):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            self._model().init_cache(2, 8)
+
+    def test_convert(self, no_card):
+        from repro_torch.convert import convert_cache
+
+        cache = {"k": np.zeros((1, 1, 2, 1, 4), np.float32),
+                 "v": np.zeros((1, 1, 2, 1, 4), np.float32),
+                 "pos": np.full((1, 2), -1, np.int32)}
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert_cache(cache)
+        assert convert_cache(cache, device="cpu")["pos"].dtype == torch.int32
+
+    def test_engine(self, no_card):
+        from repro_torch.serving import InferenceEngine
+
+        m = self._model()
+        p = m.init(seed=0, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            InferenceEngine(m, p, max_batch=1, max_seq=8)
+        assert InferenceEngine(m, p, max_batch=1, max_seq=8, device="cpu").n_active == 0
+
+    def test_serve_cli(self, no_card, monkeypatch):
+        from repro_torch.launch import serve
+
+        monkeypatch.setattr(sys, "argv", ["serve"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main()
+
+    def test_kernel_wrapper_refuses_cpu_tensors(self):
+        from repro_torch.kernels.rmsnorm import rmsnorm
+
+        with pytest.raises(ValueError, match="on the card"):
+            rmsnorm(torch.ones(2, 8), torch.ones(8))

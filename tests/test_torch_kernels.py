@@ -1,0 +1,231 @@
+"""The port's kernels: plain versions against the Pallas kernels (interpret
+mode, as tests/test_kernels.py runs them) on the CPU, and the CUDA kernels
+against their plain versions on the card (marked `cuda`, skipped without
+one). Same shapes, masks and tolerances (`TOLS`) as tests/test_kernels.py.
+
+JAX is imported only by the `pallas` fixture, so the card machine, which has
+no JAX, runs the `cuda` tests with `pytest -m cuda` and skips the rest.
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+FLASH_SHAPES = [  # B, H, K, Sq, Sk, dh, bq, bk — as tests/test_kernels.py
+    (1, 4, 4, 32, 32, 16, 16, 16),  # MHA
+    (2, 8, 2, 48, 48, 32, 16, 16),  # GQA 4:1
+    (1, 4, 1, 40, 72, 16, 16, 32),  # MQA, Sq != Sk, ragged blocks
+    (1, 2, 2, 17, 33, 8, 16, 16),  # non-divisible padding
+]
+MASKS = [(True, 0), (True, 8), (False, 0)]
+DECODE_SHAPES = [(2, 4, 2, 64, 16, 16), (1, 8, 8, 70, 32, 32)]  # B, H, K, Sc, dh, bk
+
+
+@pytest.fixture(scope="module")
+def pallas():
+    """The reference Pallas kernels and jnp (absent on the card machine)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels.decode_attention import decode_attention
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.rmsnorm import rmsnorm
+
+    return types.SimpleNamespace(jnp=jax.numpy, flash=flash_attention,
+                                 decode=decode_attention, rmsnorm=rmsnorm)
+
+
+def randn(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def both(jnp, x, dtype):
+    """The same values as a jnp array and a torch tensor of `dtype`."""
+    return jnp.asarray(x).astype(getattr(jnp, dtype)), torch.from_numpy(x).to(TORCH[dtype])
+
+
+def f32(a):
+    return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+
+
+def decode_inputs(B, H, K, Sc, dh):
+    q, k, v = randn(0, (B, H, dh)), randn(1, (B, K, Sc, dh)), randn(2, (B, K, Sc, dh))
+    kv_pos = np.broadcast_to(np.arange(Sc, dtype=np.int32), (B, Sc)).copy()
+    kv_pos[kv_pos >= Sc - 7] = -1  # empty tail slots
+    pos = np.full((B,), Sc - 8, np.int32)
+    return q, k, v, kv_pos, pos
+
+
+class TestPlainAgainstPallas:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sq,Sk,dh,bq,bk", FLASH_SHAPES)
+    def test_flash_attention(self, pallas, dtype, B, H, K, Sq, Sk, dh, bq, bk):
+        qj, qt = both(pallas.jnp, randn(0, (B, H, Sq, dh)), dtype)
+        kj, kt = both(pallas.jnp, randn(1, (B, K, Sk, dh)), dtype)
+        vj, vt = both(pallas.jnp, randn(2, (B, K, Sk, dh)), dtype)
+        tol = TOLS[dtype]
+        for causal, window in MASKS:
+            if causal and Sq > Sk:
+                continue
+            o = pallas.flash(qj, kj, vj, causal=causal, window=window,
+                             block_q=bq, block_k=bk, interpret=True)
+            r = ref.flash_attention(qt.transpose(1, 2), kt.transpose(1, 2),
+                                    vt.transpose(1, 2), causal=causal, window=window)
+            assert r.dtype == TORCH[dtype]
+            np.testing.assert_allclose(f32(r.transpose(1, 2)), f32(o), rtol=tol, atol=tol)
+
+    def test_flash_fully_masked_rows_emit_zero(self, pallas):
+        """Sq > Sk with a window: rows 11.. see no key (k < 8), both give 0."""
+        q, k, v = randn(0, (1, 2, 32, 16)), randn(1, (1, 2, 8, 16)), randn(2, (1, 2, 8, 16))
+        a = pallas.jnp.asarray
+        o = pallas.flash(a(q), a(k), a(v), causal=False, window=4, block_q=16, block_k=8,
+                         interpret=True)
+        r = ref.flash_attention(*(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+                                causal=False, window=4)
+        np.testing.assert_allclose(f32(r.transpose(1, 2)), f32(o), rtol=2e-5, atol=2e-5)
+        assert float(r[:, 11:].abs().max()) == 0.0
+
+    def test_flash_kv_len_equals_truncated_keys(self):
+        q, k, v = (torch.from_numpy(randn(i, (1, 12, 2, 16))) for i in range(3))
+        r = ref.flash_attention(q, k, v, causal=False, kv_len=5)
+        torch.testing.assert_close(
+            r, ref.flash_attention(q, k[:, :5], v[:, :5], causal=False), rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sc,dh,bk", DECODE_SHAPES)
+    def test_decode_attention(self, pallas, dtype, B, H, K, Sc, dh, bk):
+        q, k, v, kv_pos, pos = decode_inputs(B, H, K, Sc, dh)
+        qj, qt = both(pallas.jnp, q, dtype)
+        kj, kt = both(pallas.jnp, k, dtype)
+        vj, vt = both(pallas.jnp, v, dtype)
+        tol = TOLS[dtype]
+        for window in (0, 16):
+            a = pallas.jnp.asarray
+            o = pallas.decode(qj, kj, vj, a(kv_pos), a(pos), window=window, block_k=bk,
+                              interpret=True)
+            r = ref.decode_attention(qt, kt.transpose(1, 2), vt.transpose(1, 2),
+                                     torch.from_numpy(kv_pos), torch.from_numpy(pos),
+                                     window=window)
+            np.testing.assert_allclose(f32(r), f32(o), rtol=tol, atol=tol)
+
+    def test_decode_ring_cache(self, pallas):
+        """Out-of-order absolute positions (ring buffer) mask correctly."""
+        B, H, K, Sc, dh = 1, 2, 2, 16, 8
+        q, k, v = randn(0, (B, H, dh)), randn(1, (B, K, Sc, dh)), randn(2, (B, K, Sc, dh))
+        kv_pos = np.asarray([[16, 17, 18, 19, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15]],
+                            np.int32)
+        pos = np.asarray([19], np.int32)
+        a = pallas.jnp.asarray
+        o = pallas.decode(a(q), a(k), a(v), a(kv_pos), a(pos), window=8, block_k=8,
+                          interpret=True)
+        r = ref.decode_attention(torch.from_numpy(q), torch.from_numpy(k).transpose(1, 2),
+                                 torch.from_numpy(v).transpose(1, 2),
+                                 torch.from_numpy(kv_pos), torch.from_numpy(pos), window=8)
+        np.testing.assert_allclose(f32(r), f32(o), rtol=2e-5, atol=2e-5)
+
+    def test_decode_all_empty_row_emits_zero(self, pallas):
+        """The kernel's rule (0), not repro.kernels.ref's mean(V)."""
+        B, H, K, Sc, dh = 2, 4, 2, 32, 16
+        q, k, v, kv_pos, pos = decode_inputs(B, H, K, Sc, dh)
+        kv_pos[1] = -1
+        a = pallas.jnp.asarray
+        o = pallas.decode(a(q), a(k), a(v), a(kv_pos), a(pos), block_k=16, interpret=True)
+        r = ref.decode_attention(torch.from_numpy(q), torch.from_numpy(k).transpose(1, 2),
+                                 torch.from_numpy(v).transpose(1, 2),
+                                 torch.from_numpy(kv_pos), torch.from_numpy(pos))
+        np.testing.assert_allclose(f32(r), f32(o), rtol=2e-5, atol=2e-5)
+        assert float(r[1].abs().max()) == 0.0
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(8, 128), (3, 37, 64), (1, 256)])
+    def test_rmsnorm(self, pallas, dtype, shape):
+        xj, xt = both(pallas.jnp, randn(3, shape), dtype)
+        g = (1.0 + 0.1 * randn(4, shape[-1:])).astype(np.float32)
+        o = pallas.rmsnorm(xj, pallas.jnp.asarray(g), block_rows=16, interpret=True)
+        r = ref.rmsnorm(xt, torch.from_numpy(g))
+        assert r.dtype == xt.dtype  # the kernel's dtype, not a promotion
+        np.testing.assert_allclose(f32(r), f32(o), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+class TestDispatchOnCpu:
+    def test_cpu_tensors_take_plain_path_without_launch(self):
+        rng = np.random.default_rng(0)
+        before = dict(ops.LAUNCHES)
+        x = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+        g = torch.ones(64)
+        assert torch.equal(ops.rmsnorm(x, g), ref.rmsnorm(x, g))
+        q = torch.from_numpy(rng.standard_normal((1, 8, 2, 2, 16)).astype(np.float32))
+        k = torch.from_numpy(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
+        out = ops.flash_attention(q, k, k, causal=True)
+        assert torch.equal(out.view(1, 8, 4, 16), ref.flash_attention(q.view(1, 8, 4, 16), k, k))
+        kv_pos = torch.arange(8, dtype=torch.int32)[None]
+        pos = torch.tensor([5], dtype=torch.int32)
+        d = ops.decode_attention(q[:, 0].reshape(1, 4, 16), k, k, kv_pos, pos)
+        assert d.shape == (1, 4, 16)
+        assert ops.LAUNCHES == before
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sq,Sk,dh", [
+        (1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32), (1, 4, 1, 40, 72, 16),
+        (1, 8, 8, 130, 130, 32), (1, 4, 4, 15, 15, 128),
+    ])
+    def test_flash_attention(self, card, dtype, B, H, K, Sq, Sk, dh):
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        t = TORCH[dtype]
+        q = torch.from_numpy(randn(0, (B, Sq, H, dh))).to(card, t)
+        k = torch.from_numpy(randn(1, (B, Sk, K, dh))).to(card, t)
+        v = torch.from_numpy(randn(2, (B, Sk, K, dh))).to(card, t)
+        for causal, window in MASKS:
+            if causal and Sq > Sk:
+                continue
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            r = ref.flash_attention(q, k, v, causal=causal, window=window)
+            torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sc,dh", [(2, 4, 2, 64, 16), (1, 8, 8, 70, 32),
+                                             (8, 32, 32, 576, 128)])
+    def test_decode_attention(self, card, dtype, B, H, K, Sc, dh):
+        from repro_torch.kernels.decode_attention import decode_attention
+
+        t = TORCH[dtype]
+        q, k, v, kv_pos, pos = decode_inputs(B, H, K, Sc, dh)
+        kv_pos[0] = -1  # an all-empty row
+        args = (torch.from_numpy(q).to(card, t),
+                torch.from_numpy(k).transpose(1, 2).to(card, t),
+                torch.from_numpy(v).transpose(1, 2).to(card, t),
+                torch.from_numpy(kv_pos).to(card), torch.from_numpy(pos).to(card))
+        for window in (0, 16):
+            o = decode_attention(*args, window=window)
+            r = ref.decode_attention(*args, window=window)
+            torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(8, 128), (3, 37, 64), (1, 256), (512, 4096)])
+    def test_rmsnorm(self, card, dtype, shape):
+        from repro_torch.kernels.rmsnorm import rmsnorm
+
+        x = torch.from_numpy(randn(3, shape)).to(card, TORCH[dtype])
+        for g in (torch.from_numpy(1.0 + 0.1 * randn(4, shape[-1:])).to(card),
+                  torch.ones(shape[-1], device=card, dtype=TORCH[dtype])):
+            torch.testing.assert_close(rmsnorm(x, g).float(), ref.rmsnorm(x, g).float(),
+                                       rtol=TOLS[dtype], atol=TOLS[dtype])
