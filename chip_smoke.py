@@ -6,7 +6,10 @@
 Phases, each of which must pass or the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of every kernel in src/repro_torch/csrc/ with nvcc (sm_90a);
+  2. build of every kernel in src/repro_torch/csrc/ with nvcc (sm_90a), and
+     from `cuobjdump -sass` the count of HGMMA (wgmma), UTMALDG (TMA load)
+     and LDGSTS (cp.async) instructions per kernel; the bf16 flash kernel
+     must hold HGMMA;
   3. each kernel against its plain PyTorch version on the card, f32 (2e-5)
      and bf16 (2e-2), at the CPU tests' shapes and the main path's; then,
      at the main path's shapes, the kernel's time, the plain version's, one
@@ -18,7 +21,8 @@ Phases, each of which must pass or the script exits non-zero:
      seed, calibrated with `measure_service_time`, then served through
      `InferenceEngine` under `ICCServer` (priority and fifo) over a Poisson
      trace; every kernel's launch count must have grown as one prefill or
-     decode step predicts.
+     decode step predicts. Then a profile of a batch-8 decode step and of a
+     batch-1 step over a ~560-slot cache: device-busy and kernel ms per step.
 
 Before the last line it prints the card line and one JSON line
 {"kernels": [...]}; the last line is
@@ -32,6 +36,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -87,6 +92,30 @@ def phase_card(torch):
 # ---------------------------------------------------------------------------
 
 
+def sass_counts(lib_path):
+    """{kernel label: {op: count}} from `cuobjdump -sass` of the library."""
+    import re
+
+    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    counts, label = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:  # e.g. ..._kernelI13__nv_bfloat16Li128EEv... -> kernel<bf16,128>
+            t = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|6__half|f)L[ij](\d+)E", m.group(1))
+            label = f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}>" if t else m.group(1)
+            counts[label] = dict.fromkeys(ops, 0)
+        elif label is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[label][op] += 1
+    return counts
+
+
 def phase_build():
     import re
 
@@ -96,13 +125,23 @@ def phase_build():
     _build.library()
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all csrc/*.cu) into "
         f"{_build.BUILD_ROOT.relative_to(ROOT)}")
-    log = next(_build.BUILD_ROOT.glob("*/build.log"), None)
-    if log is not None:  # absent when an earlier run built the library
+    log = _build.library_path().parent / "build.log"
+    if log.is_file():  # absent when an earlier run built the library
         text = log.read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
         say(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"{sum(1 for b in spills if b)} with spill stores (max {max(spills)} bytes)")
+    counts = sass_counts(_build.library_path())
+    for label, c in sorted(counts.items()):
+        if "attention" in label:
+            say(f"sass {label}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    tc = [c for label, c in counts.items() if label.startswith("flash_attention_tc_kernel<bf16")]
+    check(len(tc) == 4 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc),
+          "the bf16 flash kernels must hold HGMMA and UTMALDG")
+    fma = [label for label in counts if label.startswith("flash_attention_kernel<")]
+    check(fma and all("<f32," in label for label in fma),
+          f"only f32 may reach the FMA flash kernel: {fma}")
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +211,7 @@ def phase_kernels(torch, timer):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import decode_attention, decode_splits
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -196,7 +235,9 @@ def phase_kernels(torch, timer):
                 n_checks += 1
         for B, H, K, Sq, Sk, dh in [(1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32),
                                      (1, 4, 1, 40, 72, 16), (1, 2, 2, 17, 33, 16),
-                                     (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128)]:
+                                     (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128),
+                                     (1, 32, 32, 1000, 1000, 128),  # ragged 64-row tiles
+                                     (1, 32, 8, 200, 200, 128), (1, 32, 8, 200, 200, 64)]:
             q, k, v = randn((B, Sq, H, dh), dtype), randn((B, Sk, K, dh), dtype), \
                 randn((B, Sk, K, dh), dtype)
             for causal, window, kv_len in [(True, 0, None), (True, 8, None),
@@ -215,6 +256,8 @@ def phase_kernels(torch, timer):
             (1, 8, 8, 70, 32, [63]),
             (8, 32, 32, 576, 128, [16 + 2 * b for b in range(8)]),
             (1, 32, 32, 576, 128, [576]),
+            (2, 8, 2, 1000, 64, [1000, 0]),  # splits > 1 and an all-empty row
+            (1, 32, 32, 576, 128, [40]),  # most splits empty
         ]:
             q = randn((B, H, dh), dtype)
             k, v = randn((B, Sc, K, dh), dtype), randn((B, Sc, K, dh), dtype)
@@ -229,14 +272,33 @@ def phase_kernels(torch, timer):
                 if 0 in lengths:
                     check(float(out[lengths.index(0)].abs().max()) == 0.0,
                           "decode_attention: an all-empty row must emit 0")
-        # ring cache: out-of-order absolute positions with a window
-        q, k, v = randn((1, 2, 16), dtype), randn((1, 16, 2, 16), dtype), randn((1, 16, 2, 16), dtype)
-        kv_pos = torch.tensor([[16, 17, 18, 19] + list(range(4, 16))], dtype=torch.int32).cuda()
-        pos = torch.tensor([19], dtype=torch.int32).cuda()
-        err = assert_close(torch, decode_attention(q, k, v, kv_pos, pos, window=8),
-                           ref.decode_attention(q, k, v, kv_pos, pos, window=8), dtype,
-                           f"decode_attention ring cache {dtype}")
-        worst["decode_attention"] = max(worst["decode_attention"], err)
+        # ring caches: out-of-order absolute positions with a window; the
+        # second (positions 0..700 at slot p % 576, window 200) crosses a
+        # split boundary at batch 1
+        ring = torch.full((1, 576), -1, dtype=torch.int32)
+        ring[0, torch.arange(701) % 576] = torch.arange(701, dtype=torch.int32)
+        for H, Sc, dh, kv_pos, p, window in [
+            (2, 16, 16, torch.tensor([[16, 17, 18, 19] + list(range(4, 16))]), 19, 8),
+            (32, 576, 128, ring, 700, 200),
+        ]:
+            q, k, v = randn((1, H, dh), dtype), randn((1, Sc, H, dh), dtype), \
+                randn((1, Sc, H, dh), dtype)
+            kv_pos = kv_pos.to(torch.int32).cuda()
+            pos = torch.tensor([p], dtype=torch.int32).cuda()
+            out = decode_attention(q, k, v, kv_pos, pos, window=window)
+            err = assert_close(torch, out, ref.decode_attention(q, k, v, kv_pos, pos, window=window),
+                               dtype, f"decode_attention ring cache Sc={Sc} {dtype}")
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+            n_checks += 1
+        # splits > 1: the merge runs in a fixed order, so two calls agree bit for bit
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        check(decode_splits(1, 32, 576, n_sm) > 1, "batch 1 over 576 slots should split")
+        q, k, v = randn((1, 32, 128), dtype), randn((1, 576, 32, 128), dtype), \
+            randn((1, 576, 32, 128), dtype)
+        kv_pos, pos = decode_positions(torch, 1, 576, [576])
+        check(torch.equal(decode_attention(q, k, v, kv_pos, pos),
+                          decode_attention(q, k, v, kv_pos, pos)),
+              f"decode_attention at splits > 1 is not bit-identical between calls ({dtype})")
         n_checks += 1
     torch.cuda.synchronize()
     say(f"kernels: {n_checks} kernel-vs-plain checks passed; worst max|err| "
@@ -271,7 +333,7 @@ def phase_kernels(torch, timer):
             lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
 
     H, dh = 32, 128
-    for S in (15, 512):
+    for S in (15, 512, 2048):  # Table-I prompt, calibration prompt, operations-bound
         q, k, v = randn((1, S, H, dh), "bfloat16"), randn((1, S, H, dh), "bfloat16"), \
             randn((1, S, H, dh), "bfloat16")
         pairs = S * (S + 1) // 2  # causal (q, k) pairs each head computes
@@ -442,28 +504,43 @@ def phase_full_width(torch):
 
 
 def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
-    """Where a batch-8 decode step's time goes: wall per step without the
-    profiler, then device busy time per step by kernel group under it."""
+    """Where a decode step's time goes, for the ICC batch (M slots, 15-token
+    prompts) and for one sequence over a nearly full cache (a 552-token
+    prompt in Sc slots, so the steps attend over ~553-558 valid slots): wall
+    per step without the profiler, then device busy time per step by kernel
+    group under it."""
+    from repro_torch.serving import GenRequest, InferenceEngine
+
+    gen = torch.Generator().manual_seed(7)
+    for batch, plen, label in ((M, 15, "ICC batch"), (1, 552, "one long sequence")):
+        eng = InferenceEngine(model, params, max_batch=batch, max_seq=Sc, device="cuda")
+        for uid in range(batch):
+            eng.submit(GenRequest(uid=uid, prompt=torch.randint(0, cfg.vocab_size, (plen,),
+                                                                generator=gen),
+                                  max_new_tokens=2 * steps + 3))
+        eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        groups, launches = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
+        busy = sum(groups.values()) / steps / 1e3
+        say(f"decode step profile ({label}: batch {batch}, {plen}-token prompts, Sc {Sc}, "
+            f"{steps} steps): wall {wall:.3f} ms/step unprofiled; device busy {busy:.3f} "
+            f"ms/step ({100 * busy / wall:.1f}% of wall), "
+            + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items())
+            + f"; {launches / steps:.0f} kernel launches/step")
+
+
+def _device_time(torch, fn):
+    """Device time (us) by kernel group and the kernel count of fn(), from
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import GenRequest, InferenceEngine
-
-    eng = InferenceEngine(model, params, max_batch=M, max_seq=Sc, device="cuda")
-    gen = torch.Generator().manual_seed(7)
-    for uid in range(M):
-        eng.submit(GenRequest(uid=uid, prompt=torch.randint(0, cfg.vocab_size, (15,),
-                                                            generator=gen),
-                              max_new_tokens=2 * steps + 3))
-    eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    wall = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
+        fn()
         torch.cuda.synchronize()
     groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
     launches = 0
@@ -483,11 +560,7 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
             groups["gemm"] += us
         else:
             groups["other"] += us
-    busy = sum(groups.values()) / steps / 1e3
-    say(f"decode step profile (batch {M}, {steps} steps): wall {wall:.3f} ms/step "
-        f"unprofiled; device busy {busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall), "
-        + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items())
-        + f"; {launches / steps:.0f} kernel launches/step")
+    return groups, launches
 
 
 def main() -> int:

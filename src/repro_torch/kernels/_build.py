@@ -20,11 +20,12 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "library", "check", "stream_of", "dtype_code"]
+__all__ = ["LAUNCHES", "library", "library_path", "check", "stream_of", "dtype_code",
+           "row_strides", "check_aligned"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -44,7 +45,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F, _I, _I, _P],
     "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
-    "decode_attention_fwd": [_P] * 6 + [_I] * 4 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
+    "decode_attention_fwd": [_P] * 8 + [_I] * 5 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -101,11 +102,16 @@ def _build(out: Path) -> None:
         os.replace(lib, out)  # atomic: a concurrent process never sees half a file
 
 
+def library_path() -> Path:
+    """Where the shared library of the present sources is (or will be) built."""
+    return BUILD_ROOT / _sources_hash() / "librepro_kernels.so"
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _LIB
     if _LIB is None:
-        out = BUILD_ROOT / _sources_hash() / "librepro_kernels.so"
+        out = library_path()
         if not out.is_file():
             _build(out)
         lib = ctypes.CDLL(str(out))
@@ -131,3 +137,30 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {t.dtype} not supported by the kernel")
     return DTYPE_CODES[t.dtype]
+
+
+ALIGN = 16  # bytes: TMA maps and cp.async copies need aligned bases and strides
+
+
+def row_strides(shape: Sequence[int], strides: Sequence[int]) -> Tuple[int, int, int]:
+    """(batch, seq, head) element strides of a (B, S, heads, dh) tensor, with
+    the stride of each size-1 axis replaced by the contiguous one: it is
+    never stepped, but the kernels' alignment rule still reads it."""
+    out = []
+    inner_stride, inner_size = 1, shape[3]  # the dh axis
+    for axis in (2, 1, 0):
+        s = strides[axis] if shape[axis] > 1 else inner_stride * inner_size
+        out.append(s)
+        inner_stride, inner_size = s, shape[axis]
+    sh, ss, sb = out
+    return sb, ss, sh
+
+
+def check_aligned(what: str, data_ptr: int, strides: Sequence[int], itemsize: int) -> None:
+    """Raise unless the base pointer and every stride (elements, times
+    `itemsize` bytes) are multiples of 16 bytes."""
+    if data_ptr % ALIGN or any((s * itemsize) % ALIGN for s in strides):
+        raise ValueError(
+            f"{what} is not 16-byte aligned (base pointer {data_ptr:#x}, strides "
+            f"{tuple(strides)} x {itemsize} bytes)"
+        )

@@ -3,20 +3,59 @@
 Replaces the Pallas kernel `repro/kernels/decode_attention.py:decode_attention`;
 the plain version is `ref.decode_attention`. The kernel reads the cache in
 the model's (B, Sc, K, dh) layout through strides.
+
+Few long sequences leave most SMs idle with one CTA per (row, KV head), so
+the cache is split into ranges of whole 64-slot tiles (`decode_splits`),
+one CTA each, merged by the last CTA of each (row, KV head) in the same
+launch. The merge counters are zeroed once per device and left zero by
+every call; calls that share them must run on one stream.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Dict
 
 import torch
 
 from . import _build
 from .flash_attention import HEAD_DIMS
 
-__all__ = ["decode_attention", "MAX_GROUP"]
+__all__ = ["decode_attention", "decode_splits", "MAX_GROUP", "MAX_SPLITS", "TILE"]
 
 MAX_GROUP = 8  # query heads per KV head that one CTA holds
+MAX_SPLITS = 64  # the kernel's bound on splits per (row, KV head)
+TILE = 64  # cache slots per tile: a split holds whole tiles
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_splits(B: int, K: int, Sc: int, n_sm: int) -> int:
+    """How many splits of the cache each (row, KV head) gets: enough CTAs for
+    about one wave of `n_sm` SMs, each split whole tiles, never more splits
+    than tiles, and 1 when B * K CTAs already fill the card."""
+    n_tiles = max(1, -(-Sc // TILE))
+    if B * K >= n_sm:
+        return 1
+    want = min(-(-n_sm // (B * K)), n_tiles, MAX_SPLITS)
+    per = -(-n_tiles // want)  # tiles per split
+    return -(-n_tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n int32 zeros on `device`, kept across calls."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 2 * (0 if c is None else c.numel())), dtype=torch.int32,
+                        device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def decode_attention(
@@ -49,12 +88,25 @@ def decode_attention(
     if (q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1
             or kv_pos.stride(-1) != 1 or not pos.is_contiguous()):
         raise ValueError("decode_attention kernel: inner axes must be contiguous")
+    kst, vst = (_build.row_strides(t.shape, t.stride()) for t in (k, v))
+    for name, t, st in (("k", k, kst), ("v", v, vst)):  # 16-byte cp.async copies of rows
+        _build.check_aligned(f"decode_attention kernel: {name}", t.data_ptr(), st,
+                             t.element_size())
+    splits = decode_splits(B, K, Sc, _sm_count(q.device.index))
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty(B * K * splits * (H // K) * (dh + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counters(q.device, B * K)
     lib = _build.library()
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, H, K, Sc,
-        *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], kv_pos.stride(0),
+        pos.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        B, H, K, Sc, splits,
+        *q.stride()[:2], *kst, *vst, kv_pos.stride(0),
         *out.stride()[:2], dh, int(window), 1.0 / math.sqrt(dh),
         _build.dtype_code(q, "decode_attention"), _build.stream_of(q),
     )

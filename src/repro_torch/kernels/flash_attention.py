@@ -3,6 +3,11 @@
 Replaces the Pallas kernel `repro/kernels/flash_attention.py:flash_attention`;
 the plain version is `ref.flash_attention`. The kernel reads q, k, v and
 writes o through strides, so callers pass the model layout as it is.
+
+The dtype picks the kernel: bf16 and f16 take the tensor-core kernel (TMA
+loads, wgmma), f32 the FMA kernel. The tensor-core kernel's TMA maps need
+16-byte aligned base pointers and strides (`_build.check_aligned`); anything
+else raises rather than take another kernel.
 """
 
 from __future__ import annotations
@@ -14,9 +19,10 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "HEAD_DIMS", "TMA_DTYPES"]
 
-HEAD_DIMS = (16, 32, 64, 128)  # dh values the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)  # dh values the kernels are instantiated for
+TMA_DTYPES = (torch.bfloat16, torch.float16)  # dtypes of the tensor-core kernel
 
 
 def flash_attention(
@@ -44,13 +50,17 @@ def flash_attention(
         raise ValueError(f"flash_attention kernel: dh={dh} not in {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention kernel: the dh axis must be contiguous")
+    strides = [_build.row_strides(t.shape, t.stride()) for t in (q, k, v)]
+    if q.dtype in TMA_DTYPES:  # the tensor-core kernel's TMA maps
+        for name, t, st in zip("qkv", (q, k, v), strides):
+            _build.check_aligned(f"flash_attention kernel: {name}", t.data_ptr(), st,
+                                 t.element_size())
     kv_len = Sk if kv_len is None else min(int(kv_len), Sk)
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     lib = _build.library()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, K, Sq, Sk,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        B, H, K, Sq, Sk, *strides[0], *strides[1], *strides[2], *out.stride()[:3],
         dh, int(causal), int(window), kv_len, 1.0 / math.sqrt(dh),
         _build.dtype_code(q, "flash_attention"), _build.stream_of(q),
     )

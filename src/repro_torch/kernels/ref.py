@@ -10,7 +10,8 @@ kernels, these follow the kernels:
   * rmsnorm returns x's dtype even when gamma is f32.
 
 The CPU path of `ops` runs these; `chip_smoke.py` holds each kernel against
-its plain version on the card.
+its plain version on the card. `decode_attention_split` is the decode
+kernel's split-and-merge rule written out plainly, for the tests.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention", "decode_attention", "rmsnorm"]
+__all__ = ["flash_attention", "decode_attention", "decode_attention_split", "rmsnorm"]
 
 NEG_INF = -1e30
 
@@ -90,6 +91,53 @@ def decode_attention(
         ok = ok & (kv_pos > p - window)
     out = _masked_softmax_mix(s, ok[:, None, None, :], vf)  # (B,K,G,dh)
     return out.reshape(B, H, dh).to(q.dtype)
+
+
+def decode_attention_split(
+    q: torch.Tensor,  # (B, H, dh)
+    k: torch.Tensor,  # (B, Sc, K, dh)
+    v: torch.Tensor,  # (B, Sc, K, dh)
+    kv_pos: torch.Tensor,  # (B, Sc)
+    pos: torch.Tensor,  # (B,)
+    *,
+    window: int = 0,
+    splits: int = 1,
+    tile: int = 64,
+) -> torch.Tensor:
+    """`decode_attention` as the split-K kernel computes it: the cache cut
+    into `splits` ranges of whole `tile`-slot tiles, each reduced to f32
+    (m, l, acc) with m = -1e30 and l = 0 where it has no valid slot, then
+    merged in split order with weights exp(m_s - M); a row with no valid
+    slot in any split gives 0."""
+    B, H, dh = q.shape
+    Sc, K = k.shape[1], k.shape[2]
+    G = H // K
+    qf = q.float().reshape(B, K, G, dh)
+    s = (qf @ k.float().permute(0, 2, 3, 1)) * (1.0 / math.sqrt(dh))  # (B,K,G,Sc)
+    vf = v.float().permute(0, 2, 1, 3)  # (B,K,Sc,dh)
+    p = pos.to(kv_pos.dtype)[:, None]
+    ok = (kv_pos >= 0) & (kv_pos <= p)
+    if window > 0:
+        ok = ok & (kv_pos > p - window)
+    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    n_tiles = -(-Sc // tile)
+    per = -(-n_tiles // splits) * tile  # slots per split
+    ms, ls, accs = [], [], []
+    for lo in range(0, per * splits, per):
+        ss, vs = s[..., lo:lo + per], vf[..., lo:lo + per, :]
+        m = ss.amax(dim=-1, keepdim=True) if ss.shape[-1] else torch.full_like(s[..., :1], NEG_INF)
+        e = torch.where(m <= NEG_INF / 2, torch.zeros_like(ss), torch.exp(ss - m))
+        ms.append(m)
+        ls.append(e.sum(dim=-1, keepdim=True))
+        accs.append(e @ vs)
+    M = torch.stack(ms).amax(dim=0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(accs[0])
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.where(M <= NEG_INF / 2, torch.zeros_like(m), torch.exp(m - M))
+        L = L + w * l
+        A = A + w * acc
+    return (A / L.clamp_min(1e-30)).reshape(B, H, dh).to(q.dtype)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -17,7 +17,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
-TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+CARD_TOLS = dict(TOLS, float16=TOLS["bfloat16"])  # f16 on the card: bf16's bound
 
 FLASH_SHAPES = [  # B, H, K, Sq, Sk, dh, bq, bk — as tests/test_kernels.py
     (1, 4, 4, 32, 32, 16, 16, 16),  # MHA
@@ -60,6 +61,22 @@ def decode_inputs(B, H, K, Sc, dh):
     kv_pos[kv_pos >= Sc - 7] = -1  # empty tail slots
     pos = np.full((B,), Sc - 8, np.int32)
     return q, k, v, kv_pos, pos
+
+
+def split_positions(B, Sc, case):
+    """(kv_pos, pos, window) for the split-K decode cases."""
+    kv_pos = np.full((B, Sc), -1, np.int32)
+    window = 0
+    if case == "ring":  # positions 0..700 written at slot p % Sc, window 200
+        p = 700
+        for x in range(p + 1):
+            kv_pos[0, x % Sc] = x
+        window = 200
+        return kv_pos, np.full((B,), p, np.int32), window
+    lengths = {"rows": [Sc, 0], "short": [40], "full": [Sc]}[case]
+    for b, n in enumerate(lengths):
+        kv_pos[b, :n] = np.arange(n)
+    return kv_pos, np.asarray([max(n - 1, 0) for n in lengths], np.int32), window
 
 
 class TestPlainAgainstPallas:
@@ -182,10 +199,13 @@ def card():
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     @pytest.mark.parametrize("B,H,K,Sq,Sk,dh", [
         (1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32), (1, 4, 1, 40, 72, 16),
         (1, 8, 8, 130, 130, 32), (1, 4, 4, 15, 15, 128),
+        # tensor-core kernel: ragged 64-row tiles, dh 64 and 128, GQA
+        (1, 4, 4, 200, 200, 64), (2, 4, 4, 130, 130, 128), (1, 32, 8, 200, 200, 128),
+        (1, 8, 2, 77, 140, 64),
     ])
     def test_flash_attention(self, card, dtype, B, H, K, Sq, Sk, dh):
         from repro_torch.kernels.flash_attention import flash_attention
@@ -199,7 +219,31 @@ class TestKernelsOnCard:
                 continue
             o = flash_attention(q, k, v, causal=causal, window=window)
             r = ref.flash_attention(q, k, v, causal=causal, window=window)
+            torch.testing.assert_close(o.float(), r.float(), rtol=CARD_TOLS[dtype],
+                                       atol=CARD_TOLS[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_flash_attention_kv_len_and_long_ragged(self, card, dtype):
+        """kv_len masks and 16 ragged 64-row tiles (Sq = Sk = 1000)."""
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        t = TORCH[dtype]
+        q, k, v = (torch.from_numpy(randn(i, (1, 1000, 8, 128))).to(card, t) for i in range(3))
+        for causal, window, kv_len in [(True, 0, None), (True, 8, None), (False, 0, 995),
+                                       (True, 0, 300)]:
+            o = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+            r = ref.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
             torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+    def test_flash_attention_rejects_misaligned_bf16(self, card):
+        """The tensor-core kernel's TMA maps need 16-byte strides: raise, no detour."""
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        kv = torch.zeros((1, 32, 4, 128), device=card, dtype=torch.bfloat16)
+        flat = torch.zeros(32 * 4 * 128 + 1, device=card, dtype=torch.bfloat16)
+        bad = flat[1:].view(1, 32, 4, 128)  # base pointer 2 bytes off
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(bad, kv, kv)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("B,H,K,Sc,dh", [(2, 4, 2, 64, 16), (1, 8, 8, 70, 32),
@@ -218,6 +262,33 @@ class TestKernelsOnCard:
             o = decode_attention(*args, window=window)
             r = ref.decode_attention(*args, window=window)
             torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sc,dh,case", [
+        (2, 8, 2, 1000, 64, "rows"),  # splits > 1 and an all-empty row
+        (1, 32, 32, 576, 128, "short"),  # 40 valid slots: most splits empty
+        (1, 32, 32, 576, 128, "full"),  # the 512 + 64 calibration
+        (1, 32, 32, 576, 128, "ring"),  # a ring window across a split boundary
+    ])
+    def test_decode_attention_split(self, card, dtype, B, H, K, Sc, dh, case):
+        """Split-K in one launch: right, and bit-identical from call to call."""
+        from repro_torch.kernels.decode_attention import decode_attention, decode_splits
+
+        n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+        assert decode_splits(B, K, Sc, n_sm) > 1
+        t = TORCH[dtype]
+        kv_pos, pos, window = split_positions(B, Sc, case)
+        args = (torch.from_numpy(randn(0, (B, H, dh))).to(card, t),
+                torch.from_numpy(randn(1, (B, Sc, K, dh))).to(card, t),
+                torch.from_numpy(randn(2, (B, Sc, K, dh))).to(card, t),
+                torch.from_numpy(kv_pos).to(card), torch.from_numpy(pos).to(card))
+        o = decode_attention(*args, window=window)
+        assert torch.equal(o, decode_attention(*args, window=window))
+        r = ref.decode_attention(*args, window=window)
+        torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+        for b in range(B):
+            if (kv_pos[b] < 0).all():
+                assert float(o[b].abs().max()) == 0.0
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("shape", [(8, 128), (3, 37, 64), (1, 256), (512, 4096)])
