@@ -2,19 +2,25 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rmsnorm-sweep [--src OTHER_CHECKOUT/src]
 
 Phases, each of which must pass or the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of every kernel in src/repro_torch/csrc/ with nvcc (sm_90a), and
+  2. build of every kernel in src/repro_torch/csrc/ with nvcc (sm_90a): the
+     registers of each rmsnorm instantiation and which spill (ptxas -v), and
      from `cuobjdump -sass` the count of HGMMA (wgmma), UTMALDG (TMA load)
      and LDGSTS (cp.async) instructions per kernel; the bf16 flash kernel
      must hold HGMMA;
   3. each kernel against its plain PyTorch version on the card, f32 (2e-5)
-     and bf16 (2e-2), at the CPU tests' shapes and the main path's; then,
-     at the main path's shapes, the kernel's time, the plain version's, one
-     PyTorch library call's (yardstick only) and the least time the card
-     could take (bytes at 3.35 TB/s or flops at the dtype's dense peak);
+     and bf16 (2e-2), at the CPU tests' shapes and the main path's (for
+     rmsnorm also both sides of each regime of `rmsnorm_plan`, wider rows,
+     and the scalar instantiation: a misaligned gamma, rows d + 1 apart,
+     d = 37); then a timer-floor line (the timer around a launch that does
+     no work), and at the main path's shapes the kernel's time (with the
+     plan rmsnorm_plan chose), the plain version's, one PyTorch library
+     call's (yardstick only) and the least time the card could take (bytes
+     at 3.35 TB/s or flops at the dtype's dense peak);
   4. the llama2-7b smoke model on the card (kernels) against the same
      weights on the CPU (plain path): logits within 2e-3, greedy tokens equal;
   5. the main path at full width: llama2-7b in bf16, random weights from a
@@ -23,6 +29,11 @@ Phases, each of which must pass or the script exits non-zero:
      trace; every kernel's launch count must have grown as one prefill or
      decode step predicts. Then a profile of a batch-8 decode step and of a
      batch-1 step over a ~560-slot cache: device-busy and kernel ms per step.
+
+With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
+shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
+in `kernels/rmsnorm.py` comes from; --src times another checkout's package
+with the same timer, such as the parent commit unpacked by `git archive`.
 
 Before the last line it prints the card line and one JSON line
 {"kernels": [...]}; the last line is
@@ -48,6 +59,12 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+# rmsnorm: the CPU tests' shapes, the main path's, rows around 132 SMs and
+# around rmsnorm_plan's regime threshold (4 rows per SM), and wider rows
+# (d_model of 13B- and 70B-class models)
+RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 4096),
+                  (1, 4096), (131, 4096), (132, 4096), (133, 4096), (528, 4096), (529, 4096),
+                  (8192, 4096), (8, 5120), (600, 5120), (8, 8192), (600, 8192)]
 MODEL_TOL = 2e-3
 TPU_KERNELS = {  # the Pallas function each kernel replaces
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
@@ -116,6 +133,31 @@ def sass_counts(lib_path):
     return counts
 
 
+def rmsnorm_registers(log: str):
+    """{(x dtype, gamma dtype, vectors per thread, vector path): (registers,
+    spill-store bytes)} of the rmsnorm kernels, from ptxas -v in build.log."""
+    import re
+
+    types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    out, key, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*rmsnorm_kernelI(13__nv_bfloat16|6__half|f)"
+                      r"(S1_|f)Li(\d+)ELb([01])E", line)
+        if m:
+            t = types[m.group(1)]
+            key = (t, t if m.group(2) == "S1_" else "f32", int(m.group(3)), m.group(4) == "1")
+            continue
+        if "Compiling entry function" in line:
+            key = None
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            out[key] = (int(m.group(1)), spill)
+    return out
+
+
 def phase_build():
     import re
 
@@ -132,6 +174,15 @@ def phase_build():
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
         say(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"{sum(1 for b in spills if b)} with spill stores (max {max(spills)} bytes)")
+        rms = rmsnorm_registers(text)
+        for vec in (True, False):
+            per = ["x {} gamma {} ".format(t, g)
+                   + "/".join(str(rms[t, g, v, vec][0]) for v in (1, 2, 4, 8, 16))
+                   for t, g in sorted({k[:2] for k in rms})]
+            say(f"ptxas rmsnorm, {'vector' if vec else 'scalar'} path, registers at 1/2/4/8/16 "
+                "vectors per thread: " + "; ".join(per))
+        say(f"ptxas rmsnorm: {sum(1 for r in rms.values() if r[1])} of {len(rms)} kernels "
+            "spill")
     counts = sass_counts(_build.library_path())
     for label, c in sorted(counts.items()):
         if "attention" in label:
@@ -213,7 +264,7 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention, decode_splits
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plan, vector_path
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -225,7 +276,7 @@ def phase_kernels(torch, timer):
 
     # --- correctness sweep: the CPU tests' shapes plus the main path's ----
     for dtype in ("float32", "bfloat16"):
-        for shape in [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 4096)]:
+        for shape in RMSNORM_SHAPES:
             x = randn(shape, dtype)
             for g in (1.0 + 0.1 * randn(shape[-1:], "float32"),
                       1.0 + 0.1 * randn(shape[-1:], dtype)):
@@ -233,6 +284,27 @@ def phase_kernels(torch, timer):
                                    f"rmsnorm {shape} {dtype} gamma {g.dtype}")
                 worst["rmsnorm"] = max(worst["rmsnorm"], err)
                 n_checks += 1
+        # the scalar instantiation and strided rows: a gamma 2 or 4 bytes off
+        # 16-byte alignment, rows d + 1 elements apart, d = 37; and x[:, -1] of
+        # (B, S, d), the final norm's strided rows, on the vector path
+        d = 4096
+        for what, x, gdt, g_off, vec in [
+            ("gamma misaligned", randn((8, d), dtype), "float32", 1, False),
+            ("gamma misaligned", randn((8, d), dtype), dtype, 1, False),
+            ("rows d + 1 apart", randn((8, d + 1), dtype)[:, :d], dtype, 0, False),
+            ("d = 37", randn((15, 37), dtype), dtype, 0, False),
+            ("x[:, -1] of (4, 15, d)", randn((4, 15, d), dtype)[:, -1], dtype, 0, True),
+        ]:
+            n_g = x.shape[-1]
+            g = torch.empty(n_g + g_off, device="cuda", dtype=getattr(torch, gdt))[g_off:]
+            g.copy_(1.0 + 0.1 * randn((n_g,), "float32"))
+            out = rmsnorm(x, g)
+            check(vector_path(x.view(-1, x.shape[-1]), g, out) == vec,
+                  f"rmsnorm {what}: expected the {'vector' if vec else 'scalar'} path")
+            err = assert_close(torch, out, ref.rmsnorm(x, g), dtype,
+                               f"rmsnorm {what} {dtype} gamma {g.dtype}")
+            worst["rmsnorm"] = max(worst["rmsnorm"], err)
+            n_checks += 1
         for B, H, K, Sq, Sk, dh in [(1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32),
                                      (1, 4, 1, 40, 72, 16), (1, 2, 2, 17, 33, 16),
                                      (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128),
@@ -323,11 +395,17 @@ def phase_kernels(torch, timer):
             f" ms, bound {b_ms:.4f} ms ({b_by}), max|err| {r['max_abs_err']:.3g}")
         return r
 
+    floor = timer(lambda: torch.cuda._sleep(0))
+    say(f"timer floor: {floor:.4f} ms (the same timer around a launch that does no work)")
     rms_lib = getattr(F, "rms_norm", None)  # torch >= 2.4
     d = 4096
-    for n in (8, 15, 512):  # decode step (max_batch 8), Table-I prompt, long prompt
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # decode step (max_batch 8), Table-I prompt, long prompt, bytes-bound
+    for n in (8, 15, 512, 8192):
         x = randn((n, d), "bfloat16")
         g = 1.0 + 0.1 * randn((d,), "bfloat16")
+        say(f"rmsnorm plan ({n}, {d}) bf16: (rows per CTA, threads per row, vectors per "
+            f"thread) = {rmsnorm_plan(n, d, 2, n_sm)}")
         row("rmsnorm", f"({n}, {d})", lambda: rmsnorm(x, g), lambda: ref.rmsnorm(x, g),
             rms_lib and (lambda: rms_lib(x, (d,), g, 1e-5)), 2 * (2 * n * d) + 2 * d, 4.0 * n * d,
             lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
@@ -563,11 +641,72 @@ def _device_time(torch, fn):
     return groups, launches
 
 
+def rmsnorm_sweep(torch, timer):
+    """rmsnorm's time by CTA shape, bf16 with a bf16 gamma: for each (n, d),
+    the wrapper as it stands (its own plan), every plan of 32-512 threads per
+    row and 1-8 rows per CTA that covers d and fits the kernel's launch
+    bounds, `F.rms_norm`, and `copy_` of x (the same bytes less gamma's).
+    Each plan is checked against the plain version before it is timed. Where
+    the package has no `rmsnorm_plan` (an older tree, given with --src), only
+    the wrapper and the yardsticks are timed."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    mod = importlib.import_module("repro_torch.kernels.rmsnorm")  # the module, not the function
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plan_fn = getattr(mod, "rmsnorm_plan", None)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"timer floor: {timer(lambda: torch.cuda._sleep(0)):.4f} ms")
+    grid = [(4096, n) for n in (1, 8, 15, 64, 132, 264, 396, 528, 529, 660, 1056, 2048, 8192)]
+    grid += [(d, n) for d in (5120, 8192) for n in (8, 512, 8192)]
+    for d, n in grid:
+        x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).bfloat16()
+        b_ms, _ = bound(2 * (2 * n * d) + 2 * d, 4.0 * n * d, "bfloat16")
+        ms = timer(lambda: mod.rmsnorm(x, g))
+        lib = timer(lambda: F.rms_norm(x, (d,), g, 1e-5))
+        y = torch.empty_like(x)
+        copy = timer(lambda: y.copy_(x))  # the same bytes less gamma: the rate one can reach
+        line = f"sweep rmsnorm ({n}, {d}) bf16: wrapper {ms:.4f} ms"
+        if plan_fn is not None:
+            line += f" at plan {plan_fn(n, d, 2, n_sm)}"
+        line += (f", F.rms_norm {lib:.4f} ms, copy_ {copy:.4f} ms, bound {b_ms:.5f} ms; "
+                 "plans")
+        if plan_fn is not None:
+            want = ref.rmsnorm(x, g)
+            nvec = d // 8
+            for tpr in (32, 64, 128, 256, 512):
+                vpt = next((v for v in mod.VPTS if tpr * v >= nvec), None)
+                for rows in (1, 2, 4, 8):
+                    if vpt is None or tpr > nvec or rows * tpr > mod.max_threads(vpt):
+                        continue
+                    out = torch.empty_like(x)
+                    plan = (rows, tpr, vpt)
+                    mod.launch(x, g, out, 1e-5, plan, True)
+                    assert_close(torch, out, want, "bfloat16", f"rmsnorm plan {plan} ({n}, {d})")
+                    t = timer(lambda: mod.launch(x, g, out, 1e-5, plan, True))
+                    line += f" {rows}/{tpr}/{vpt}={t:.4f}"
+        say(line)
+
+
 def main() -> int:
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        say("FAIL: src/repro_torch is not beside chip_smoke.py")
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rmsnorm-sweep", action="store_true",
+                    help="only build and time rmsnorm's CTA shapes (rmsnorm_sweep)")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch to drive (default: beside "
+                         "this script)")
+    args = ap.parse_args()
+    src = args.src.resolve()
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        say(f"FAIL: {src}/repro_torch is not there (it belongs beside chip_smoke.py)")
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch
 
     t_start = time.perf_counter()
@@ -575,6 +714,13 @@ def main() -> int:
         say("FAIL: torch.cuda.is_available() is False; this script needs a CUDA card")
         return 2
     card = phase_card(torch)
+    if args.rmsnorm_sweep:
+        from repro_torch.kernels import _build
+
+        _build.library()
+        rmsnorm_sweep(torch, Timer(torch))
+        say(f"rmsnorm sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
     phase_build()
     rows = phase_kernels(torch, Timer(torch))
     phase_smoke_model(torch)

@@ -1,105 +1,232 @@
 // Row RMSNorm for Hopper.
 //
 // Replaces src/repro/kernels/rmsnorm.py:rmsnorm (Pallas `_kernel`): mean of
-// squares in f32, y = x * rsqrt(var + eps) rounded to x's dtype, times gamma,
-// rounded to x's dtype again.
+// squares in f32, y = x * rsqrt(var + eps) rounded to x's dtype, times gamma
+// in f32, rounded to x's dtype again. Rows of x lie `xs` elements apart (the
+// final norm reads x[:, -1]); out is contiguous.
 //
-// Bound on the H100: bytes. Each row is read once and written once and does
-// ~3 flops per element, far below the ~295 flops/byte where compute would
-// bound it. Design: one warp per row, 16-byte vector loads and stores
-// (8 bf16 or 4 f32 per lane) with neighbouring lanes on neighbouring
-// addresses, the sum of squares reduced by warp shuffles, no shared memory.
-// The second pass re-reads the row, which a 4-warp block (<= 32 KB of rows
-// at d = 4096) finds in L1, so device memory sees one read per element.
+// What bounds it on the H100. At many rows, bytes: each element is read once
+// and written once and costs ~3 flops, far below the ~295 flops/byte where
+// compute would bound it, so the card needs enough loads in flight on every
+// SM to cover device-memory latency. At few rows (8 rows of 4096 bf16 are
+// 64 KB, 20 ns of the card's bandwidth), latency: the launch, one round trip
+// to device memory and one reduction are all there is to the time.
+//
+// Design. A thread owns VPT (a template parameter) 16-byte vectors of its
+// row, vector j * tpr + t for thread t of the row's tpr threads (neighbouring
+// threads on neighbouring addresses), and the matching gamma vectors. It
+// issues every load before it uses any, keeps the vectors in registers,
+// reduces the sum of squares, scales and stores: one read per element, no
+// second pass, no loop over a runtime d. Gamma is loaded once per CTA, in
+// the same burst as the first row's x, and a grid of at most (SMs x
+// resident CTAs) walks the rows. The host chooses the CTA's shape
+// (kernels/rmsnorm.py:rmsnorm_plan), from times measured on the card:
+//  - few rows (up to 4 per SM): one CTA per row, the row spread over up to
+//    256 threads (8 warps at d = 4096 bf16, 2 vectors each); warps combine
+//    their sums through shared memory with one __syncthreads. At the decode
+//    batch of 8 that is 8 SMs and 64 warps instead of 2 SMs and 8 warps, and
+//    the chain is one round trip plus one block reduction.
+//  - many rows: two rows per CTA of up to 128 threads each (4 warps of 4
+//    vectors at d = 4096 bf16); every SM holds several CTAs, so enough rows'
+//    loads are in flight to keep device memory busy, and gamma stays in
+//    registers across the rows a CTA walks.
+// Rows narrower than a warp share one (tpr < 32 lanes each). The scalar
+// instantiation (kVec = false: one element per "vector", same code) takes a
+// d or a row stride that is not a whole number of vectors, or any of x,
+// gamma, out not 16-byte aligned. A row must fit one CTA's registers: d up
+// to 32768 (bf16/f16) or 16384 (f32) on the vector path, 16384 on the scalar.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kVecBytes = 16;
 
-template <typename T, typename G, bool kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-rmsnorm_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
-               T* __restrict__ out, long long n, long long d, long long xs, float eps) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const T* xr = x + row * xs;
-  T* orow = out + row * d;
+// The most threads a CTA may have at VPT vectors per thread, kept equal to
+// kernels/rmsnorm.py:max_threads. x and gamma of VPT 16-byte vectors take
+// 8 * VPT registers (12 * VPT with an f32 gamma beside bf16 x), so the bound
+// halves from VPT = 8 on and leaves each thread 128-255 registers.
+__host__ __device__ constexpr int max_threads(int vpt, bool vec) {
+  return !vec || vpt <= 4 ? 1024 : 4096 / vpt;
+}
 
-  float ss = 0.f;
-  if (kVec) {
-    for (long long i = (long long)lane * V; i < d; i += 32 * V) {
-      uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const T* e = reinterpret_cast<const T*>(&raw);
+// Hide a register's value from the optimiser. Without it, ptxas keeps the
+// f32 copies of x made for the sum of squares (and of gamma, hoisted out of
+// the row loop) live until the scaling, twice the registers of the raw
+// vectors, and spills; converting again after the reduction costs one
+// instruction per element.
+__device__ __forceinline__ void opaque(uint4& v) {
+  asm volatile("" : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w));
+}
+__device__ __forceinline__ void opaque(float& v) { asm volatile("" : "+f"(v)); }
+__device__ __forceinline__ void opaque(int& v) { asm volatile("" : "+r"(v)); }
+template <typename H>  // __nv_bfloat16, __half
+__device__ __forceinline__ void opaque(H& v) {
+  asm volatile("" : "+h"(reinterpret_cast<unsigned short&>(v)));
+}
+
+template <typename T, typename G, int VPT, bool kVec>
+__global__ void __launch_bounds__(max_threads(VPT, kVec))
+rmsnorm_kernel(const T* __restrict__ x, const G* __restrict__ gamma, T* __restrict__ out,
+               long long n, int d, long long xs, int rows, int tpr, float eps) {
+  constexpr int W = kVec ? kVecBytes / (int)sizeof(T) : 1;          // elements per vector
+  constexpr int GQ = kVec ? W * (int)sizeof(G) / kVecBytes : 1;     // loads per gamma vector
+  using XV = std::conditional_t<kVec, uint4, T>;
+  using GV = std::conditional_t<kVec, uint4, G>;
+  __shared__ float part[2][32];  // per-warp sums; alternate rows use alternate halves
+
+  const int r = threadIdx.x / tpr, t = threadIdx.x - r * tpr;
+  const int nvec = d / W;
+  const int warps = tpr >> 5;  // warps per row (0: several rows share a warp)
+  const int lanes = tpr < 32 ? tpr : 32;
+
+  GV g[VPT][GQ];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float f = to_f32(e[j]);
-        ss += f * f;
-      }
-    }
-  } else {
-    for (long long i = lane; i < d; i += 32) {
-      const float f = to_f32(xr[i]);
-      ss += f * f;
-    }
+  for (int j = 0; j < VPT; ++j) {
+    const int v = j * tpr + t;
+#pragma unroll
+    for (int q = 0; q < GQ; ++q)
+      g[j][q] = v < nvec ? reinterpret_cast<const GV*>(gamma + (long long)v * W)[q] : GV{};
   }
-  const float r = rsqrtf(warp_sum(ss) / (float)d + eps);
 
-  if (kVec) {
-    for (long long i = (long long)lane * V; i < d; i += 32 * V) {
-      uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const T* e = reinterpret_cast<const T*>(&raw);
-      uint4 res;
-      T* o = reinterpret_cast<T*>(&res);
+  const long long step = (long long)gridDim.x * rows;
+  int buf = 0;
+  for (long long row0 = (long long)blockIdx.x * rows; row0 < n; row0 += step, buf ^= 1) {
+    const long long row = row0 + r;
+    const bool live = row < n;
+    const XV* xr = reinterpret_cast<const XV*>(x + row * xs);
+    XV xv[VPT];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const T y = from_f32<T>(to_f32(e[j]) * r);
-        o[j] = from_f32<T>(to_f32(y) * to_f32(gamma[i + j]));
-      }
-      *reinterpret_cast<uint4*>(orow + i) = res;
+    for (int j = 0; j < VPT; ++j) {
+      const int v = j * tpr + t;
+      xv[j] = live && v < nvec ? xr[v] : XV{};
     }
-  } else {
-    for (long long i = lane; i < d; i += 32) {
-      const T y = from_f32<T>(to_f32(xr[i]) * r);
-      orow[i] = from_f32<T>(to_f32(y) * to_f32(gamma[i]));
+
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const T* e = reinterpret_cast<const T*>(&xv[j]);
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const float f = to_f32(e[k]);
+        ss = fmaf(f, f, ss);
+      }
+    }
+    for (int off = lanes >> 1; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (warps > 1) {  // the same for every thread of the CTA
+      if ((threadIdx.x & 31) == 0) part[buf][threadIdx.x >> 5] = ss;
+      __syncthreads();
+      const float* p = part[buf] + r * warps;
+      ss = 0.f;
+      for (int w = 0; w < warps; ++w) ss += p[w];
+    }
+    const float rs = rsqrtf(ss / (float)d + eps);
+
+    if (live) {
+      XV* orow = reinterpret_cast<XV*>(out + row * d);
+      int ts = t;  // store offsets are computed anew, not kept from the loads
+      opaque(ts);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        opaque(xv[j]);
+        const int v = j * tpr + ts;
+        if (v < nvec) {
+          const T* e = reinterpret_cast<const T*>(&xv[j]);
+          const G* ge = reinterpret_cast<const G*>(&g[j][0]);
+          XV o;
+          T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            const T y = from_f32<T>(to_f32(e[k]) * rs);
+            oe[k] = from_f32<T>(to_f32(y) * to_f32(ge[k]));
+          }
+          orow[v] = o;
+        }
+      }
+    }
+    // gamma is converted at use, row by row, not once into f32 registers
+    // (placed here so that the first row's loads never wait on gamma's)
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+#pragma unroll
+      for (int q = 0; q < GQ; ++q) opaque(g[j][q]);
     }
   }
 }
 
-template <typename T, typename G>
-int launch(const void* x, const void* g, void* out, long long n, long long d,
-           long long xs, float eps, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = d % V == 0 && xs % V == 0 && ((uintptr_t)x % 16) == 0 &&
-                   ((uintptr_t)out % 16) == 0;
-  const dim3 grid((unsigned)((n + kWarps - 1) / kWarps)), block(kWarps * 32);
-  if (vec) {
-    rmsnorm_kernel<T, G, true><<<grid, block, 0, stream>>>(
-        (const T*)x, (const G*)g, (T*)out, n, d, xs, eps);
-  } else {
-    rmsnorm_kernel<T, G, false><<<grid, block, 0, stream>>>(
-        (const T*)x, (const G*)g, (T*)out, n, d, xs, eps);
+bool aligned16(const void* p) { return ((uintptr_t)p % kVecBytes) == 0; }
+
+template <typename T, typename G, int VPT, bool kVec>
+int launch(const void* x, const void* g, void* out, long long n, long long d, long long xs,
+           float eps, int rows, int tpr, cudaStream_t stream) {
+  constexpr int W = kVec ? kVecBytes / (int)sizeof(T) : 1;
+  const int threads = rows * tpr;
+  if (rows < 1 || tpr < 1 || threads > max_threads(VPT, kVec) || threads % 32 != 0 ||
+      (tpr < 32 ? 32 % tpr != 0 : tpr % 32 != 0) || (long long)tpr * VPT * W < d ||
+      d > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (kVec && (d % W != 0 || xs % W != 0 || !aligned16(x) || !aligned16(g) || !aligned16(out)))
+    return (int)cudaErrorMisalignedAddress;
+  auto kernel = rmsnorm_kernel<T, G, VPT, kVec>;
+  // resident CTAs per SM, by threads / 32; the same on every sm_90a card
+  static int per_sm[33] = {};
+  int& resident = per_sm[threads / 32];
+  if (resident == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                                        threads, 0);
+    if (e != cudaSuccess) return (int)e;
   }
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long long groups = (n + rows - 1) / rows;
+  const long long wave = (long long)resident * n_sm;
+  const unsigned grid = (unsigned)(groups < wave ? groups : wave);
+  kernel<<<grid, threads, 0, stream>>>((const T*)x, (const G*)g, (T*)out, n, (int)d, xs, rows,
+                                       tpr, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename G>
+int dispatch(const void* x, const void* g, void* out, long long n, long long d, long long xs,
+             float eps, int rows, int tpr, int vpt, int vec, cudaStream_t s) {
+#define RMSNORM_CASE(V)                                                                   \
+  case V:                                                                                 \
+    return vec ? launch<T, G, V, true>(x, g, out, n, d, xs, eps, rows, tpr, s)           \
+               : launch<T, G, V, false>(x, g, out, n, d, xs, eps, rows, tpr, s);
+  switch (vpt) {
+    RMSNORM_CASE(1)
+    RMSNORM_CASE(2)
+    RMSNORM_CASE(4)
+    RMSNORM_CASE(8)
+    RMSNORM_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RMSNORM_CASE
 }
 
 }  // namespace
 
 // x: (n, d) rows `xs` elements apart; out: (n, d) contiguous; gamma: (d,) of
-// x's dtype or f32.
+// x's dtype or f32. The CTA shape (rows per CTA, threads per row, vectors
+// per thread) and the path (vec: 16-byte vectors, else one element at a
+// time) come from kernels/rmsnorm.py; a shape that does not cover d or a
+// vector path on unaligned data is refused.
 extern "C" int rmsnorm_fwd(const void* x, const void* gamma, void* out, long long n,
-                           long long d, long long xs, float eps, int dtype,
-                           int gamma_dtype, void* stream) {
+                           long long d, long long xs, float eps, int dtype, int gamma_dtype,
+                           int rows, int tpr, int vpt, int vec, void* stream) {
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (gamma_dtype == kF32) {
-    DISPATCH_DTYPE(dtype, return launch<scalar_t, float>(x, gamma, out, n, d, xs, eps, s));
+    DISPATCH_DTYPE(dtype, return dispatch<scalar_t, float>(x, gamma, out, n, d, xs, eps, rows,
+                                                           tpr, vpt, vec, s));
   }
   if (gamma_dtype != dtype) return (int)cudaErrorInvalidValue;
-  DISPATCH_DTYPE(dtype, return launch<scalar_t, scalar_t>(x, gamma, out, n, d, xs, eps, s));
+  DISPATCH_DTYPE(dtype, return dispatch<scalar_t, scalar_t>(x, gamma, out, n, d, xs, eps, rows,
+                                                            tpr, vpt, vec, s));
   return 0;
 }

@@ -14,6 +14,7 @@ A missing `nvcc` or a failed build raises; there is no stub.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["LAUNCHES", "library", "library_path", "check", "stream_of", "dtype_code",
-           "row_strides", "check_aligned"]
+           "sm_count", "row_strides", "check_aligned"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,7 +44,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F, _I, _I, _P],
+    "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F] + [_I] * 6 + [_P],
     "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
     "decode_attention_fwd": [_P] * 8 + [_I] * 5 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
 }
@@ -131,6 +132,12 @@ def check(err: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:

@@ -13,7 +13,6 @@ every call; calls that share them must run on one stream.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict
 
@@ -41,11 +40,6 @@ def decode_splits(B: int, K: int, Sc: int, n_sm: int) -> int:
     want = min(-(-n_sm // (B * K)), n_tiles, MAX_SPLITS)
     per = -(-n_tiles // want)  # tiles per split
     return -(-n_tiles // per)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
@@ -92,7 +86,7 @@ def decode_attention(
     for name, t, st in (("k", k, kst), ("v", v, vst)):  # 16-byte cp.async copies of rows
         _build.check_aligned(f"decode_attention kernel: {name}", t.data_ptr(), st,
                              t.element_size())
-    splits = decode_splits(B, K, Sc, _sm_count(q.device.index))
+    splits = decode_splits(B, K, Sc, _build.sm_count(q.device.index))
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     part = counters = None
     if splits > 1:

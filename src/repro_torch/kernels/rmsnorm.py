@@ -1,16 +1,83 @@
 """RMSNorm on the card: wrapper over `csrc/rmsnorm.cu`.
 
 Replaces the Pallas kernel `repro/kernels/rmsnorm.py:rmsnorm`; the plain
-version is `ref.rmsnorm`. Bytes-bound: one read and one write per row.
+version is `ref.rmsnorm`. One read and one write per element: latency-bound
+at the decode step's few rows, bytes-bound at a long prompt's many.
+`rmsnorm_plan` chooses the kernel's CTA shape from the row count.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["rmsnorm"]
+__all__ = ["rmsnorm", "rmsnorm_plan", "vector_path", "launch", "max_threads", "VPTS"]
+
+VEC_BYTES = 16  # one load or store per thread and vector
+VPTS = (1, 2, 4, 8, 16)  # vectors per thread the kernel is built for
+# Up to this many rows per SM, one CTA per row (latency); above it, several
+# rows per CTA and a grid that walks the rows (bytes). Chosen from times on
+# an H100 by `chip_smoke.py --rmsnorm-sweep` (PERF.md, section 6).
+FEW_ROWS_PER_SM = 4
+FEW_THREADS = 256  # most threads a row gets in the few-rows regime
+MANY_THREADS = 128  # most threads a row gets in the many-rows regime
+MANY_CTA = 256  # threads per CTA in the many-rows regime
+
+
+def max_threads(vpt: int, vec: bool = True) -> int:
+    """The most threads a CTA may have at `vpt` vectors per thread, as the
+    kernel's `__launch_bounds__` (`csrc/rmsnorm.cu:max_threads`): x and
+    gamma vectors live in registers, so deep threads need a smaller CTA."""
+    return 1024 if not vec or vpt <= 4 else 4096 // vpt
+
+
+@functools.lru_cache(maxsize=4096)  # one entry per (n, d, dtype) a process sees
+def rmsnorm_plan(n: int, d: int, itemsize: int, n_sm: int, *,
+                 vec: bool = True) -> Tuple[int, int, int]:
+    """(rows per CTA, threads per row, vectors per thread) for n rows of d
+    elements of `itemsize` bytes on a card of `n_sm` SMs. A vector is 16
+    bytes on the vector path and one element on the scalar one (`vec`).
+
+    Threads per row never outnumber the row's vectors, and rows narrower
+    than a warp share one. Few rows get one CTA each; many rows are packed
+    several to a CTA."""
+    width = VEC_BYTES // itemsize if vec else 1
+    nvec = -(-d // width)
+    few = n <= FEW_ROWS_PER_SM * n_sm
+    cap = FEW_THREADS if few else MANY_THREADS
+
+    def threads(vpt: int) -> int:
+        if nvec <= 32:  # a power of two of lanes, no more than the row's vectors
+            return 1 << (nvec.bit_length() - 1)
+        return (-(-nvec // vpt) + 31) // 32 * 32
+
+    def fits(vpt: int, limit: int) -> bool:
+        tpr = threads(vpt)
+        return tpr * vpt >= nvec and tpr <= nvec and tpr <= min(limit, max_threads(vpt, vec))
+
+    # the fewest vectors per thread under the regime's cap; a row too wide
+    # for the cap takes the deepest threads instead
+    vpt = next((v for v in VPTS if fits(v, cap)), VPTS[-1])
+    if not fits(vpt, 1024):
+        raise ValueError(f"rmsnorm kernel: a row of d={d} does not fit one CTA's registers")
+    tpr = threads(vpt)
+    if few:
+        rows = max(1, 32 // tpr)
+    else:  # MANY_CTA threads, and at least two rows where the bounds allow
+        rows = max(1, min(max(MANY_CTA, 2 * tpr), max_threads(vpt, vec)) // tpr)
+    return rows, tpr, vpt
+
+
+def vector_path(rows: torch.Tensor, gamma: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the kernel may read and write in 16-byte vectors: d and the
+    row stride whole vectors, x, gamma and out 16-byte aligned."""
+    width = VEC_BYTES // rows.element_size()
+    return (rows.shape[1] % width == 0 and rows.stride(0) % width == 0
+            and all(t.data_ptr() % VEC_BYTES == 0 for t in (rows, gamma, out)))
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -28,12 +95,24 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     if gamma.dtype not in (x.dtype, torch.float32):
         raise TypeError(f"rmsnorm kernel: gamma {gamma.dtype} with x {x.dtype}")
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    err = lib.rmsnorm_fwd(
-        x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows.shape[0], d,
-        rows.stride(0), float(eps), _build.dtype_code(x, "rmsnorm"),
-        _build.dtype_code(gamma, "rmsnorm"), _build.stream_of(x),
+    if rows.shape[0] == 0:
+        return out
+    vec = vector_path(rows, gamma, out)
+    plan = rmsnorm_plan(rows.shape[0], d, x.element_size(), _build.sm_count(x.device.index),
+                        vec=vec)
+    launch(rows, gamma, out, eps, plan, vec)
+    return out
+
+
+def launch(rows: torch.Tensor, gamma: torch.Tensor, out: torch.Tensor, eps: float,
+           plan: Tuple[int, int, int], vec: bool) -> None:
+    """Launch the kernel over `rows` (n, d) with an explicit plan; `rmsnorm`
+    passes `rmsnorm_plan`'s. The kernel refuses a plan that does not cover d."""
+    n, d = rows.shape
+    err = _build.library().rmsnorm_fwd(
+        rows.data_ptr(), gamma.data_ptr(), out.data_ptr(), n, d, rows.stride(0), float(eps),
+        _build.dtype_code(rows, "rmsnorm"), _build.dtype_code(gamma, "rmsnorm"), *plan,
+        int(vec), _build.stream_of(rows),
     )
     _build.check(err, "rmsnorm")
     _build.LAUNCHES["rmsnorm"] += 1
-    return out

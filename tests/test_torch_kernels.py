@@ -160,7 +160,7 @@ class TestPlainAgainstPallas:
         assert float(r[1].abs().max()) == 0.0
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("shape", [(8, 128), (3, 37, 64), (1, 256)])
+    @pytest.mark.parametrize("shape", [(8, 128), (3, 37, 64), (1, 256), (8, 4096), (15, 4096)])
     def test_rmsnorm(self, pallas, dtype, shape):
         xj, xt = both(pallas.jnp, randn(3, shape), dtype)
         g = (1.0 + 0.1 * randn(4, shape[-1:])).astype(np.float32)
@@ -290,13 +290,42 @@ class TestKernelsOnCard:
             if (kv_pos[b] < 0).all():
                 assert float(o[b].abs().max()) == 0.0
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("shape", [(8, 128), (3, 37, 64), (1, 256), (512, 4096)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("shape", [
+        (8, 128), (3, 37, 64), (1, 256), (512, 4096),
+        # rows around 132 SMs and around rmsnorm_plan's regime threshold, wider rows
+        (1, 4096), (8, 4096), (131, 4096), (132, 4096), (133, 4096), (528, 4096),
+        (529, 4096), (8192, 4096),
+        (8, 5120), (600, 5120), (8, 8192), (600, 8192),
+    ])
     def test_rmsnorm(self, card, dtype, shape):
         from repro_torch.kernels.rmsnorm import rmsnorm
 
         x = torch.from_numpy(randn(3, shape)).to(card, TORCH[dtype])
-        for g in (torch.from_numpy(1.0 + 0.1 * randn(4, shape[-1:])).to(card),
-                  torch.ones(shape[-1], device=card, dtype=TORCH[dtype])):
-            torch.testing.assert_close(rmsnorm(x, g).float(), ref.rmsnorm(x, g).float(),
-                                       rtol=TOLS[dtype], atol=TOLS[dtype])
+        g = torch.from_numpy(1.0 + 0.1 * randn(4, shape[-1:])).to(card)
+        for gamma in (g, g.to(TORCH[dtype]), torch.ones_like(g, dtype=TORCH[dtype])):
+            torch.testing.assert_close(rmsnorm(x, gamma).float(), ref.rmsnorm(x, gamma).float(),
+                                       rtol=CARD_TOLS[dtype], atol=CARD_TOLS[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("case", ["gamma_misaligned", "rows_apart", "d37", "last_token"])
+    def test_rmsnorm_scalar_path_and_strided_rows(self, card, dtype, case):
+        """The scalar instantiation (misaligned gamma, rows d + 1 apart,
+        d = 37) and the final norm's x[:, -1] rows on the vector path."""
+        from repro_torch.kernels.rmsnorm import rmsnorm, vector_path
+
+        t, d = TORCH[dtype], 4096
+        shape, view = {"gamma_misaligned": ((8, d), lambda a: a),
+                       "rows_apart": ((8, d + 1), lambda a: a[:, :d]),
+                       "d37": ((15, 37), lambda a: a),
+                       "last_token": ((4, 15, d), lambda a: a[:, -1])}[case]
+        x = view(torch.from_numpy(randn(3, shape)).to(card, t))  # slice on the card
+        n_g = x.shape[-1]
+        off = 1 if case == "gamma_misaligned" else 0
+        for gdt in (torch.float32, t):
+            g = torch.empty(n_g + off, device=card, dtype=gdt)[off:]
+            g.copy_(torch.from_numpy(1.0 + 0.1 * randn(4, (n_g,))))
+            out = rmsnorm(x, g)
+            assert vector_path(x.view(-1, n_g), g, out) == (case == "last_token")
+            torch.testing.assert_close(out.float(), ref.rmsnorm(x, g).float(),
+                                       rtol=CARD_TOLS[dtype], atol=CARD_TOLS[dtype])
