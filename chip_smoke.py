@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rmsnorm-sweep [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --decode-sweep
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -13,27 +14,38 @@ Phases, each of which must pass or the script exits non-zero:
      and LDGSTS (cp.async) instructions per kernel; the bf16 flash kernel
      must hold HGMMA;
   3. each kernel against its plain PyTorch version on the card, f32 (2e-5)
-     and bf16 (2e-2), at the CPU tests' shapes and the main path's (for
-     rmsnorm also both sides of each regime of `rmsnorm_plan`, wider rows,
-     and the scalar instantiation: a misaligned gamma, rows d + 1 apart,
-     d = 37); then a timer-floor line (the timer around a launch that does
-     no work), and at the main path's shapes the kernel's time (with the
-     plan rmsnorm_plan chose), the plain version's, one PyTorch library
-     call's (yardstick only) and the least time the card could take (bytes
-     at 3.35 TB/s or flops at the dtype's dense peak);
-  4. the llama2-7b smoke model on the card (kernels) against the same
-     weights on the CPU (plain path): logits within 2e-3, greedy tokens equal;
-  5. the main path at full width: llama2-7b in bf16, random weights from a
-     seed, calibrated with `measure_service_time`, then served through
-     `InferenceEngine` under `ICCServer` (priority and fifo) over a Poisson
-     trace; every kernel's launch count must have grown as one prefill or
-     decode step predicts. Then a profile of a batch-8 decode step and of a
-     batch-1 step over a ~560-slot cache: device-busy and kernel ms per step.
+     and bf16 (2e-2), at the CPU tests' shapes and the main paths' (for
+     rmsnorm also both sides of each regime of `rmsnorm_plan`, wider rows
+     up to nemotron-4-15b's d = 6144, and the scalar instantiation: a
+     misaligned gamma, rows d + 1 apart, d = 37; for decode G = 1 to 24,
+     head groups and splits; for flash G = 16 and windows); then a
+     timer-floor line (the timer around a launch that does no work), and at
+     the main paths' shapes (llama2-7b, glm4-9b, d = 6144) the kernel's time
+     (with the plan rmsnorm_plan chose), the plain version's, one PyTorch
+     library call's (yardstick only) and the least time the card could take
+     (bytes at 3.35 TB/s or flops at the dtype's dense peak);
+  4. models on the card (kernels) against the same weights on the CPU (plain
+     path), f32, logits within 2e-3 and greedy tokens equal: the smoke size
+     of every dense and vlm arch (seeded non-zero QKV biases and gammas),
+     tied embeddings, iRoPE, a ring cache under `window_override`, and
+     glm4-9b at full width cut to 2 layers (G = 16, vocab 151552);
+  5. the main paths at full width and depth, bf16, random weights from a
+     seed, each with the launch counts set to 0 just before it: llama2-7b
+     and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
+     then served through `InferenceEngine` under `ICCServer` (priority and
+     fifo) over a Poisson trace, then a profile of a batch-8 decode step and
+     of a batch-1 step over a ~560-slot cache (device-busy and kernel ms per
+     step); nemotron-4-15b calibrated at 15/15. Every kernel's launch count
+     must have grown as one prefill or decode step of L layers predicts
+     (2L + 1 rmsnorm and L attention launches per forward).
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
 in `kernels/rmsnorm.py` comes from; --src times another checkout's package
 with the same timer, such as the parent commit unpacked by `git archive`.
+With --decode-sweep it only builds the kernels and times decode_attention at
+each head-group size against SDPA (`decode_sweep`), where `head_groups`'s
+rule in `kernels/decode_attention.py` comes from.
 
 Before the last line it prints the card line and one JSON line
 {"kernels": [...]}; the last line is
@@ -64,7 +76,8 @@ TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 # (d_model of 13B- and 70B-class models)
 RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 4096),
                   (1, 4096), (131, 4096), (132, 4096), (133, 4096), (528, 4096), (529, 4096),
-                  (8192, 4096), (8, 5120), (600, 5120), (8, 8192), (600, 8192)]
+                  (8192, 4096), (8, 5120), (600, 5120), (8, 8192), (600, 8192),
+                  (8, 6144), (15, 6144), (8192, 6144)]  # nemotron-4-15b's d_model
 MODEL_TOL = 2e-3
 TPU_KERNELS = {  # the Pallas function each kernel replaces
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
@@ -122,9 +135,11 @@ def sass_counts(lib_path):
     counts, label = {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
-        if m:  # e.g. ..._kernelI13__nv_bfloat16Li128EEv... -> kernel<bf16,128>
-            t = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|6__half|f)L[ij](\d+)E", m.group(1))
-            label = f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}>" if t else m.group(1)
+        if m:  # ..._kernelI13__nv_bfloat16Li128ELi4EEv... -> kernel<bf16,128,4>
+            t = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|6__half|f)L[ij](\d+)E"
+                          r"(?:L[ij](\d+)E)?", m.group(1))
+            label = (f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}"
+                     + (f",{t.group(4)}>" if t.group(4) else ">")) if t else m.group(1)
             counts[label] = dict.fromkeys(ops, 0)
         elif label is not None:
             for op in ops:
@@ -309,7 +324,10 @@ def phase_kernels(torch, timer):
                                      (1, 4, 1, 40, 72, 16), (1, 2, 2, 17, 33, 16),
                                      (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128),
                                      (1, 32, 32, 1000, 1000, 128),  # ragged 64-row tiles
-                                     (1, 32, 8, 200, 200, 128), (1, 32, 8, 200, 200, 64)]:
+                                     (1, 32, 8, 200, 200, 128), (1, 32, 8, 200, 200, 64),
+                                     # glm4-9b (G = 16) prefills, nemotron-4-15b (G = 6)
+                                     (1, 32, 2, 15, 15, 128), (1, 32, 2, 512, 512, 128),
+                                     (1, 48, 8, 200, 200, 128)]:
             q, k, v = randn((B, Sq, H, dh), dtype), randn((B, Sk, K, dh), dtype), \
                 randn((B, Sk, K, dh), dtype)
             for causal, window, kv_len in [(True, 0, None), (True, 8, None),
@@ -330,6 +348,13 @@ def phase_kernels(torch, timer):
             (1, 32, 32, 576, 128, [576]),
             (2, 8, 2, 1000, 64, [1000, 0]),  # splits > 1 and an all-empty row
             (1, 32, 32, 576, 128, [40]),  # most splits empty
+            (2, 48, 8, 200, 128, [200, 0]),  # G = 6 (nemotron-4-15b)
+            (1, 96, 8, 576, 128, [560]),  # G = 12 (mistral-large-123b), split
+            (8, 32, 2, 576, 128, [16 + 2 * b for b in range(8)]),  # G = 16 (glm4-9b)
+            (1, 32, 2, 576, 128, [560]),  # G = 16, batch 1, split
+            (2, 16, 1, 130, 16, [130, 0]),  # G = 16 at dh 16
+            (2, 48, 2, 300, 64, [300, 100]),  # G = 24: six head groups of 4
+            (2, 40, 8, 200, 64, [200, 0]),  # G = 5: five head groups of 1
         ]:
             q = randn((B, H, dh), dtype)
             k, v = randn((B, Sc, K, dh), dtype), randn((B, Sc, K, dh), dtype)
@@ -364,14 +389,16 @@ def phase_kernels(torch, timer):
             n_checks += 1
         # splits > 1: the merge runs in a fixed order, so two calls agree bit for bit
         n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        check(decode_splits(1, 32, 576, n_sm) > 1, "batch 1 over 576 slots should split")
-        q, k, v = randn((1, 32, 128), dtype), randn((1, 576, 32, 128), dtype), \
-            randn((1, 576, 32, 128), dtype)
-        kv_pos, pos = decode_positions(torch, 1, 576, [576])
-        check(torch.equal(decode_attention(q, k, v, kv_pos, pos),
-                          decode_attention(q, k, v, kv_pos, pos)),
-              f"decode_attention at splits > 1 is not bit-identical between calls ({dtype})")
-        n_checks += 1
+        for K in (32, 2):  # llama2-7b (G = 1) and glm4-9b (G = 16)
+            check(decode_splits(1, K, 576, n_sm) > 1, "batch 1 over 576 slots should split")
+            q, k, v = randn((1, 32, 128), dtype), randn((1, 576, K, 128), dtype), \
+                randn((1, 576, K, 128), dtype)
+            kv_pos, pos = decode_positions(torch, 1, 576, [576])
+            check(torch.equal(decode_attention(q, k, v, kv_pos, pos),
+                              decode_attention(q, k, v, kv_pos, pos)),
+                  f"decode_attention at splits > 1, K = {K} is not bit-identical between "
+                  f"calls ({dtype})")
+            n_checks += 1
     torch.cuda.synchronize()
     say(f"kernels: {n_checks} kernel-vs-plain checks passed; worst max|err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
@@ -392,16 +419,16 @@ def phase_kernels(torch, timer):
         rows.append(r)
         say(f"time {name} {shape}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
-            f" ms, bound {b_ms:.4f} ms ({b_by}), max|err| {r['max_abs_err']:.3g}")
+            f" ms, bound {b_ms:.3g} ms ({b_by}), max|err| {r['max_abs_err']:.3g}")
         return r
 
     floor = timer(lambda: torch.cuda._sleep(0))
     say(f"timer floor: {floor:.4f} ms (the same timer around a launch that does no work)")
     rms_lib = getattr(F, "rms_norm", None)  # torch >= 2.4
-    d = 4096
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    # decode step (max_batch 8), Table-I prompt, long prompt, bytes-bound
-    for n in (8, 15, 512, 8192):
+    # decode step (max_batch 8), Table-I prompt, long prompt, bytes-bound; then
+    # nemotron-4-15b's d_model at a decode step and bytes-bound
+    for n, d in ((8, 4096), (15, 4096), (512, 4096), (8192, 4096), (8, 6144), (8192, 6144)):
         x = randn((n, d), "bfloat16")
         g = 1.0 + 0.1 * randn((d,), "bfloat16")
         say(f"rmsnorm plan ({n}, {d}) bf16: (rows per CTA, threads per row, vectors per "
@@ -411,31 +438,41 @@ def phase_kernels(torch, timer):
             lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
 
     H, dh = 32, 128
-    for S in (15, 512, 2048):  # Table-I prompt, calibration prompt, operations-bound
-        q, k, v = randn((1, S, H, dh), "bfloat16"), randn((1, S, H, dh), "bfloat16"), \
-            randn((1, S, H, dh), "bfloat16")
+    # llama2-7b (K = H): Table-I prompt, calibration prompt, operations-bound;
+    # glm4-9b (K = 2, G = 16): Table-I and calibration prompts
+    for S, K in ((15, 32), (512, 32), (2048, 32), (15, 2), (512, 2)):
+        q = randn((1, S, H, dh), "bfloat16")
+        k, v = randn((1, S, K, dh), "bfloat16"), randn((1, S, K, dh), "bfloat16")
         pairs = S * (S + 1) // 2  # causal (q, k) pairs each head computes
-        row("flash_attention", f"B=1 S={S} H=K={H} dh={dh} causal",
+        heads = f"H=K={H}" if K == H else f"H={H} K={K}"
+        row("flash_attention", f"B=1 S={S} {heads} dh={dh} causal",
             lambda: flash_attention(q, k, v), lambda: ref.flash_attention(q, k, v),
             lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
-            2 * 4 * S * H * dh, 4.0 * pairs * dh * H,
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=K != H),
+            2 * S * (H + K) * dh * 2, 4.0 * pairs * dh * H,
             lambda: max_err(flash_attention(q, k, v), ref.flash_attention(q, k, v)))
 
     Sc = 576
-    for B, lengths, label in [(8, [16 + 2 * b for b in range(8)], "ICC batch, 16-30 valid"),
-                              (1, [576], "calibration 512+64, 576 valid")]:
+    for B, K, lengths, label in [
+        (8, 32, [16 + 2 * b for b in range(8)], "ICC batch, 16-30 valid"),
+        (1, 32, [576], "calibration 512+64, 576 valid"),
+        (8, 2, [16 + 2 * b for b in range(8)], "ICC batch, 16-30 valid"),
+        (1, 2, [560], "batch 1, 560 valid"),
+    ]:
         q = randn((B, H, dh), "bfloat16")
-        k, v = randn((B, Sc, H, dh), "bfloat16"), randn((B, Sc, H, dh), "bfloat16")
+        k, v = randn((B, Sc, K, dh), "bfloat16"), randn((B, Sc, K, dh), "bfloat16")
         kv_pos, pos = decode_positions(torch, B, Sc, lengths)
         mask = ((kv_pos >= 0) & (kv_pos <= pos[:, None]))[:, None, None, :]
         n_valid = sum(lengths)
-        row("decode_attention", f"B={B} Sc={Sc} H=K={H} dh={dh} ({label})",
+        heads = f"H=K={H}" if K == H else f"H={H} K={K}"
+        row("decode_attention", f"B={B} Sc={Sc} {heads} dh={dh} ({label})",
             lambda: decode_attention(q, k, v, kv_pos, pos),
             lambda: ref.decode_attention(q, k, v, kv_pos, pos),
             lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask),
-            2 * n_valid * H * dh * 2 + B * Sc * 4 + B * 4 + 2 * B * H * dh * 2,
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=K != H),
+            2 * n_valid * K * dh * 2 + B * Sc * 4 + B * 4 + 2 * B * H * dh * 2,
             4.0 * n_valid * H * dh,
             lambda: max_err(decode_attention(q, k, v, kv_pos, pos),
                             ref.decode_attention(q, k, v, kv_pos, pos)))
@@ -447,18 +484,50 @@ def phase_kernels(torch, timer):
 # ---------------------------------------------------------------------------
 
 
-def phase_smoke_model(torch):
-    from repro_torch.configs import get_config
+SMOKE_CASES = [  # (label, arch, fields replaced on its smoke config, seeded biases/gammas)
+    ("llama2-7b smoke", "llama2-7b", {}, False),
+    ("glm4-9b smoke", "glm4-9b", {}, True),  # QKV bias, G = 4
+    ("nemotron-4-15b smoke", "nemotron-4-15b", {}, True),  # relu2
+    ("qwen1.5-110b smoke", "qwen1.5-110b", {}, True),
+    ("mistral-large-123b smoke", "mistral-large-123b", {}, True),
+    ("qwen2-vl-72b smoke", "qwen2-vl-72b", {}, True),  # embeds, M-RoPE
+    ("tied embeddings", "glm4-9b", {"tie_embeddings": True}, True),
+    ("iRoPE", "mistral-large-123b", {"nope_interval": 2}, True),
+]
+
+
+def perturb(torch, params, seed):
+    """Seeded non-zero QKV biases and norm gammas (the init leaves them 0 and 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in params.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("bq", "bk", "bv"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            elif leaf.endswith("norm"):
+                t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen))
+
+
+def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8):
+    """One model on the card (kernels) against the same weights on the CPU
+    (plain path), f32: forward, prefill of 12 and 3 decode steps (logits
+    within MODEL_TOL), and the engine's greedy tokens over n_reqs requests."""
     from repro_torch.models import build_model
     from repro_torch.serving import GenRequest, InferenceEngine
 
-    cfg = dataclasses.replace(get_config("llama2-7b", smoke=True), dtype="float32")
     model = build_model(cfg)
     p_cpu = model.init(seed=0, device="cpu")
+    if nudge:
+        perturb(torch, p_cpu, seed=5)
     p_gpu = copy.deepcopy(p_cpu).to("cuda")
     gen = torch.Generator().manual_seed(1)
-    x = torch.randint(0, cfg.vocab_size, (2, 15), generator=gen)
 
+    def make(shape):  # tokens, or frontend embeds for vlm
+        if cfg.embeds_input:
+            return 0.02 * torch.randn(*shape, cfg.d_model, generator=gen)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen)
+
+    x = make((2, 15))
     worst = 0.0
     lc, _ = model.forward(p_cpu, x)
     lg, _ = model.forward(p_gpu, x.cuda())
@@ -474,18 +543,60 @@ def phase_smoke_model(torch):
         dc, cc = model.decode(p_cpu, cc, x[:, 12 + i], pos)
         dg, cg = model.decode(p_gpu, cg, x[:, 12 + i].cuda(), pos.cuda())
         worst = max(worst, max_err(dg.cpu(), dc), max_err(dg.cpu(), lc[:, 12 + i]))
-    check(worst <= MODEL_TOL, f"smoke model: card vs CPU max|err| {worst:.3g} > {MODEL_TOL}")
+    check(worst <= MODEL_TOL, f"{label}: card vs CPU max|err| {worst:.3g} > {MODEL_TOL}")
 
-    reqs = [GenRequest(uid=i, prompt=torch.randint(0, cfg.vocab_size, (6 + 3 * i,),
-                                                   generator=gen), max_new_tokens=8)
-            for i in range(4)]
+    reqs = [GenRequest(uid=i, prompt=make((6 + 3 * i,)), max_new_tokens=new)
+            for i in range(n_reqs)]
     toks = {}
     for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
         out = InferenceEngine(model, p, max_batch=3, max_seq=48, device=dev).generate(reqs)
         toks[dev] = [out[r.uid].tokens for r in reqs]
-    check(toks["cpu"] == toks["cuda"], f"smoke engine: greedy tokens differ {toks}")
-    say(f"smoke model (llama2-7b smoke, f32): card vs CPU logits max|err| {worst:.3g} "
-        f"(<= {MODEL_TOL}), greedy tokens equal over {len(reqs)} requests")
+    check(toks["cpu"] == toks["cuda"], f"{label} engine: greedy tokens differ {toks}")
+    say(f"{label} (f32): card vs CPU logits max|err| {worst:.3g} (<= {MODEL_TOL}), greedy "
+        f"tokens equal over {len(reqs)} requests")
+    del p_gpu
+    torch.cuda.empty_cache()
+
+
+def ring_card_vs_cpu(torch, W=8, T=20):
+    """glm4-9b smoke under `window_override=W`: decode only, through a ring of W
+    slots, card against CPU at every step; the windowed forward too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RuntimeFlags, build_model
+
+    cfg = dataclasses.replace(get_config("glm4-9b", smoke=True), dtype="float32")
+    model = build_model(cfg, RuntimeFlags(window_override=W))
+    p_cpu = model.init(seed=0, device="cpu")
+    perturb(torch, p_cpu, seed=6)
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, T), generator=torch.Generator().manual_seed(9))
+    lc, _ = model.forward(p_cpu, toks)
+    lg, _ = model.forward(p_gpu, toks.cuda())
+    worst = max_err(lg.cpu(), lc)
+    cc, cg = model.init_cache(2, W, device="cpu"), model.init_cache(2, W, device="cuda")
+    for t in range(T):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        dc, cc = model.decode(p_cpu, cc, toks[:, t], pos)
+        dg, cg = model.decode(p_gpu, cg, toks[:, t].cuda(), pos.cuda())
+        worst = max(worst, max_err(dg.cpu(), dc))
+    check(worst <= MODEL_TOL, f"ring cache: card vs CPU max|err| {worst:.3g} > {MODEL_TOL}")
+    check(torch.equal(cg["pos"].cpu(), cc["pos"]), "ring cache: slot positions differ")
+    say(f"ring cache (glm4-9b smoke, window {W}, {W} slots, {T} tokens, f32): card vs CPU "
+        f"logits max|err| {worst:.3g} (<= {MODEL_TOL})")
+
+
+def phase_smoke_model(torch):
+    from repro_torch.configs import get_config
+
+    for label, arch, kw, nudge in SMOKE_CASES:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32", **kw)
+        card_vs_cpu(torch, label, cfg, nudge)
+    ring_card_vs_cpu(torch)
+    # the real widths (G = 16, vocab 151552) against the plain path, depth cut to 2
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=2, dtype="float32")
+    card_vs_cpu(torch, "glm4-9b full width, 2 layers", cfg, True, n_reqs=3, new=4)
+    say(f"glm4-9b full width, 2 layers: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +622,32 @@ def poisson_trace(cfg, n, rate, n_input, n_output, b_total, seed=0):
     return reqs
 
 
+FULL_WIDTH = [  # (arch, served under ICCServer and profiled, or calibrated at 15/15 only)
+    ("llama2-7b", True),  # the paper's serving model
+    ("glm4-9b", True),  # G = 16, QKV bias, vocab 151552
+    ("nemotron-4-15b", False),  # relu2, d_model 6144, G = 6
+]
+
+
 def phase_full_width(torch):
+    """Each full-width path with the launch counts set to 0 just before it
+    and read just after; returns their sum over the paths."""
+    total = {}
+    for arch, serve in FULL_WIDTH:
+        n = full_width(torch, arch, serve)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    say(f"launches on the main paths, summed: {total}")
+    return total
+
+
+def full_width(torch, arch, serve):
+    """`arch` in bf16 at full width and depth, random weights from seed 0:
+    `measure_service_time` at 15/15 (and 512/64 when served), then, when
+    served, `ICCServer` priority and fifo over a 32-request Poisson trace at
+    the rate 8 slots serve at batch-1 speed; every kernel's launch count must
+    have grown as one prefill or decode step of L layers predicts. The model
+    is freed before the next one loads."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -519,23 +655,24 @@ def phase_full_width(torch):
     from repro_torch.models import build_model
     from repro_torch.serving import ICCServer, InferenceEngine, measure_service_time
 
-    cfg = get_config("llama2-7b")
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    say(f"llama2-7b full width: {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
-        f"dh={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}, "
+    say(f"{arch} full width: {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
+        f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"{cfg.activation}{' qkv_bias' if cfg.qkv_bias else ''} {cfg.dtype}, "
         f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    ops.reset_launches()  # the main path's run starts here
+    ops.reset_launches()  # this path's run starts here
     cal = {}
-    for n_in, n_out, max_seq in ((15, 15, 256), (512, 64, 576)):
+    for n_in, n_out, max_seq in ((15, 15, 256), (512, 64, 576))[:2 if serve else 1]:
         t = measure_service_time(model, params, n_in, n_out, max_seq=max_seq, repeats=3)
         cal[(n_in, n_out)] = t
-        say(f"measure_service_time {n_in}-in/{n_out}-out (batch 1): prefill "
+        say(f"{arch} measure_service_time {n_in}-in/{n_out}-out (batch 1): prefill "
             f"{t['prefill_s'] * 1e3:.3f} ms, decode {t['decode_s'] * 1e3:.3f} ms "
             f"({t['decode_s'] / (n_out - 1) * 1e3:.3f} ms/step), total {t['total_s'] * 1e3:.3f} ms")
 
@@ -543,7 +680,7 @@ def phase_full_width(torch):
     M, Sc = 8, 576
     rate = M / svc  # offered load: what 8 slots serve at batch-1 speed
     b_total = 3.0 * svc
-    for policy in ("priority", "fifo"):
+    for policy in ("priority", "fifo") if serve else ():
         trace = poisson_trace(cfg, 32, rate, 15, 15, b_total)
         eng = InferenceEngine(model, params, max_batch=M, max_seq=Sc, device="cuda")
         eng.warmup(trace[0].req.prompt)
@@ -558,7 +695,7 @@ def phase_full_width(torch):
         e2e = np.array(st.e2e) if st.e2e else np.array([np.nan])
         pre = np.mean([r.prefill_s for r in res]) * 1e3 if res else float("nan")
         steps = [r.decode_s / (r.n_tokens - 1) for r in res if r.n_tokens > 1]
-        say(f"ICCServer {policy}: {st.n_total} requests (rate {rate:.2f}/s, b_total "
+        say(f"{arch} ICCServer {policy}: {st.n_total} requests (rate {rate:.2f}/s, b_total "
             f"{b_total * 1e3:.1f} ms), served {len(res)}, satisfied {st.n_satisfied}, "
             f"satisfaction {st.satisfaction:.3f}, dropped {st.n_dropped}, e2e p50 "
             f"{np.nanpercentile(e2e, 50) * 1e3:.1f} ms p95 {np.nanpercentile(e2e, 95) * 1e3:.1f} ms, "
@@ -569,15 +706,20 @@ def phase_full_width(torch):
     torch.cuda.synchronize()
 
     n = dict(ops.LAUNCHES)
-    say(f"launches on the main path: {n}")
-    check(all(v > 0 for v in n.values()), f"a kernel of the main path never launched: {n}")
+    say(f"launches on the {arch} path: {n}")
+    check(all(v > 0 for v in n.values()), f"a kernel of the {arch} path never launched: {n}")
     L = cfg.n_layers
     check(n["flash_attention"] % L == 0 and n["decode_attention"] % L == 0,
           f"attention launches are not whole forwards of {L} layers: {n}")
     forwards = (n["flash_attention"] + n["decode_attention"]) // L
     check(n["rmsnorm"] == (2 * L + 1) * forwards,
           f"rmsnorm launches {n['rmsnorm']} != {2 * L + 1} x {forwards} forwards")
-    profile_decode(torch, model, params, cfg, M, Sc)
+    say(f"{arch}: launch identity holds, {forwards} forwards of {L} layers: rmsnorm "
+        f"{2 * L + 1} and attention {L} per forward")
+    if serve:
+        profile_decode(torch, model, params, cfg, M, Sc)
+    del params
+    torch.cuda.empty_cache()
     return n
 
 
@@ -604,8 +746,8 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
         wall = (time.perf_counter() - t0) / steps * 1e3
         groups, launches = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
         busy = sum(groups.values()) / steps / 1e3
-        say(f"decode step profile ({label}: batch {batch}, {plen}-token prompts, Sc {Sc}, "
-            f"{steps} steps): wall {wall:.3f} ms/step unprofiled; device busy {busy:.3f} "
+        say(f"{cfg.name} decode step profile ({label}: batch {batch}, {plen}-token prompts, "
+            f"Sc {Sc}, {steps} steps): wall {wall:.3f} ms/step unprofiled; device busy {busy:.3f} "
             f"ms/step ({100 * busy / wall:.1f}% of wall), "
             + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items())
             + f"; {launches / steps:.0f} kernel launches/step")
@@ -692,12 +834,62 @@ def rmsnorm_sweep(torch, timer):
         say(line)
 
 
+def decode_sweep(torch, timer):
+    """decode_attention's time by head-group size, bf16, dh 128: at each
+    shape (the ICC batch of 8 rows with 16-30 valid slots, one row of ~560
+    valid slots, and full 8192-slot caches) the kernel with every group size
+    the kernel takes (1, 2 or 4 heads a CTA) that divides G, and SDPA on the
+    same inputs. Each size is checked against the plain version first."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    mod = importlib.import_module("repro_torch.kernels.decode_attention")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    say(f"timer floor: {timer(lambda: torch.cuda._sleep(0)):.4f} ms")
+    icc = [16 + 2 * b for b in range(8)]
+    rule = mod.head_groups
+    for B, H, K, Sc, lengths in [
+        (8, 32, 2, 576, icc), (1, 32, 2, 576, [560]),  # glm4-9b, G = 16
+        (8, 96, 8, 576, icc), (1, 96, 8, 576, [560]),  # mistral-large-123b, G = 12
+        (8, 64, 8, 576, icc),  # qwen1.5-110b / qwen2-vl-72b, G = 8
+        (8, 48, 8, 576, icc), (1, 48, 8, 576, [560]),  # nemotron-4-15b, G = 6
+        (8, 32, 32, 576, icc), (1, 32, 32, 576, [576]),  # llama2-7b, G = 1
+        (8, 32, 2, 8192, [8192] * 8), (1, 32, 2, 8192, [8192]),  # long caches, G = 16
+    ]:
+        q = torch.randn((B, H, 128), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, Sc, K, 128), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        kv_pos, pos = decode_positions(torch, B, Sc, lengths)
+        mask = ((kv_pos >= 0) & (kv_pos <= pos[:, None]))[:, None, None, :]
+        want = ref.decode_attention(q, k, v, kv_pos, pos)
+        G = H // K
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=K != H))
+        line = (f"sweep decode_attention B={B} H={H} K={K} G={G} Sc={Sc} valid {sum(lengths)}: "
+                f"SDPA {lib:.4f} ms, rule {G // rule(G)} heads/CTA; heads/CTA")
+        try:
+            for gc in (gc for gc in (4, 2, 1) if G % gc == 0):
+                mod.head_groups = lambda G, gc=gc: G // gc
+                assert_close(torch, mod.decode_attention(q, k, v, kv_pos, pos), want,
+                             "bfloat16", f"decode_attention {gc} heads/CTA B={B} H={H} K={K}")
+                line += f" {gc}={timer(lambda: mod.decode_attention(q, k, v, kv_pos, pos)):.4f}"
+        finally:
+            mod.head_groups = rule
+        say(line)
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-sweep", action="store_true",
                     help="only build and time rmsnorm's CTA shapes (rmsnorm_sweep)")
+    ap.add_argument("--decode-sweep", action="store_true",
+                    help="only build and time decode_attention's head groups (decode_sweep)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive (default: beside "
                          "this script)")
@@ -721,6 +913,13 @@ def main() -> int:
         rmsnorm_sweep(torch, Timer(torch))
         say(f"rmsnorm sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
+    if args.decode_sweep:
+        from repro_torch.kernels import _build
+
+        _build.library()
+        decode_sweep(torch, Timer(torch))
+        say(f"decode sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
     phase_build()
     rows = phase_kernels(torch, Timer(torch))
     phase_smoke_model(torch)
@@ -728,7 +927,7 @@ def main() -> int:
 
     seen = set()
     kernels = []
-    for r in rows:  # the first row of each kernel is its main-path (ICC) shape
+    for r in rows:  # the first row of each kernel is llama2-7b's ICC shape
         if r["name"] not in seen:
             seen.add(r["name"])
             kernels.append(dict(r, launches=launches[r["name"]]))

@@ -1,6 +1,6 @@
 """Architecture configs the port can run.
 
-``get_config("llama2-7b")`` -> full-size config;
+``get_config("glm4-9b")`` -> full-size config;
 ``get_config(name, smoke=True)`` -> reduced same-family variant for CPU.
 """
 

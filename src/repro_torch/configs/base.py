@@ -5,7 +5,7 @@ One frozen dataclass covers all six families (dense / moe / ssm / hybrid /
 vlm / audio); family-specific fields default to "off". Each architecture
 registers a full-size config plus a smoke variant of the same family
 (<=2 layers, d_model<=512) for CPU tests. The port registers only the
-architectures it can run: llama2-7b in this slice.
+architectures it can run: the dense and vlm families.
 """
 
 from __future__ import annotations
@@ -153,4 +153,11 @@ def _ensure_loaded() -> None:
     # Import the per-arch modules for their registration side effects.
     if _REGISTRY:
         return
-    from . import llama2_7b  # noqa: F401
+    from . import (  # noqa: F401
+        glm4_9b,
+        llama2_7b,
+        mistral_large_123b,
+        nemotron_4_15b,
+        qwen1_5_110b,
+        qwen2_vl_72b,
+    )

@@ -6,6 +6,9 @@ splits that axis into `Decoder.layers[i]` (an `nn.ModuleList`):
 
     {"layers": {"attn": {"wq": (L, d, H, dh)}}}  ->  "layers.{i}.attn.wq"
 
+Optional leaves follow the config on both sides: QKV biases (`bq`, `bk`,
+`bv`), `w3` only for gated MLPs, `lm_head` only without tied embeddings.
+
 The decode cache keeps the reference's layout as it is:
 {"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}.
 

@@ -6,16 +6,23 @@
 // window), online softmax with (m, l, acc) in f32, rows with no valid slot
 // emit 0.
 //
-// Bound on the H100: bytes. Each valid cache slot's K and V row is read once
-// and used for G query heads' ~4 dh flops, about one flop per byte. Design:
+// Bound on the H100: bytes at long caches. Each valid cache slot's K and V
+// row is used for G query heads' ~4 dh flops, about G flops per byte. At the
+// serving shapes (caches of a few hundred slots) a call is a chain of
+// dependent memory round trips, not a stream of bytes. Design:
 //
-//  * Grid (splits, K, B). A CTA of 128 threads holds all G query heads of
-//    one KV head, so each K/V row is read from device memory once (the
-//    Pallas grid re-reads it per query head), and walks its split: a range
-//    of whole 64-slot tiles. The wrapper picks the split count so that few
-//    long sequences still fill the card (batch 1, 32 KV heads, 576 slots:
-//    5 splits, 160 CTAs); at B * K >= the SM count it is 1 and the kernel
-//    writes the output itself.
+//  * Grid (splits, K * head groups, B). A CTA of 128 threads holds GC = 1,
+//    2 or 4 query heads of one KV head (a template parameter: its loops over
+//    heads unroll with no guard); G is cut into G / GC head groups, which
+//    read the KV head's rows once each (the second and later reads mostly
+//    from L2; the Pallas grid re-reads them per query head). The wrapper
+//    takes the largest GC that divides G (`head_groups`): on the H100 a CTA
+//    of 4 heads was faster than one of all 16 at every glm4-9b shape timed,
+//    576-slot caches and 8192-slot ones (PERF.md). A CTA walks its split: a
+//    range of whole 64-slot tiles. The wrapper picks the split count so that
+//    few long sequences still fill the card (batch 1, 32 KV heads, 576
+//    slots: 5 splits, 160 CTAs); at B * K * groups >= the SM count it is 1
+//    and the kernel writes the output itself.
 //  * A CTA first reads all positions of its range (one burst) into
 //    per-tile validity masks, so a tile with no valid slot is skipped before
 //    any K/V byte is read and a short sequence in a long cache costs its
@@ -26,19 +33,20 @@
 //  * Scores: two threads per slot, shuffle-combined; softmax: one warp per
 //    query head; mix: each thread a column pair over a group of rows, fully
 //    unrolled (rows that were not copied are zeroed and have p = 0), the
-//    row groups summed once at the end. G has a compile-time bound (1 for
-//    MHA) so the loops over query heads carry no guard there.
+//    row groups summed once at the end.
 //  * The merge is in the same launch: every split writes its f32 (m, l,
-//    acc) to scratch, and the last CTA of a (row, KV head) to arrive (an
-//    atomic counter taken after a fence) merges all splits in split order,
-//    writes the output and resets the counter to 0. The fixed order makes
-//    the output bit-identical from call to call; one launch per call keeps
-//    the host-bound decode step at one launch per layer.
+//    acc) to scratch (a split with no valid slot only m and l), and the
+//    last CTA of a (row, head group) to arrive (an atomic counter taken
+//    after a fence) reads every split's (m, l) in one round, merges the
+//    splits that hold a valid slot in split order, writes the output and
+//    resets the counter to 0. The fixed order makes the output
+//    bit-identical from call to call; one launch per call keeps the
+//    host-bound decode step at one launch per layer.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 64, kThreads = 128, kWarps = kThreads / 32, kMaxG = 8;
+constexpr int kTile = 64, kThreads = 128, kWarps = kThreads / 32;
 constexpr int kMaxSplits = 64;  // = kTile: the merge weights reuse the score buffer
 constexpr int kPassTiles = 32;  // tiles whose positions one pass holds
 constexpr unsigned kFull = 0xffffffffu;
@@ -52,13 +60,14 @@ __device__ __forceinline__ float2 load2(const __half* p) {
   return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
-// GMAX: a compile-time bound on G (1 for MHA, so its loops carry no guard).
-template <typename T, int DH, int GMAX>
+// GC: the query heads of this CTA, heads blockIdx.y * GC + g of the KV head
+// blockIdx.y / n_hg (n_hg head groups per KV head).
+template <typename T, int DH, int GC>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kv_pos,
                         const int* __restrict__ pos, T* __restrict__ o, float* __restrict__ part,
-                        int* __restrict__ counters, int G, int Sc, int tiles_per_split,
+                        int* __restrict__ counters, int n_hg, int Sc, int tiles_per_split,
                         long long q_sb, long long q_sh, long long k_sb, long long k_ss,
                         long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                         long long p_sb, long long o_sb, long long o_sh, int window,
@@ -73,16 +82,17 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);  // [2][kTile][DH], raw cache dtype
   T* Vs = Ks + 2 * kTile * DH;
-  float* red = reinterpret_cast<float*>(smem);  // [RG][GMAX][DH] after the last tile
-  __shared__ __align__(16) float Qs[GMAX][DH];
-  __shared__ float Ps[GMAX][kTile];  // scores, then probabilities; merge weights
+  float* red = reinterpret_cast<float*>(smem);  // [RG][GC][DH] after the last tile
+  __shared__ __align__(16) float Qs[GC][DH];
+  __shared__ float Ps[GC][kTile];  // scores, then probabilities; merge weights
   __shared__ uint32_t masks[2 * kPassTiles];
-  __shared__ float g_m[GMAX], g_l[GMAX], g_c[GMAX];
-  __shared__ int is_last;
+  __shared__ float g_m[GC], g_l[GC], g_c[GC];
+  __shared__ int is_last, n_live;
+  __shared__ unsigned char live[kMaxSplits];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int split = blockIdx.x, splits = gridDim.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int K = gridDim.y;
+  const int y = blockIdx.y, Y = gridDim.y;  // (KV head, head group): heads y * GC + g
+  const int split = blockIdx.x, splits = gridDim.x, kvh = y / n_hg, b = blockIdx.z;
   const int qpos = pos[b];
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
@@ -91,13 +101,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_lo = split * tiles_per_split, t_hi = min(t_lo + tiles_per_split, n_tiles);
   const int cp = tid % PAIRS, rg = tid / PAIRS;  // the mix's column pair and row group
 
-  if (tid < G) {
+  if (tid < GC) {
     g_m[tid] = kNegInf;
     g_l[tid] = 0.f;
   }
-  float acc[GMAX][2];
+  float acc[GC][2];
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) acc[g][0] = acc[g][1] = 0.f;
+  for (int g = 0; g < GC; ++g) acc[g][0] = acc[g][1] = 0.f;
 
   for (int pass_lo = t_lo; pass_lo < t_hi; pass_lo += kPassTiles) {
     const int pass_hi = min(pass_lo + kPassTiles, t_hi);
@@ -112,10 +122,17 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int s = pass_lo * kTile + (warp + it * kWarps) * 32 + lane;
         kp[it] = (warp + it * kWarps < n_words && s < Sc) ? pb[s] : -1;
       }
-      if (pass_lo == t_lo) {
-        for (int i = tid; i < G * DH; i += kThreads) {
-          const int g = i / DH, d = i % DH;
-          Qs[g][d] = to_f32(q[b * q_sb + (kvh * G + g) * q_sh + d]);
+      if (pass_lo == t_lo) {  // Q in 16-byte chunks, all loads in flight at once
+#pragma unroll
+        for (int it = 0; it < (GC * CH + kThreads - 1) / kThreads; ++it) {
+          const int i = tid + it * kThreads, g = i / CH, c = i % CH;
+          if (i < GC * CH) {
+            const uint4 raw =
+                *reinterpret_cast<const uint4*>(q + b * q_sb + (y * GC + g) * q_sh + c * EPC);
+            const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+            for (int x = 0; x < EPC; ++x) Qs[g][c * EPC + x] = to_f32(e[x]);
+          }
         }
       }
 #pragma unroll
@@ -173,9 +190,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       {
         const int j = tid >> 1, half = tid & 1;
         const bool ok = ((j < 32 ? lo >> j : hi >> (j - 32)) & 1u) != 0;
-        float part_s[GMAX];
+        float part_s[GC];
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g) part_s[g] = 0.f;
+        for (int g = 0; g < GC; ++g) part_s[g] = 0.f;
         if (ok) {
 #pragma unroll
           for (int cc = 0; cc < CH / 2; ++cc) {
@@ -183,27 +200,23 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const uint4 raw = *reinterpret_cast<const uint4*>(kt + j * DH + (c ^ (j & SWM)) * EPC);
             const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-            for (int g = 0; g < GMAX; ++g) {
-              if (GMAX == 1 || g < G) {
+            for (int g = 0; g < GC; ++g) {
 #pragma unroll
-                for (int x = 0; x < EPC; ++x)
-                  part_s[g] = fmaf(Qs[g][c * EPC + x], to_f32(e[x]), part_s[g]);
-              }
+              for (int x = 0; x < EPC; ++x)
+                part_s[g] = fmaf(Qs[g][c * EPC + x], to_f32(e[x]), part_s[g]);
             }
           }
         }
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
-          if (GMAX == 1 || g < G) {
-            const float sc = part_s[g] + __shfl_xor_sync(kFull, part_s[g], 1);
-            if (half == 0) Ps[g][j] = ok ? sc * scale : kNegInf;
-          }
+        for (int g = 0; g < GC; ++g) {
+          const float sc = part_s[g] + __shfl_xor_sync(kFull, part_s[g], 1);
+          if (half == 0) Ps[g][j] = ok ? sc * scale : kNegInf;
         }
       }
       __syncthreads();
 
       // Online softmax: warp g takes query head g, two slots a lane.
-      for (int g = warp; g < G; g += kWarps) {
+      for (int g = warp; g < GC; g += kWarps) {
         const float s0 = Ps[g][lane], s1 = Ps[g][lane + 32];
         float mx = fmaxf(s0, s1);
 #pragma unroll
@@ -229,22 +242,18 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       {
         const int d = 2 * cp, c = d / EPC, x = d % EPC;
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
-          if (GMAX == 1 || g < G) {
-            acc[g][0] *= g_c[g];
-            acc[g][1] *= g_c[g];
-          }
+        for (int g = 0; g < GC; ++g) {
+          acc[g][0] *= g_c[g];
+          acc[g][1] *= g_c[g];
         }
 #pragma unroll
         for (int jj = 0; jj < RPG; ++jj) {
           const int j = rg * RPG + jj;
           const float2 vv = load2(vt + j * DH + (c ^ (j & SWM)) * EPC + x);
 #pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            if (GMAX == 1 || g < G) {
-              acc[g][0] = fmaf(Ps[g][j], vv.x, acc[g][0]);
-              acc[g][1] = fmaf(Ps[g][j], vv.y, acc[g][1]);
-            }
+          for (int g = 0; g < GC; ++g) {
+            acc[g][0] = fmaf(Ps[g][j], vv.x, acc[g][0]);
+            acc[g][1] = fmaf(Ps[g][j], vv.y, acc[g][1]);
           }
         }
       }
@@ -257,106 +266,181 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Sum the mix's row groups: red[rg][g][d], then thread i owns (g, d) = i.
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (GMAX == 1 || g < G) {
-      red[(rg * GMAX + g) * DH + 2 * cp] = acc[g][0];
-      red[(rg * GMAX + g) * DH + 2 * cp + 1] = acc[g][1];
-    }
+  for (int g = 0; g < GC; ++g) {
+    red[(rg * GC + g) * DH + 2 * cp] = acc[g][0];
+    red[(rg * GC + g) * DH + 2 * cp + 1] = acc[g][1];
   }
   __syncthreads();
   auto summed = [&](int g, int d) {
     float a = 0.f;
 #pragma unroll
-    for (int r = 0; r < RG; ++r) a += red[(r * GMAX + g) * DH + d];
+    for (int r = 0; r < RG; ++r) a += red[(r * GC + g) * DH + d];
     return a;
   };
+  // The GC x DH outputs, element i = tid + e * kThreads for e < PER.
+  constexpr int PER = (GC * DH + kThreads - 1) / kThreads;
 
   if (splits == 1) {
-    for (int i = tid; i < G * DH; i += kThreads) {
-      const int g = i / DH, d = i % DH;
-      const float inv = 1.f / fmaxf(g_l[g], 1e-30f);
-      o[b * o_sb + (kvh * G + g) * o_sh + d] = from_f32<T>(summed(g, d) * inv);
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int i = tid + e * kThreads, g = i / DH, d = i % DH;
+      if (i < GC * DH) {
+        const float inv = 1.f / fmaxf(g_l[g], 1e-30f);
+        o[b * o_sb + (y * GC + g) * o_sh + d] = from_f32<T>(summed(g, d) * inv);
+      }
     }
     return;
   }
 
-  // Split partials: per (row, KV head, split) G x DH acc, then G m, G l.
-  const int stride = G * (DH + 2);
-  float* row_part = part + (long long)(b * K + kvh) * splits * stride;
+  // Split partials: per (row, head group, split) GC x DH acc, then GC m, GC l.
+  // A split with no valid slot (m = -1e30 for every head: validity is per
+  // slot) writes m and l only; the merge skips it, as its weight is 0.
+  const int stride = GC * (DH + 2);
+  float* row_part = part + (long long)(b * Y + y) * splits * stride;
   float* mine = row_part + split * stride;
-  for (int i = tid; i < G * DH; i += kThreads) mine[i] = summed(i / DH, i % DH);
-  if (tid < G) {
-    mine[G * DH + tid] = g_m[tid];
-    mine[G * DH + G + tid] = g_l[tid];
+  if (g_m[0] > kNegInf / 2) {
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int i = tid + e * kThreads;
+      if (i < GC * DH) mine[i] = summed(i / DH, i % DH);
+    }
+  }
+  if (tid < GC) {
+    mine[GC * DH + tid] = g_m[tid];
+    mine[GC * DH + GC + tid] = g_l[tid];
   }
   __threadfence();
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(&counters[b * K + kvh], 1) == splits - 1;
+  if (tid == 0) is_last = atomicAdd(&counters[b * Y + y], 1) == splits - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
 
-  // Merge in split order: weights exp(m_s - M) into Ps, 1 / L into g_c.
-  if (tid < G) {
+  // Merge in split order. Every split's (m, l) in one round of loads into
+  // shared memory (the row-group sums are spent): ml[s][0, GC) m, [GC, 2 GC) l.
+  float* ml = red;
+#pragma unroll
+  for (int it = 0; it < 2 * GC * kMaxSplits / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    if (i < 2 * GC * splits)
+      ml[i] = __ldcg(row_part + (i / (2 * GC)) * stride + GC * DH + i % (2 * GC));
+  }
+  __syncthreads();
+  // Weights exp(m_s - M) into Ps, 1 / L into g_c; the live splits' indices.
+  if (tid < GC) {
     float M = kNegInf;
-    for (int s = 0; s < splits; ++s) M = fmaxf(M, __ldcg(row_part + s * stride + G * DH + tid));
+    for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[s * 2 * GC + tid]);
     const bool dead = M <= kNegInf / 2;  // no valid slot in any split: emit 0
     float L = 0.f;
     for (int s = 0; s < splits; ++s) {
-      const float w = dead ? 0.f : expf(__ldcg(row_part + s * stride + G * DH + tid) - M);
+      const float w = dead ? 0.f : expf(ml[s * 2 * GC + tid] - M);
       Ps[tid][s] = w;
-      L = fmaf(w, __ldcg(row_part + s * stride + G * DH + G + tid), L);
+      L = fmaf(w, ml[s * 2 * GC + GC + tid], L);
     }
     g_c[tid] = 1.f / fmaxf(L, 1e-30f);
   }
-  __syncthreads();
-  for (int i = tid; i < G * DH; i += kThreads) {
-    const int g = i / DH, d = i % DH;
-    float a = 0.f;
-    for (int s = 0; s < splits; ++s) a = fmaf(Ps[g][s], __ldcg(row_part + s * stride + i), a);
-    o[b * o_sb + (kvh * G + g) * o_sh + d] = from_f32<T>(a * g_c[g]);
+  if (tid == 0) {
+    int n = 0;
+    for (int s = 0; s < splits; ++s)
+      if (ml[s * 2 * GC] > kNegInf / 2) live[n++] = s;
+    n_live = n;
   }
-  if (tid == 0) counters[b * K + kvh] = 0;  // every split has arrived: ready for the next call
+  __syncthreads();
+  // acc: the live splits in order, the loads of three splits in flight.
+  float a[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) a[e] = 0.f;
+#pragma unroll 3
+  for (int n = 0; n < n_live; ++n) {
+    const int s = live[n];
+    float x[PER];
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int i = tid + e * kThreads;
+      x[e] = i < GC * DH ? __ldcg(row_part + s * stride + i) : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int i = tid + e * kThreads;
+      if (i < GC * DH) a[e] = fmaf(Ps[i / DH][s], x[e], a[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int i = tid + e * kThreads, g = i / DH, d = i % DH;
+    if (i < GC * DH) o[b * o_sb + (y * GC + g) * o_sh + d] = from_f32<T>(a[e] * g_c[g]);
+  }
+  if (tid == 0) counters[b * Y + y] = 0;  // every split has arrived: ready for the next call
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, const int* kv_pos, const int* pos,
-           void* o, float* part, int* counters, int B, int K, int G, int Sc, int splits,
-           const long long* st, int window, float scale, cudaStream_t stream) {
-  constexpr int bytes = 2 * 2 * kTile * DH * (int)sizeof(T);  // K and V, two stages
-  static_assert(bytes >= (kThreads / (DH / 2)) * kMaxG * DH * 4, "row-group sums fit");
-  auto kern = G == 1 ? decode_attention_kernel<T, DH, 1> : decode_attention_kernel<T, DH, kMaxG>;
+template <typename T, int DH, int GC>
+constexpr int smem_bytes() {  // the K/V ring (two stages), then the row-group sums
+  constexpr int ring = 2 * 2 * kTile * DH * (int)sizeof(T);
+  constexpr int sums = (kThreads / (DH / 2)) * GC * DH * 4;
+  static_assert(sums >= 2 * GC * kMaxSplits * 4, "the merge's (m, l) fit where the sums were");
+  return ring > sums ? ring : sums;
+}
+
+template <typename T, int DH, int GC>
+int launch_gc(const void* q, const void* k, const void* v, const int* kv_pos, const int* pos,
+              void* o, float* part, int* counters, int B, int K, int n_hg, int Sc, int splits,
+              const long long* st, int window, float scale, cudaStream_t stream) {
+  auto kern = decode_attention_kernel<T, DH, GC>;
+  constexpr int bytes = smem_bytes<T, DH, GC>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (Sc + kTile - 1) / kTile;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  const dim3 grid((unsigned)splits, (unsigned)K, (unsigned)B);
+  const dim3 grid((unsigned)splits, (unsigned)(K * n_hg), (unsigned)B);
   kern<<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, kv_pos, pos, (T*)o, part, counters, G, Sc,
+      (const T*)q, (const T*)k, (const T*)v, kv_pos, pos, (T*)o, part, counters, n_hg, Sc,
       tiles_per_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], window, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, const int* kv_pos, const int* pos,
+           void* o, float* part, int* counters, int B, int K, int GC, int n_hg, int Sc,
+           int splits, const long long* st, int window, float scale, cudaStream_t stream) {
+  switch (GC) {
+    case 1:
+      return launch_gc<T, DH, 1>(q, k, v, kv_pos, pos, o, part, counters, B, K, n_hg, Sc,
+                                 splits, st, window, scale, stream);
+    case 2:
+      return launch_gc<T, DH, 2>(q, k, v, kv_pos, pos, o, part, counters, B, K, n_hg, Sc,
+                                 splits, st, window, scale, stream);
+    case 4:
+      return launch_gc<T, DH, 4>(q, k, v, kv_pos, pos, o, part, counters, B, K, n_hg, Sc,
+                                 splits, st, window, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q, o: (B, H, dh); k, v: (B, Sc, K, dh); kv_pos: (B, Sc) int32; pos: (B,)
 // int32. Element strides: q (batch, head), k and v (batch, slot, head),
-// kv_pos (batch), o (batch, head); the dh axis is contiguous, and k/v rows
-// are 16-byte aligned (cp.async). H = K * G, G <= 8. With splits > 1,
-// `part` holds B * K * splits * G * (dh + 2) floats and `counters` B * K
-// int32 zeros, left zero on return.
+// kv_pos (batch), o (batch, head); the dh axis is contiguous, and q, k and
+// v rows are 16-byte aligned (16-byte loads, cp.async). H = K * G for any
+// G; each KV head's G query heads go to n_hg CTAs of GC = G / n_hg heads,
+// GC in {1, 2, 4}. With splits > 1, `part` holds B * K * splits * G *
+// (dh + 2) floats and `counters` B * K * n_hg int32 zeros, left zero on
+// return.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* kv_pos, const void* pos, void* o, void* part,
-                                    void* counters, int B, int H, int K, int Sc, int splits,
+                                    void* counters, int B, int H, int K, int n_hg, int Sc,
+                                    int splits,
                                     long long q_sb, long long q_sh, long long k_sb,
                                     long long k_ss, long long k_sh, long long v_sb,
                                     long long v_ss, long long v_sh, long long p_sb,
                                     long long o_sb, long long o_sh, int dh, int window,
                                     float scale, int dtype, void* stream) {
   if (B == 0 || H == 0) return 0;
-  const int G = H / K;
-  if (G > kMaxG || G * K != H || splits < 1 || splits > kMaxSplits ||
+  if (K < 1 || n_hg < 1 || H % (K * n_hg) != 0) return (int)cudaErrorInvalidValue;
+  const int GC = H / (K * n_hg);  // query heads per CTA
+  if ((GC != 1 && GC != 2 && GC != 4) || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (part == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const long long st[11] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
@@ -368,8 +452,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
 #define DECODE_CASE(D)                                                                   \
   case D:                                                                                \
-    DISPATCH_DTYPE(dtype, return launch<scalar_t, D>(q, k, v, kp, ps, o, pt, ct, B, K, G, \
-                                                     Sc, splits, st, window, scale, s)); \
+    DISPATCH_DTYPE(dtype, return launch<scalar_t, D>(q, k, v, kp, ps, o, pt, ct, B, K, GC, \
+                                                     n_hg, Sc, splits, st, window, scale, \
+                                                     s));                                  \
     break;
   switch (dh) {
     DECODE_CASE(16)

@@ -4,11 +4,14 @@ Replaces the Pallas kernel `repro/kernels/decode_attention.py:decode_attention`;
 the plain version is `ref.decode_attention`. The kernel reads the cache in
 the model's (B, Sc, K, dh) layout through strides.
 
-Few long sequences leave most SMs idle with one CTA per (row, KV head), so
-the cache is split into ranges of whole 64-slot tiles (`decode_splits`),
-one CTA each, merged by the last CTA of each (row, KV head) in the same
-launch. The merge counters are zeroed once per device and left zero by
-every call; calls that share them must run on one stream.
+A CTA holds 1, 2 or 4 query heads of one KV head: a KV head's G query heads
+(any G) are cut into `head_groups` of the largest of those sizes that
+divides G, each of which reads the KV head's rows. Few long sequences leave
+most SMs idle with one CTA per (row, head group), so the cache is split into
+ranges of whole 64-slot tiles (`decode_splits`), one CTA each, merged by the
+last CTA of each (row, head group) in the same launch. The merge counters are zeroed
+once per device and left zero by every call; calls that share them must run
+on one stream.
 """
 
 from __future__ import annotations
@@ -21,19 +24,28 @@ import torch
 from . import _build
 from .flash_attention import HEAD_DIMS
 
-__all__ = ["decode_attention", "decode_splits", "MAX_GROUP", "MAX_SPLITS", "TILE"]
+__all__ = ["decode_attention", "decode_splits", "head_groups", "CTA_HEADS", "MAX_SPLITS",
+           "TILE"]
 
-MAX_GROUP = 8  # query heads per KV head that one CTA holds
+CTA_HEADS = (4, 2, 1)  # the query heads one CTA may hold, the largest that divides G
 MAX_SPLITS = 64  # the kernel's bound on splits per (row, KV head)
 TILE = 64  # cache slots per tile: a split holds whole tiles
 
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
+def head_groups(G: int) -> int:
+    """How many CTAs share one KV head's G query heads: groups of the largest
+    size in CTA_HEADS that divides G. On the H100 four heads a CTA beat all
+    16 in one CTA at every glm4-9b shape timed (PERF.md)."""
+    return G // next(gc for gc in CTA_HEADS if G % gc == 0)
+
+
 def decode_splits(B: int, K: int, Sc: int, n_sm: int) -> int:
-    """How many splits of the cache each (row, KV head) gets: enough CTAs for
-    about one wave of `n_sm` SMs, each split whole tiles, never more splits
-    than tiles, and 1 when B * K CTAs already fill the card."""
+    """How many splits of the cache each of the B * K (row, head group) CTAs
+    gets: enough CTAs for about one wave of `n_sm` SMs, each split whole
+    tiles, never more splits than tiles, and 1 when B * K CTAs already fill
+    the card."""
     n_tiles = max(1, -(-Sc // TILE))
     if B * K >= n_sm:
         return 1
@@ -66,10 +78,9 @@ def decode_attention(
     Bk, Sc, K, dhk = k.shape
     if not all(t.is_cuda for t in (q, k, v, kv_pos, pos)):
         raise ValueError("decode_attention kernel: tensors must be on the card")
-    if k.shape != v.shape or Bk != B or dhk != dh or H % K or H // K > MAX_GROUP:
+    if k.shape != v.shape or Bk != B or dhk != dh or H % K:
         raise ValueError(
-            f"decode_attention kernel: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"(G <= {MAX_GROUP})"
+            f"decode_attention kernel: q {tuple(q.shape)} k {tuple(k.shape)}"
         )
     if kv_pos.shape != (B, Sc) or pos.shape != (B,):
         raise ValueError("decode_attention kernel: kv_pos (B, Sc), pos (B,)")
@@ -83,23 +94,25 @@ def decode_attention(
             or kv_pos.stride(-1) != 1 or not pos.is_contiguous()):
         raise ValueError("decode_attention kernel: inner axes must be contiguous")
     kst, vst = (_build.row_strides(t.shape, t.stride()) for t in (k, v))
-    for name, t, st in (("k", k, kst), ("v", v, vst)):  # 16-byte cp.async copies of rows
+    # rows read 16 bytes at a time: q by plain loads, k and v by cp.async
+    for name, t, st in (("q", q, q.stride()[:2]), ("k", k, kst), ("v", v, vst)):
         _build.check_aligned(f"decode_attention kernel: {name}", t.data_ptr(), st,
                              t.element_size())
-    splits = decode_splits(B, K, Sc, _build.sm_count(q.device.index))
+    n_hg = head_groups(H // K)
+    splits = decode_splits(B, K * n_hg, Sc, _build.sm_count(q.device.index))
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     part = counters = None
     if splits > 1:
         part = torch.empty(B * K * splits * (H // K) * (dh + 2), dtype=torch.float32,
                            device=q.device)
-        counters = _counters(q.device, B * K)
+        counters = _counters(q.device, B * K * n_hg)
     lib = _build.library()
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
         pos.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(),
-        B, H, K, Sc, splits,
+        B, H, K, n_hg, Sc, splits,
         *q.stride()[:2], *kst, *vst, kv_pos.stride(0),
         *out.stride()[:2], dh, int(window), 1.0 / math.sqrt(dh),
         _build.dtype_code(q, "decode_attention"), _build.stream_of(q),

@@ -1,20 +1,26 @@
 """Grouped-query attention: prefill and decode (counterpart of
 `repro/models/attention.py`).
 
-  * naive  — materialises (B, K, G, Sq, Sk) scores; the CPU path.
-  * pallas — the flash kernel (`kernels/ops.flash_attention`); what "auto"
-             takes on the card. The name follows the reference's flag.
+  * naive   — materialises (B, K, G, Sq, Sk) scores; the CPU path up to
+              `naive_below` keys.
+  * chunked — double-chunked online softmax in plain PyTorch loops over
+              query and KV chunks; the CPU path above `naive_below`, and
+              wherever the caller asks for it.
+  * pallas  — the flash kernel (`kernels/ops.flash_attention`); what "auto"
+              takes on the card. The name follows the reference's flag.
 
 GQA is native: q is shaped (B, S, K, G, dh) against KV (B, S, K, dh).
+Optional QKV biases are added after the projections and before RoPE;
+`rope` tables of None mean NoPE (iRoPE layers).
 
 Decode writes the fresh token's K/V into its cache slot first and then
 attends over the cache (`ops.decode_attention`). That equals the
 reference's two-part softmax (cache + fresh token) whenever the slot it
 overwrites was already masked: an empty slot (pos < Sc), or pos - Sc outside
-a window <= Sc. `InferenceEngine` sizes requests so that pos < Sc holds.
+a window <= Sc. `InferenceEngine` sizes requests so that pos < Sc holds, and
+the stack refuses a ring cache smaller than its window.
 
-Not ported yet (they raise): qkv_bias, M-RoPE, iRoPE, cross-attention,
-chunked attention.
+Not ported (enc-dec only): cross-attention.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
@@ -34,6 +41,7 @@ __all__ = [
     "Attention",
     "init_attention",
     "naive_attention",
+    "chunked_attention",
     "attention_core",
     "attention_forward",
     "decode_attention",
@@ -45,15 +53,16 @@ NEG_INF = -1e30
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.qkv_bias or cfg.mrope_sections or cfg.nope_interval:
-            raise NotImplementedError(
-                "qkv_bias / M-RoPE / iRoPE attention is not ported yet"
-            )
         d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.wq = param((d, H, dh), device, dtype)
         self.wk = param((d, K, dh), device, dtype)
         self.wv = param((d, K, dh), device, dtype)
         self.wo = param((H, dh, d), device, dtype)
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = param((H, dh), device, dtype)
+            self.bk = param((K, dh), device, dtype)
+            self.bv = param((K, dh), device, dtype)
 
 
 def init_attention(p: Attention, gen: torch.Generator) -> Attention:
@@ -62,6 +71,9 @@ def init_attention(p: Attention, gen: torch.Generator) -> Attention:
     init_normal_(p.wk, gen)
     init_normal_(p.wv, gen)
     init_normal_(p.wo, gen, scale=1.0 / math.sqrt(H * dh))
+    if p.bq is not None:  # the reference starts the biases at zeros
+        for b in (p.bq, p.bk, p.bv):
+            b.zero_()
     return p
 
 
@@ -101,12 +113,65 @@ def naive_attention(
     return torch.einsum("bkgqs,bskh->bqkgh", p, v)
 
 
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, K, G, dh)
+    k: torch.Tensor,  # (B, Sk, K, dh)
+    v: torch.Tensor,  # (B, Sk, K, dh)
+    q_pos: torch.Tensor,  # (B, Sq)
+    k_pos: torch.Tensor,  # (B, Sk)
+    causal: bool,
+    window: int,
+    q_chunk: int,
+    kv_chunk: int,
+) -> torch.Tensor:
+    """Double-chunked attention with an online softmax: (m, l, acc) in f32
+    per query chunk, carried over the KV chunks; p is cast to v's dtype
+    before P.V. Peak memory O(qc * kc) scores."""
+    B, Sq, K, G, dh = q.shape
+    Sk = k.shape[1]
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    nq, nk = -(-Sq // qc), -(-Sk // kc)
+    scale = 1.0 / math.sqrt(dh)
+    # Pad to chunk multiples; padded KV slots get k_pos = -1 (masked).
+    qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * qc - Sq))
+    qposp = F.pad(q_pos, (0, nq * qc - Sq), value=0)
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, nk * kc - Sk)) for t in (k, v))
+    kposp = F.pad(k_pos, (0, nk * kc - Sk), value=-1)
+
+    out = torch.empty((B, nq * qc, K, G, dh), dtype=torch.float32, device=q.device)
+    for i in range(0, nq * qc, qc):
+        qb, qposb = qp[:, i:i + qc], qposp[:, i:i + qc]
+        m = torch.full((B, K, G, qc), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, K, G, qc, dh), dtype=torch.float32, device=q.device)
+        for j in range(0, nk * kc, kc):
+            kb, vb = kp[:, j:j + kc], vp[:, j:j + kc]
+            ok = _mask_ok(qposb, kposp[:, j:j + kc], causal, window)  # (B, qc, kc)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qb, kb).float() * scale
+            s = s + torch.where(ok, 0.0, NEG_INF)[:, None, None]
+            m_new = torch.maximum(m, s.amax(-1))
+            # rows masked so far: exp(NEG_INF - NEG_INF) would be 1
+            p = torch.where(m_new[..., None] <= NEG_INF / 2, 0.0,
+                            torch.exp(s - m_new[..., None]))
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(vb.dtype), vb).float()
+            m = m_new
+        out[:, i:i + qc] = (acc / l.clamp_min(1e-30)[..., None]).permute(0, 3, 1, 2, 4)
+    return out[:, :Sq].to(q.dtype)
+
+
 def attention_core(
     q, k, v, q_pos, k_pos, causal: bool, window: int, rt: RuntimeFlags
 ) -> torch.Tensor:
-    """q_pos/k_pos are arange positions here (see decoder_forward)."""
-    if rt.attn_impl_for(q.is_cuda) == "pallas":
+    """On the card q_pos/k_pos are arange positions (see decoder_forward)."""
+    impl = rt.attn_impl_for(k.shape[1], q.is_cuda)
+    if impl == "pallas":
         return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, q_pos, k_pos, causal, window,
+                                 rt.q_chunk, rt.kv_chunk)
     return naive_attention(q, k, v, q_pos, k_pos, causal, window)
 
 
@@ -124,9 +189,11 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _project_qkv(
     p: Attention,
     x: torch.Tensor,  # (B, S, d)
-    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rope_tables, None = NoPE
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rope tables, None = NoPE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
     if rope is not None:
         q, k = rotate(q, rope), rotate(k, rope)
     return q, k, v
@@ -144,7 +211,7 @@ def attention_forward(
     cfg: ModelConfig,
     rt: RuntimeFlags,
     positions: torch.Tensor,  # (B, S)
-    rope: Tuple[torch.Tensor, torch.Tensor],  # rope_tables(positions)
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # tables of positions; None = NoPE
     *,
     causal: bool = True,
     window: int = 0,
@@ -162,7 +229,7 @@ def decode_attention(
     p: Attention,
     x: torch.Tensor,  # (B, d) — one new token per sequence
     pos: torch.Tensor,  # (B,) int32 current position
-    rope: Tuple[torch.Tensor, torch.Tensor],  # rope_tables(pos[:, None])
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # tables of pos[:, None]; None = NoPE
     flat_slot: torch.Tensor,  # (B,) int64: b * Sc + pos % Sc, the new token's row
     cache_k: torch.Tensor,  # (B, Sc, K, dh) — this layer's cache, updated in place
     cache_v: torch.Tensor,

@@ -36,10 +36,10 @@ class RuntimeFlags:
     """Per-invocation execution knobs (orthogonal to the architecture).
 
     The same fields as the reference's. The port runs `attention_impl` in
-    {auto, naive, pallas} ("pallas" names the flash kernel, as in the
-    reference) and no window override; other values raise where they are
-    read. The MoE, SSM, remat and sharding fields have no effect in this
-    slice (forward-only dense decoder on one card)."""
+    {auto, naive, chunked, pallas} ("pallas" names the flash kernel, as in
+    the reference) and `window_override` (ring caches). The MoE, SSM, remat
+    and sharding fields have no effect in this slice (forward-only dense
+    and vlm decoders on one card)."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024
@@ -52,20 +52,20 @@ class RuntimeFlags:
     moe_dispatch: str = "scatter"  # scatter | einsum (Mesh-TF baseline)
     attn_seq_shard: bool = False  # context parallelism over the model axis
 
-    def attn_impl_for(self, on_cuda: bool) -> str:
-        """"auto" takes the flash kernel on the card and the naive plain
-        path on the CPU."""
+    def attn_impl_for(self, seq: int, on_cuda: bool) -> str:
+        """"auto" takes the flash kernel on the card and, on the CPU, the
+        reference's rule: naive up to `naive_below` keys, chunked above."""
         impl = self.attention_impl
         if impl == "auto":
-            return "pallas" if on_cuda else "naive"
-        if impl not in ("naive", "pallas"):
-            raise NotImplementedError(f"attention_impl={impl!r} is not ported yet")
+            if on_cuda:
+                return "pallas"
+            return "naive" if seq <= self.naive_below else "chunked"
+        if impl not in ("naive", "chunked", "pallas"):
+            raise ValueError(f"unknown attention_impl {impl!r}")
         return impl
 
     def window_for(self, cfg_window: int) -> int:
-        if self.window_override:
-            raise NotImplementedError("window_override (ring caches) is not ported yet")
-        return cfg_window
+        return self.window_override or cfg_window
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

@@ -1,7 +1,7 @@
-"""Gated feed-forward block (counterpart of `repro/models/mlp.py`).
-
-The port runs the gated (SiLU/GELU) form: w1, w3 (d, f) and w2 (f, d).
-The matmuls stay `torch.matmul`, as the reference leaves them to XLA.
+"""Feed-forward blocks (counterpart of `repro/models/mlp.py`): gated
+(SiLU/GELU: w1, w3 (d, f) and w2 (f, d)) and two-matrix squared-ReLU
+(Nemotron-4: w1 and w2, no w3). The matmuls stay `torch.matmul`, as the
+reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -18,21 +18,21 @@ __all__ = ["MLP", "init_mlp", "mlp_forward"]
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.activation not in ("silu", "gelu"):
-            raise NotImplementedError(f"{cfg.activation} MLP is not ported yet")
         d, f = cfg.d_model, cfg.d_ff
         self.w1 = param((d, f), device, dtype)
         self.w2 = param((f, d), device, dtype)
-        self.w3 = param((d, f), device, dtype)
+        self.w3 = param((d, f), device, dtype) if cfg.activation in ("silu", "gelu") else None
 
 
 def init_mlp(p: MLP, gen: torch.Generator) -> MLP:
     for w in (p.w1, p.w2, p.w3):
-        init_normal_(w, gen)
+        if w is not None:
+            init_normal_(w, gen)
     return p
 
 
 def mlp_forward(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    act = activation_fn(cfg.activation)
-    h = act(x @ p.w1) * (x @ p.w3)
+    h = activation_fn(cfg.activation)(x @ p.w1)
+    if p.w3 is not None:
+        h = h * (x @ p.w3)
     return h @ p.w2

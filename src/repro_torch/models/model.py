@@ -1,14 +1,15 @@
 """Public model API (counterpart of `repro/models/model.py`).
 
-    model = build_model(get_config("llama2-7b"))
+    model = build_model(get_config("glm4-9b"))
     params = model.init(seed=0)                          # on the card
     logits, aux = model.forward(params, tokens)
     logits, cache = model.prefill(params, prompt)        # serving
     logits, cache = model.decode(params, cache, tok, pos)
 
-`params` is a `transformer.Decoder` module; every call runs on the device
-its parameters live on. Forward only: the loss and training are not ported
-yet.
+Inputs are tokens (B, S) int, or frontend embeds (B, S, d) for vlm archs
+(with optional M-RoPE streams `mrope_positions` (3, B, S)). `params` is a
+`transformer.Decoder` module; every call runs on the device its parameters
+live on. Forward only: the loss and training are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,9 +39,13 @@ class Model:
         return transformer.init_decoder_params(self.cfg, gen, dev, dtype)
 
     # -------------------------------------------------------------- forward
-    def forward(self, params: transformer.Decoder, batch: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    def forward(
+        self, params: transformer.Decoder, batch: torch.Tensor,
+        mrope_positions: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, dict]:
         """-> (logits (B, S, V), aux)."""
-        return transformer.decoder_forward(params, self.cfg, self.rt, batch)
+        return transformer.decoder_forward(params, self.cfg, self.rt, batch,
+                                           mrope_positions=mrope_positions)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int, device="cuda", dtype=None) -> dict:
@@ -48,9 +53,13 @@ class Model:
             self.cfg, batch, cache_len, resolve_device(device), dtype
         )
 
-    def prefill(self, params: transformer.Decoder, prompt: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    def prefill(
+        self, params: transformer.Decoder, prompt: torch.Tensor,
+        mrope_positions: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, dict]:
         """-> (last-position logits (B, V), cache)."""
-        return transformer.decoder_prefill(params, self.cfg, self.rt, prompt)
+        return transformer.decoder_prefill(params, self.cfg, self.rt, prompt,
+                                           mrope_positions=mrope_positions)
 
     def decode(
         self, params: transformer.Decoder, cache: dict, token: torch.Tensor, pos: torch.Tensor

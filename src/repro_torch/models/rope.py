@@ -1,19 +1,32 @@
-"""Rotary position embeddings (counterpart of `repro/models/rope.py`).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL M-RoPE
+(counterpart of `repro/models/rope.py`).
 
 Split-half rotation with f32 angles, as the reference: the first and second
 halves of the head dim form the (x1, x2) pairs. The angle tables depend on
-positions only, so the stack builds them once per forward (`rope_tables`)
-and every layer rotates with them (`rotate`); XLA makes the same hoist for
-the reference. M-RoPE is not ported yet.
+positions only, so the stack builds them once per forward (`rope_tables`,
+`mrope_tables`) and every layer rotates with them (`rotate`); XLA makes the
+same hoist for the reference.
+
+M-RoPE splits the head_dim/2 frequency bands into sections driven by
+(temporal, height, width) position streams; text tokens carry identical
+(t, h, w), so M-RoPE degrades to RoPE for pure text. [arXiv:2409.12191]
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["rope_freqs", "rope_tables", "rotate", "apply_rope"]
+__all__ = [
+    "rope_freqs",
+    "rope_tables",
+    "mrope_tables",
+    "rotate",
+    "apply_rope",
+    "apply_mrope",
+    "text_mrope_positions",
+]
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -29,7 +42,25 @@ def rope_tables(
     """positions (B, S) -> f32 (cos, sin) tables (B, S, 1, D), laid out for
     `rotate`: cos = [cos, cos], sin = [-sin, sin] over the two halves."""
     inv = rope_freqs(head_dim, theta, positions.device)  # (D/2,)
-    angles = positions[..., None, None].float() * inv  # (B, S, 1, D/2)
+    return _tables(positions[..., None, None].float() * inv)  # angles (B, S, 1, D/2)
+
+
+def mrope_tables(
+    positions3: torch.Tensor, head_dim: int, theta: float, sections: Sequence[int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE tables: positions3 (3, B, S) t/h/w streams, `sections` (summing
+    to head_dim/2) the number of frequency bands each stream drives."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to {half}")
+    inv = rope_freqs(head_dim, theta, positions3.device)  # (D/2,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=positions3.device)  # (D/2,): the stream driving each band
+    pos = positions3.float().index_select(0, sec_id).permute(1, 2, 0)  # (B, S, D/2)
+    return _tables(pos[..., None, :] * inv)  # angles (B, S, 1, D/2)
+
+
+def _tables(angles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     cos, sin = torch.cos(angles), torch.sin(angles)
     return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
 
@@ -47,3 +78,19 @@ def apply_rope(
 ) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int."""
     return rotate(x, rope_tables(positions, head_dim, theta))
+
+
+def apply_mrope(
+    x: torch.Tensor,
+    positions3: torch.Tensor,  # (3, B, S)
+    head_dim: int,
+    theta: float,
+    sections: Sequence[int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE on x (B, S, H, D)."""
+    return rotate(x, mrope_tables(positions3, head_dim, theta, sections))
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) -> (3, B, S): text tokens share t = h = w = pos."""
+    return positions[None].expand(3, *positions.shape)

@@ -1,16 +1,20 @@
-"""Decoder-only stack, dense family (counterpart of
+"""Decoder-only stack, dense and vlm families (counterpart of
 `repro/models/transformer.py`).
 
 Parameters: a `Decoder` module whose `layers` is an `nn.ModuleList` of
 per-layer `Block`s; the reference keeps a leading layer axis on each leaf
 instead (`convert.py` splits it). The uniform stack is a Python loop over
-the blocks.
+the blocks; iRoPE's per-layer RoPE flag is a Python `if` per layer.
+
+Inputs are tokens (B, S) or frontend embeddings (B, S, d) (vlm); decode
+embeds the generated tokens. Tied embeddings have no `lm_head`: the logits
+use a view of `embed.T`.
 
 Cache: {"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}, the reference's
-layout; decode updates it in place.
+layout; decode updates it in place. Sliding-window serving
+(`window_override`) uses the same buffers as a ring (slot = pos % Sc).
 
-Not ported yet (they raise): MoE, hybrid (zamba2), ssm (xlstm), enc-dec,
-frontend embeddings, tied embeddings.
+Not ported yet (they raise): MoE, hybrid (zamba2), ssm (xlstm), enc-dec.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from ..configs.base import ModelConfig
 from .attention import Attention, attention_forward, decode_attention, init_attention
 from .common import DTYPES, RuntimeFlags, init_normal_, param, rms_norm
 from .mlp import MLP, init_mlp, mlp_forward
-from .rope import rope_tables
+from .rope import mrope_tables, rope_tables, text_mrope_positions
 
 __all__ = [
     "Block",
@@ -40,10 +44,8 @@ __all__ = [
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts or cfg.embeds_input:
+    if cfg.family not in ("dense", "vlm") or cfg.n_experts or cfg.n_encoder_layers:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tied embeddings are not ported yet")
 
 
 class Block(nn.Module):
@@ -58,7 +60,8 @@ class Block(nn.Module):
 
 
 class Decoder(nn.Module):
-    """All parameters of a dense decoder; `init_decoder_params` fills them."""
+    """All parameters of a dense or vlm decoder; `init_decoder_params` fills
+    them. `lm_head` is None under tied embeddings."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -66,7 +69,8 @@ class Decoder(nn.Module):
         dtype = dtype or DTYPES[cfg.dtype]
         self.embed = param((cfg.padded_vocab, cfg.d_model), device, dtype)
         self.final_norm = param((cfg.d_model,), device, dtype)
-        self.lm_head = param((cfg.d_model, cfg.padded_vocab), device, dtype)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else param((cfg.d_model, cfg.padded_vocab), device, dtype))
         self.layers = nn.ModuleList(
             Block(cfg, device=device, dtype=dtype) for _ in range(cfg.n_layers)
         )
@@ -82,7 +86,8 @@ def init_decoder_params(
     p = Decoder(cfg, device=device, dtype=dtype)
     init_normal_(p.embed, gen, scale=0.02)
     p.final_norm.fill_(1.0)
-    init_normal_(p.lm_head, gen)
+    if p.lm_head is not None:
+        init_normal_(p.lm_head, gen)
     for blk in p.layers:
         blk.attn_norm.fill_(1.0)
         blk.mlp_norm.fill_(1.0)
@@ -97,15 +102,31 @@ def init_decoder_params(
 
 
 def embed_inputs(params: Decoder, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> (B, S, d)."""
-    if inputs.dim() != 2:
-        raise NotImplementedError("frontend embeddings are not ported yet")
+    """tokens (B, S) int -> (B, S, d); (B, S, d) frontend embeds pass through."""
+    if inputs.dim() == 3:
+        return inputs
     return params.embed[inputs.long()]
 
 
 def logits_from_hidden(params: Decoder, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return h @ params.lm_head
+    w = params.embed.T if params.lm_head is None else params.lm_head  # tied: a view
+    return h @ w
+
+
+def _uses_rope(cfg: ModelConfig, i: int) -> bool:
+    """iRoPE: layer i skips RoPE when (i + 1) % nope_interval == 0."""
+    return not cfg.nope_interval or (i + 1) % cfg.nope_interval != 0
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor,
+                 mrope_positions: Optional[torch.Tensor] = None):
+    """Angle tables for positions (B, S), shared by every RoPE layer; M-RoPE
+    archs take the (3, B, S) streams, text positions when none are given."""
+    if cfg.mrope_sections:
+        m = text_mrope_positions(positions) if mrope_positions is None else mrope_positions
+        return mrope_tables(m, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int):
@@ -131,12 +152,14 @@ def _attn_block_decode(lp: Block, x, cfg, pos, rope, flat_slot, ck, cv, cache_po
 # ---------------------------------------------------------------------------
 
 
-def _uniform_stack(params: Decoder, cfg, rt, x, positions, collect_cache: bool):
+def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
+                   collect_cache: bool):
     window = rt.window_for(cfg.window)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = _rope_tables(cfg, positions, mrope_positions)
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for lp in params.layers:
-        x, kv = _attn_block_apply(lp, x, cfg, rt, positions, rope, window)
+    for i, lp in enumerate(params.layers):
+        x, kv = _attn_block_apply(lp, x, cfg, rt, positions,
+                                  rope if _uses_rope(cfg, i) else None, window)
         if collect_cache:
             kvs.append(kv)
     return x, kvs
@@ -144,17 +167,24 @@ def _uniform_stack(params: Decoder, cfg, rt, x, positions, collect_cache: bool):
 
 def _uniform_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
     """Write-then-attend decode. The new position goes into cache["pos"]
-    before the first layer, so every layer's kernel sees the fresh slot."""
+    before the first layer, so every layer's kernel sees the fresh slot.
+
+    A ring cache (window > 0) must hold the whole window: the slot a step
+    overwrites then holds pos - Sc, outside the window, and writing first
+    equals the reference's two-part softmax. A smaller ring would drop a
+    slot the reference still attends to, so it raises."""
     window = rt.window_for(cfg.window)
     Sc = cache["k"].shape[2]
+    if window and Sc < window:
+        raise ValueError(f"ring cache of {Sc} slots is smaller than the window {window}")
     slot = (pos % Sc).long()  # ring-buffer slot (full cache: pos < Sc)
     flat_slot = torch.arange(x.shape[0], device=x.device) * Sc + slot
     cache["pos"].view(-1).index_copy_(0, flat_slot, pos)
-    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    rope = _rope_tables(cfg, pos[:, None])
     for i, lp in enumerate(params.layers):
         x = _attn_block_decode(
-            lp, x, cfg, pos, rope, flat_slot, cache["k"][i], cache["v"][i], cache["pos"],
-            window,
+            lp, x, cfg, pos, rope if _uses_rope(cfg, i) else None, flat_slot,
+            cache["k"][i], cache["v"][i], cache["pos"], window,
         )
     return x, cache
 
@@ -180,13 +210,15 @@ def decoder_forward(
     params: Decoder,
     cfg: ModelConfig,
     rt: RuntimeFlags,
-    inputs: torch.Tensor,  # (B, S) tokens
+    inputs: torch.Tensor,  # (B, S) tokens or (B, S, d) embeds
     positions: Optional[torch.Tensor] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
 ) -> Tuple[torch.Tensor, dict]:
     """Full forward to logits. Returns (logits (B, S, V), aux)."""
     positions = _arange_positions(inputs, positions)
     x = embed_inputs(params, cfg, inputs)
-    x, _ = _uniform_stack(params, cfg, rt, x, positions, collect_cache=False)
+    x, _ = _uniform_stack(params, cfg, rt, x, positions, mrope_positions,
+                          collect_cache=False)
     return logits_from_hidden(params, cfg, x), {}
 
 
@@ -211,13 +243,15 @@ def decoder_prefill(
     params: Decoder,
     cfg: ModelConfig,
     rt: RuntimeFlags,
-    inputs: torch.Tensor,
+    inputs: torch.Tensor,  # (B, S) tokens or (B, S, d) embeds
     positions: Optional[torch.Tensor] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
 ) -> Tuple[torch.Tensor, dict]:
     """Process the prompt; returns (last-position logits (B, V), cache)."""
     positions = _arange_positions(inputs, positions)
     x = embed_inputs(params, cfg, inputs)
-    x, kvs = _uniform_stack(params, cfg, rt, x, positions, collect_cache=True)
+    x, kvs = _uniform_stack(params, cfg, rt, x, positions, mrope_positions,
+                            collect_cache=True)
     cache = {
         "k": torch.stack([k for k, _ in kvs]),  # (L, B, S, K, dh)
         "v": torch.stack([v for _, v in kvs]),
@@ -232,10 +266,13 @@ def decoder_decode(
     cfg: ModelConfig,
     rt: RuntimeFlags,
     cache: dict,
-    token: torch.Tensor,  # (B,) int tokens
+    token: torch.Tensor,  # (B,) int tokens or (B, d) embeds (vlm)
     pos: torch.Tensor,  # (B,) int32
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step: returns (logits (B, V), the cache updated in place)."""
-    x = params.embed[token.long()]
+    if cfg.embeds_input and token.dim() == 2:
+        x = token
+    else:
+        x = params.embed[token.long()]
     x, cache = _uniform_decode(params, cfg, rt, x, pos.to(torch.int32), cache)
     return logits_from_hidden(params, cfg, x), cache

@@ -3,7 +3,9 @@
 
 A fixed pool of `max_batch` decode slots over one batched cache; requests
 are prefilled individually (batch 1) and spliced into a free slot, decode
-advances all slots in lock-step (one `Model.decode` per tick).
+advances all slots in lock-step (one `Model.decode` per tick). A prompt is
+tokens (S,) or, for vlm archs, frontend embeddings (S, d) in the params'
+dtype; generated tokens are always embedded from the table.
 
 Timing: CUDA calls return before the card finishes, so the engine
 synchronises the device before every clock read; `prefill_s` and
@@ -35,7 +37,7 @@ class SamplingParams:
 @dataclasses.dataclass
 class GenRequest:
     uid: int
-    prompt: Any  # (S,) int tokens: a tensor, numpy array or list
+    prompt: Any  # (S,) int tokens or (S, d) frontend embeds: a tensor, numpy array or list
     max_new_tokens: int
     eos_token: Optional[int] = None
     sampling: SamplingParams = SamplingParams()
@@ -149,7 +151,9 @@ class InferenceEngine:
         if not slots:
             raise RuntimeError("no free slot")
         slot = slots[0]
-        prompt = torch.as_tensor(req.prompt).to(self.device, torch.long)[None]
+        prompt = torch.as_tensor(req.prompt)  # (S,) tokens or (S, d) embeds
+        dtype = self._dtype if prompt.dim() == 2 else torch.long
+        prompt = prompt.to(self.device, dtype)[None]
         plen = prompt.shape[1]
         # Decode writes position p into slot p % Sc; p < Sc keeps every
         # written slot empty beforehand (see models/attention.py).

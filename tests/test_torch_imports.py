@@ -42,7 +42,10 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["forbidden"] == []
     for mod in ("repro_torch.kernels.ops", "repro_torch.serving.icc",
-                "repro_torch.launch.serve", "repro_torch.convert"):
+                "repro_torch.launch.serve", "repro_torch.convert",
+                "repro_torch.configs.glm4_9b", "repro_torch.configs.nemotron_4_15b",
+                "repro_torch.configs.qwen1_5_110b", "repro_torch.configs.mistral_large_123b",
+                "repro_torch.configs.qwen2_vl_72b"):
         assert mod in res["imported"]
 
 

@@ -206,6 +206,8 @@ class TestKernelsOnCard:
         # tensor-core kernel: ragged 64-row tiles, dh 64 and 128, GQA
         (1, 4, 4, 200, 200, 64), (2, 4, 4, 130, 130, 128), (1, 32, 8, 200, 200, 128),
         (1, 8, 2, 77, 140, 64),
+        # G = 16 (glm4-9b) and G = 6 (nemotron-4-15b)
+        (1, 32, 2, 200, 200, 128), (2, 48, 8, 77, 77, 128),
     ])
     def test_flash_attention(self, card, dtype, B, H, K, Sq, Sk, dh):
         from repro_torch.kernels.flash_attention import flash_attention
@@ -289,6 +291,40 @@ class TestKernelsOnCard:
         for b in range(B):
             if (kv_pos[b] < 0).all():
                 assert float(o[b].abs().max()) == 0.0
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sc,dh", [
+        (2, 48, 8, 200, 128),  # G = 6 (nemotron-4-15b)
+        (1, 96, 8, 576, 128),  # G = 12 (mistral-large-123b), split
+        (8, 32, 2, 576, 128),  # G = 16 (glm4-9b), the ICC batch, split
+        (1, 32, 2, 576, 128),  # G = 16, batch 1
+        (2, 16, 1, 130, 16),  # G = 16 at dh 16
+        (1, 48, 2, 300, 64),  # G = 24: six CTAs of 4 heads per KV head
+        (2, 40, 8, 200, 64),  # G = 5: five CTAs of one head
+    ])
+    def test_decode_attention_any_group(self, card, dtype, B, H, K, Sc, dh):
+        """Any G = H / K, in head groups of 4, 2 or 1 heads a CTA; an all-empty
+        row, a window, and bit-identical repeats when split."""
+        from repro_torch.kernels.decode_attention import decode_attention
+
+        t = TORCH[dtype]
+        lengths = [Sc - 3 * b for b in range(B)]
+        lengths[-1] = 0 if B > 1 else lengths[-1]
+        kv_pos = np.full((B, Sc), -1, np.int32)
+        for b, n in enumerate(lengths):
+            kv_pos[b, :n] = np.arange(n)
+        pos = np.asarray([max(n - 1, 0) for n in lengths], np.int32)
+        args = (torch.from_numpy(randn(0, (B, H, dh))).to(card, t),
+                torch.from_numpy(randn(1, (B, Sc, K, dh))).to(card, t),
+                torch.from_numpy(randn(2, (B, Sc, K, dh))).to(card, t),
+                torch.from_numpy(kv_pos).to(card), torch.from_numpy(pos).to(card))
+        for window in (0, 16):
+            o = decode_attention(*args, window=window)
+            assert torch.equal(o, decode_attention(*args, window=window))
+            r = ref.decode_attention(*args, window=window)
+            torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+            if B > 1:
+                assert float(o[-1].abs().max()) == 0.0
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
     @pytest.mark.parametrize("shape", [
