@@ -20,24 +20,35 @@ Phases, each of which must pass or the script exits non-zero:
      misaligned gamma, rows d + 1 apart, d = 37; for decode G = 1 to 24,
      head groups and splits; for flash G = 16 and windows); then a
      timer-floor line (the timer around a launch that does no work), and at
-     the main paths' shapes (llama2-7b, glm4-9b, d = 6144) the kernel's time
+     the main paths' shapes (llama2-7b, glm4-9b, d = 6144, and the moe
+     paths': mixtral-8x22b's G = 6 with window 4096, llama4-scout's G = 5
+     and d = 5120) the kernel's time
      (with the plan rmsnorm_plan chose), the plain version's, one PyTorch
      library call's (yardstick only) and the least time the card could take
      (bytes at 3.35 TB/s or flops at the dtype's dense peak);
   4. models on the card (kernels) against the same weights on the CPU (plain
      path), f32, logits within 2e-3 and greedy tokens equal: the smoke size
      of every dense and vlm arch (seeded non-zero QKV biases and gammas),
-     tied embeddings, iRoPE, a ring cache under `window_override`, and
-     glm4-9b at full width cut to 2 layers (G = 16, vocab 151552);
+     tied embeddings, iRoPE, a ring cache under `window_override`, the moe
+     smoke archs (mixtral-8x22b top-2 with a window, llama4-scout top-1 with
+     iRoPE, mixtral at capacity factor 0.5, which drops picks, and under
+     einsum dispatch), glm4-9b at full width cut to 2 layers (G = 16, vocab
+     151552) and mixtral-8x22b at full width cut to 1 layer (capacity
+     factor 1.25); where a pick of the router differs between card and CPU,
+     the check names the token and the experts;
   5. the main paths at full width and depth, bf16, random weights from a
      seed, each with the launch counts set to 0 just before it: llama2-7b
      and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
      then served through `InferenceEngine` under `ICCServer` (priority and
      fifo) over a Poisson trace, then a profile of a batch-8 decode step and
      of a batch-1 step over a ~560-slot cache (device-busy and kernel ms per
-     step); nemotron-4-15b calibrated at 15/15. Every kernel's launch count
-     must have grown as one prefill or decode step of L layers predicts
-     (2L + 1 rmsnorm and L attention launches per forward).
+     step, and for moe the routing's: router product, softmax, top-k,
+     cumsum, scatter and gather); nemotron-4-15b calibrated at 15/15;
+     mixtral-8x22b (8 of its 56 layers: all 56 need ~282 GB) served and
+     profiled as glm4-9b, with a 576-slot cache under its 4096 window;
+     llama4-scout (8 of 48 layers) calibrated at 15/15. Every kernel's
+     launch count must have grown as one prefill or decode step of L layers
+     predicts (2L + 1 rmsnorm and L attention launches per forward).
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -55,6 +66,7 @@ It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -325,12 +337,14 @@ def phase_kernels(torch, timer):
                                      (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128),
                                      (1, 32, 32, 1000, 1000, 128),  # ragged 64-row tiles
                                      (1, 32, 8, 200, 200, 128), (1, 32, 8, 200, 200, 64),
-                                     # glm4-9b (G = 16) prefills, nemotron-4-15b (G = 6)
+                                     # glm4-9b (G = 16) prefills, nemotron-4-15b and
+                                     # mixtral-8x22b (G = 6), llama4-scout (G = 5)
                                      (1, 32, 2, 15, 15, 128), (1, 32, 2, 512, 512, 128),
-                                     (1, 48, 8, 200, 200, 128)]:
+                                     (1, 48, 8, 200, 200, 128), (1, 40, 8, 200, 200, 128)]:
             q, k, v = randn((B, Sq, H, dh), dtype), randn((B, Sk, K, dh), dtype), \
                 randn((B, Sk, K, dh), dtype)
             for causal, window, kv_len in [(True, 0, None), (True, 8, None),
+                                           (True, 4096, None),  # mixtral's, wider than S
                                            (False, 0, None), (False, 0, Sk - 5)]:
                 if causal and Sq > Sk:
                     continue
@@ -355,11 +369,13 @@ def phase_kernels(torch, timer):
             (2, 16, 1, 130, 16, [130, 0]),  # G = 16 at dh 16
             (2, 48, 2, 300, 64, [300, 100]),  # G = 24: six head groups of 4
             (2, 40, 8, 200, 64, [200, 0]),  # G = 5: five head groups of 1
+            (8, 48, 8, 576, 128, [16 + 2 * b for b in range(8)]),  # mixtral-8x22b, G = 6
+            (1, 40, 8, 576, 128, [560]),  # llama4-scout, G = 5, batch 1
         ]:
             q = randn((B, H, dh), dtype)
             k, v = randn((B, Sc, K, dh), dtype), randn((B, Sc, K, dh), dtype)
             kv_pos, pos = decode_positions(torch, B, Sc, lengths)
-            for window in (0, 16):
+            for window in (0, 16, 4096):
                 out = decode_attention(q, k, v, kv_pos, pos, window=window)
                 err = assert_close(
                     torch, out, ref.decode_attention(q, k, v, kv_pos, pos, window=window),
@@ -427,8 +443,10 @@ def phase_kernels(torch, timer):
     rms_lib = getattr(F, "rms_norm", None)  # torch >= 2.4
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     # decode step (max_batch 8), Table-I prompt, long prompt, bytes-bound; then
-    # nemotron-4-15b's d_model at a decode step and bytes-bound
-    for n, d in ((8, 4096), (15, 4096), (512, 4096), (8192, 4096), (8, 6144), (8192, 6144)):
+    # nemotron-4-15b's and mixtral-8x22b's d_model at a decode step and
+    # bytes-bound; llama4-scout's at a decode step
+    for n, d in ((8, 4096), (15, 4096), (512, 4096), (8192, 4096), (8, 6144), (8192, 6144),
+                 (8, 5120)):
         x = randn((n, d), "bfloat16")
         g = 1.0 + 0.1 * randn((d,), "bfloat16")
         say(f"rmsnorm plan ({n}, {d}) bf16: (rows per CTA, threads per row, vectors per "
@@ -437,28 +455,40 @@ def phase_kernels(torch, timer):
             rms_lib and (lambda: rms_lib(x, (d,), g, 1e-5)), 2 * (2 * n * d) + 2 * d, 4.0 * n * d,
             lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
 
-    H, dh = 32, 128
+    dh = 128
     # llama2-7b (K = H): Table-I prompt, calibration prompt, operations-bound;
-    # glm4-9b (K = 2, G = 16): Table-I and calibration prompts
-    for S, K in ((15, 32), (512, 32), (2048, 32), (15, 2), (512, 2)):
+    # glm4-9b (K = 2, G = 16), mixtral-8x22b (G = 6, its window of 4096, wider
+    # than S, so SDPA's causal mask is the same function) and llama4-scout
+    # (G = 5): Table-I and calibration prompts
+    for S, H, K, window in ((15, 32, 32, 0), (512, 32, 32, 0), (2048, 32, 32, 0),
+                            (15, 32, 2, 0), (512, 32, 2, 0), (15, 48, 8, 4096),
+                            (512, 48, 8, 4096), (15, 40, 8, 0), (512, 40, 8, 0)):
         q = randn((1, S, H, dh), "bfloat16")
         k, v = randn((1, S, K, dh), "bfloat16"), randn((1, S, K, dh), "bfloat16")
         pairs = S * (S + 1) // 2  # causal (q, k) pairs each head computes
         heads = f"H=K={H}" if K == H else f"H={H} K={K}"
-        row("flash_attention", f"B=1 S={S} {heads} dh={dh} causal",
-            lambda: flash_attention(q, k, v), lambda: ref.flash_attention(q, k, v),
+        row("flash_attention",
+            f"B=1 S={S} {heads} dh={dh} causal" + (f" window={window}" if window else ""),
+            lambda: flash_attention(q, k, v, window=window),
+            lambda: ref.flash_attention(q, k, v, window=window),
             lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
                 enable_gqa=K != H),
             2 * S * (H + K) * dh * 2, 4.0 * pairs * dh * H,
-            lambda: max_err(flash_attention(q, k, v), ref.flash_attention(q, k, v)))
+            lambda: max_err(flash_attention(q, k, v, window=window),
+                            ref.flash_attention(q, k, v, window=window)))
 
     Sc = 576
-    for B, K, lengths, label in [
-        (8, 32, [16 + 2 * b for b in range(8)], "ICC batch, 16-30 valid"),
-        (1, 32, [576], "calibration 512+64, 576 valid"),
-        (8, 2, [16 + 2 * b for b in range(8)], "ICC batch, 16-30 valid"),
-        (1, 2, [560], "batch 1, 560 valid"),
+    icc = [16 + 2 * b for b in range(8)]
+    for B, H, K, lengths, label in [
+        (8, 32, 32, icc, "ICC batch, 16-30 valid"),
+        (1, 32, 32, [576], "calibration 512+64, 576 valid"),
+        (8, 32, 2, icc, "ICC batch, 16-30 valid"),
+        (1, 32, 2, [560], "batch 1, 560 valid"),
+        (8, 48, 8, icc, "mixtral ICC batch, 16-30 valid"),
+        (1, 48, 8, [560], "mixtral batch 1, 560 valid"),
+        (8, 40, 8, icc, "llama4-scout ICC batch, 16-30 valid"),
+        (1, 40, 8, [560], "llama4-scout batch 1, 560 valid"),
     ]:
         q = randn((B, H, dh), "bfloat16")
         k, v = randn((B, Sc, K, dh), "bfloat16"), randn((B, Sc, K, dh), "bfloat16")
@@ -484,15 +514,20 @@ def phase_kernels(torch, timer):
 # ---------------------------------------------------------------------------
 
 
-SMOKE_CASES = [  # (label, arch, fields replaced on its smoke config, seeded biases/gammas)
-    ("llama2-7b smoke", "llama2-7b", {}, False),
-    ("glm4-9b smoke", "glm4-9b", {}, True),  # QKV bias, G = 4
-    ("nemotron-4-15b smoke", "nemotron-4-15b", {}, True),  # relu2
-    ("qwen1.5-110b smoke", "qwen1.5-110b", {}, True),
-    ("mistral-large-123b smoke", "mistral-large-123b", {}, True),
-    ("qwen2-vl-72b smoke", "qwen2-vl-72b", {}, True),  # embeds, M-RoPE
-    ("tied embeddings", "glm4-9b", {"tie_embeddings": True}, True),
-    ("iRoPE", "mistral-large-123b", {"nope_interval": 2}, True),
+SMOKE_CASES = [  # (label, arch, fields replaced on its smoke config, RuntimeFlags fields,
+    #               seeded biases/gammas)
+    ("llama2-7b smoke", "llama2-7b", {}, {}, False),
+    ("glm4-9b smoke", "glm4-9b", {}, {}, True),  # QKV bias, G = 4
+    ("nemotron-4-15b smoke", "nemotron-4-15b", {}, {}, True),  # relu2
+    ("qwen1.5-110b smoke", "qwen1.5-110b", {}, {}, True),
+    ("mistral-large-123b smoke", "mistral-large-123b", {}, {}, True),
+    ("qwen2-vl-72b smoke", "qwen2-vl-72b", {}, {}, True),  # embeds, M-RoPE
+    ("tied embeddings", "glm4-9b", {"tie_embeddings": True}, {}, True),
+    ("iRoPE", "mistral-large-123b", {"nope_interval": 2}, {}, True),
+    ("mixtral-8x22b smoke", "mixtral-8x22b", {}, {}, True),  # top-2, window 64, scatter
+    ("llama4-scout smoke", "llama4-scout-17b-a16e", {}, {}, True),  # top-1, iRoPE
+    ("mixtral capacity 0.5", "mixtral-8x22b", {"capacity_factor": 0.5}, {}, True),  # drops
+    ("mixtral einsum dispatch", "mixtral-8x22b", {}, {"moe_dispatch": "einsum"}, True),
 ]
 
 
@@ -508,14 +543,52 @@ def perturb(torch, params, seed):
                 t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen))
 
 
-def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8):
+@contextlib.contextmanager
+def recorded_picks(log):
+    """Append (gate_idx, keep_k) of every moe routing call, on the host, to
+    `log` while inside: one entry per layer of a forward."""
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def recording(*args, **kwargs):
+        out = route(*args, **kwargs)
+        log.append((out[1].cpu(), out[3].cpu()))
+        return out
+
+    moe._route = recording
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def pick_flips(cpu, card, limit=5):
+    """Where the card's router picks differ from the CPU's: 'layer l, row b,
+    token t, pick j: CPU expert e (kept), card expert e' (dropped)'."""
+    flips = []
+    for layer, ((gc, kc), (gg, kg)) in enumerate(zip(cpu, card)):
+        for b, t, j in zip(*((gc != gg) | (kc != kg)).nonzero(as_tuple=True)):
+            flips.append(f"layer {layer}, row {int(b)}, token {int(t)}, pick {int(j)}: CPU "
+                         f"expert {int(gc[b, t, j])} ({'kept' if kc[b, t, j] else 'dropped'}), "
+                         f"card expert {int(gg[b, t, j])} "
+                         f"({'kept' if kg[b, t, j] else 'dropped'})")
+    return flips[:limit] + ([f"... {len(flips) - limit} more"] if len(flips) > limit else [])
+
+
+def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8, flags=None):
     """One model on the card (kernels) against the same weights on the CPU
     (plain path), f32: forward, prefill of 12 and 3 decode steps (logits
-    within MODEL_TOL), and the engine's greedy tokens over n_reqs requests."""
-    from repro_torch.models import build_model
+    within MODEL_TOL), and the engine's greedy tokens over n_reqs requests.
+    The decode steps are also held against the forward's logits unless moe
+    capacity may drop picks in the 15-token forward (a decode row never
+    drops). For moe the forward's router picks are compared too, and named
+    in any failure; a capacity factor below 1 must drop some."""
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.models.moe import expert_capacity
     from repro_torch.serving import GenRequest, InferenceEngine
 
-    model = build_model(cfg)
+    model = build_model(cfg, RuntimeFlags(**(flags or {})))
     p_cpu = model.init(seed=0, device="cpu")
     if nudge:
         perturb(torch, p_cpu, seed=5)
@@ -529,9 +602,19 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8):
 
     x = make((2, 15))
     worst = 0.0
-    lc, _ = model.forward(p_cpu, x)
-    lg, _ = model.forward(p_gpu, x.cuda())
+    dropless = not cfg.n_experts or expert_capacity(cfg, 15) >= 15 * cfg.top_k
+    with recorded_picks([]) as picks_cpu:
+        lc, aux_c = model.forward(p_cpu, x)
+    with recorded_picks([]) as picks_card:
+        lg, aux_g = model.forward(p_gpu, x.cuda())
+    flips = pick_flips(picks_cpu, picks_card)
+    dropped = sum(int((~keep).sum()) for _, keep in picks_cpu)
+    check(cfg.capacity_factor >= 1 or dropped > 0, f"{label}: the forward dropped no pick")
     worst = max(worst, max_err(lg.cpu(), lc))
+    aux_err = max((abs(float(aux_g[k]) - float(aux_c[k])) / abs(float(aux_c[k])) for k in aux_c),
+                  default=0.0)
+    check(aux_err <= MODEL_TOL, f"{label}: card vs CPU aux losses differ by {aux_err:.3g} "
+          f"(relative) > {MODEL_TOL}")
     _, cc = model.prefill(p_cpu, x[:, :12])
     _, cg = model.prefill(p_gpu, x[:, :12].cuda())
     for c in (cc, cg):
@@ -542,8 +625,11 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8):
         pos = torch.full((2,), 12 + i, dtype=torch.int32)
         dc, cc = model.decode(p_cpu, cc, x[:, 12 + i], pos)
         dg, cg = model.decode(p_gpu, cg, x[:, 12 + i].cuda(), pos.cuda())
-        worst = max(worst, max_err(dg.cpu(), dc), max_err(dg.cpu(), lc[:, 12 + i]))
-    check(worst <= MODEL_TOL, f"{label}: card vs CPU max|err| {worst:.3g} > {MODEL_TOL}")
+        worst = max(worst, max_err(dg.cpu(), dc))
+        if dropless:
+            worst = max(worst, max_err(dg.cpu(), lc[:, 12 + i]))
+    check(worst <= MODEL_TOL, f"{label}: card vs CPU max|err| {worst:.3g} > {MODEL_TOL}"
+          + (f"; router picks that differ: {flips}" if flips else ""))
 
     reqs = [GenRequest(uid=i, prompt=make((6 + 3 * i,)), max_new_tokens=new)
             for i in range(n_reqs)]
@@ -551,9 +637,16 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8):
     for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
         out = InferenceEngine(model, p, max_batch=3, max_seq=48, device=dev).generate(reqs)
         toks[dev] = [out[r.uid].tokens for r in reqs]
-    check(toks["cpu"] == toks["cuda"], f"{label} engine: greedy tokens differ {toks}")
-    say(f"{label} (f32): card vs CPU logits max|err| {worst:.3g} (<= {MODEL_TOL}), greedy "
-        f"tokens equal over {len(reqs)} requests")
+    check(toks["cpu"] == toks["cuda"], f"{label} engine: greedy tokens differ {toks}"
+          + (f"; router picks that differ: {flips}" if flips else ""))
+    moe_note = (f"; router picks of {len(picks_cpu)} layers "
+                + (f"differ at {flips}" if flips else "equal")
+                + f", {dropped} of {picks_cpu[0][1].numel() * len(picks_cpu)} picks dropped"
+                + ("" if dropless else " (capacity may drop: decode not held to the forward)")
+                if cfg.n_experts else "")
+    say(f"{label} (f32): card vs CPU logits max|err| {worst:.3g} (<= {MODEL_TOL})"
+        + (f", aux losses {aux_err:.3g} relative" if aux_c else "")
+        + f", greedy tokens equal over {len(reqs)} requests{moe_note}")
     del p_gpu
     torch.cuda.empty_cache()
 
@@ -588,15 +681,19 @@ def ring_card_vs_cpu(torch, W=8, T=20):
 def phase_smoke_model(torch):
     from repro_torch.configs import get_config
 
-    for label, arch, kw, nudge in SMOKE_CASES:
+    for label, arch, kw, flags, nudge in SMOKE_CASES:
         cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32", **kw)
-        card_vs_cpu(torch, label, cfg, nudge)
+        card_vs_cpu(torch, label, cfg, nudge, flags=flags)
     ring_card_vs_cpu(torch)
-    # the real widths (G = 16, vocab 151552) against the plain path, depth cut to 2
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=2, dtype="float32")
-    card_vs_cpu(torch, "glm4-9b full width, 2 layers", cfg, True, n_reqs=3, new=4)
-    say(f"glm4-9b full width, 2 layers: {time.perf_counter() - t0:.1f} s")
+    # the real widths against the plain path, depth cut: glm4-9b (G = 16,
+    # vocab 151552) to 2 layers; mixtral-8x22b (8 experts of d_ff 16384, G = 6,
+    # its own capacity factor 1.25) to 1 layer, 2.9 B parameters, 11.6 GB in f32
+    for arch, layers in (("glm4-9b", 2), ("mixtral-8x22b", 1)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+        label = f"{arch} full width, {layers} layer{'s' if layers > 1 else ''}"
+        card_vs_cpu(torch, label, cfg, True, n_reqs=3, new=4)
+        say(f"{label}: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -622,10 +719,14 @@ def poisson_trace(cfg, n, rate, n_input, n_output, b_total, seed=0):
     return reqs
 
 
-FULL_WIDTH = [  # (arch, served under ICCServer and profiled, or calibrated at 15/15 only)
-    ("llama2-7b", True),  # the paper's serving model
-    ("glm4-9b", True),  # G = 16, QKV bias, vocab 151552
-    ("nemotron-4-15b", False),  # relu2, d_model 6144, G = 6
+FULL_WIDTH = [  # (arch, served under ICCServer and profiled, or calibrated at 15/15 only;
+    #               layers kept of the full depth, None: all)
+    ("llama2-7b", True, None),  # the paper's serving model
+    ("glm4-9b", True, None),  # G = 16, QKV bias, vocab 151552
+    ("nemotron-4-15b", False, None),  # relu2, d_model 6144, G = 6
+    # moe: the whole depth does not fit one 80 GB card (~282 and ~217 GB in bf16)
+    ("mixtral-8x22b", True, 8),  # 8 experts top-2, window 4096 over 576 slots, G = 6
+    ("llama4-scout-17b-a16e", False, 8),  # 16 experts top-1, iRoPE (layers 3, 7 NoPE), G = 5
 ]
 
 
@@ -633,16 +734,17 @@ def phase_full_width(torch):
     """Each full-width path with the launch counts set to 0 just before it
     and read just after; returns their sum over the paths."""
     total = {}
-    for arch, serve in FULL_WIDTH:
-        n = full_width(torch, arch, serve)
+    for arch, serve, layers in FULL_WIDTH:
+        n = full_width(torch, arch, serve, layers)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
     say(f"launches on the main paths, summed: {total}")
     return total
 
 
-def full_width(torch, arch, serve):
-    """`arch` in bf16 at full width and depth, random weights from seed 0:
+def full_width(torch, arch, serve, layers=None):
+    """`arch` in bf16 at full width and depth (or the first `layers`), random
+    weights from seed 0:
     `measure_service_time` at 15/15 (and 512/64 when served), then, when
     served, `ICCServer` priority and fifo over a 32-request Poisson trace at
     the rate 8 slots serve at batch-1 speed; every kernel's launch count must
@@ -656,14 +758,21 @@ def full_width(torch, arch, serve):
     from repro_torch.serving import ICCServer, InferenceEngine, measure_service_time
 
     cfg = get_config(arch)
+    depth = f"{cfg.n_layers} layers"
+    if layers:
+        depth = f"{layers} of its {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    say(f"{arch} full width: {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
+    moe = (f" experts={cfg.n_experts} top_k={cfg.top_k} capacity_factor={cfg.capacity_factor}"
+           if cfg.n_experts else "")
+    say(f"{arch} full width: {depth} d={cfg.d_model} H={cfg.n_heads} "
         f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"{cfg.activation}{' qkv_bias' if cfg.qkv_bias else ''} {cfg.dtype}, "
+        f"{cfg.activation}{' qkv_bias' if cfg.qkv_bias else ''}{moe}"
+        f"{f' window={cfg.window}' if cfg.window else ''} {cfg.dtype}, "
         f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
@@ -718,7 +827,7 @@ def full_width(torch, arch, serve):
         f"{2 * L + 1} and attention {L} per forward")
     if serve:
         profile_decode(torch, model, params, cfg, M, Sc)
-    del params
+    del params, model
     torch.cuda.empty_cache()
     return n
 
@@ -728,7 +837,7 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
     prompts) and for one sequence over a nearly full cache (a 552-token
     prompt in Sc slots, so the steps attend over ~553-558 valid slots): wall
     per step without the profiler, then device busy time per step by kernel
-    group under it."""
+    group under it (for moe, its routing apart from the expert GEMMs)."""
     from repro_torch.serving import GenRequest, InferenceEngine
 
     gen = torch.Generator().manual_seed(7)
@@ -745,41 +854,89 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
             eng.step()
         wall = (time.perf_counter() - t0) / steps * 1e3
         groups, launches = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
+        check(not cfg.n_experts or groups[ROUTING] > 0,
+              f"{cfg.name}: the profile holds no routing kernels")
         busy = sum(groups.values()) / steps / 1e3
         say(f"{cfg.name} decode step profile ({label}: batch {batch}, {plen}-token prompts, "
             f"Sc {Sc}, {steps} steps): wall {wall:.3f} ms/step unprofiled; device busy {busy:.3f} "
             f"ms/step ({100 * busy / wall:.1f}% of wall), "
-            + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items())
+            + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items()
+                        if k != ROUTING or cfg.n_experts)
             + f"; {launches / steps:.0f} kernel launches/step")
+
+
+ROUTING = "moe routing"  # the profiler range around moe's _route, _dispatch and _combine
+
+
+@contextlib.contextmanager
+def routing_ranges(torch):
+    """While inside, moe's routing (router product, softmax, top-k, one-hot,
+    cumsum: `_route`; scatter: `_dispatch`; gather and weighted sum:
+    `_combine`) runs in a profiler range named ROUTING."""
+    from repro_torch.models import moe
+
+    saved = {name: getattr(moe, name) for name in ("_route", "_dispatch", "_combine")}
+
+    def ranged(fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(ROUTING):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def _kernel_group(name: str) -> str:
+    name = name.lower()
+    if "decode_attention" in name:
+        return "decode_attention"
+    if "rmsnorm" in name:
+        return "rmsnorm"
+    if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "gemv")):
+        return "gemm"
+    return "other"
+
+
+def _range_kernels(e):
+    """The device kernels launched by a CPU event and its children."""
+    yield from e.kernels
+    for child in e.cpu_children:
+        yield from _range_kernels(child)
 
 
 def _device_time(torch, fn):
     """Device time (us) by kernel group and the kernel count of fn(), from
-    torch.profiler."""
+    torch.profiler; the kernels launched inside moe's routing form their own
+    group (ROUTING), taken out of the groups their names fall in."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with routing_ranges(torch), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, ROUTING: 0.0, "other": 0.0}
     launches = 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the range's own span on the device timeline is not a kernel
+        if e.device_type != DeviceType.CUDA or e.key == ROUTING:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         launches += e.count
-        name = e.key.lower()
-        if "decode_attention" in name:
-            groups["decode_attention"] += us
-        elif "rmsnorm" in name:
-            groups["rmsnorm"] += us
-        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "gemv")):
-            groups["gemm"] += us
-        else:
-            groups["other"] += us
+        groups[_kernel_group(e.key)] += us
+    for e in prof.events():
+        if e.name == ROUTING and e.device_type == DeviceType.CPU:
+            for k in _range_kernels(e):
+                groups[_kernel_group(k.name)] -= k.duration
+                groups[ROUTING] += k.duration
     return groups, launches
 
 

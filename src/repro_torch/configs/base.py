@@ -4,8 +4,8 @@
 One frozen dataclass covers all six families (dense / moe / ssm / hybrid /
 vlm / audio); family-specific fields default to "off". Each architecture
 registers a full-size config plus a smoke variant of the same family
-(<=2 layers, d_model<=512) for CPU tests. The port registers only the
-architectures it can run: the dense and vlm families.
+(<=2 layers, d_model<=512, <=4 experts) for CPU tests. The port registers
+only the architectures it can run: the dense, vlm and moe families.
 """
 
 from __future__ import annotations
@@ -156,7 +156,9 @@ def _ensure_loaded() -> None:
     from . import (  # noqa: F401
         glm4_9b,
         llama2_7b,
+        llama4_scout_17b_a16e,
         mistral_large_123b,
+        mixtral_8x22b,
         nemotron_4_15b,
         qwen1_5_110b,
         qwen2_vl_72b,

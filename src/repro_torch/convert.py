@@ -8,6 +8,9 @@ splits that axis into `Decoder.layers[i]` (an `nn.ModuleList`):
 
 Optional leaves follow the config on both sides: QKV biases (`bq`, `bk`,
 `bv`), `w3` only for gated MLPs, `lm_head` only without tied embeddings.
+A moe block's leaves keep their expert axis behind the layer axis:
+
+    {"layers": {"moe": {"w1": (L, E, d, f)}}}  ->  "layers.{i}.moe.w1" (E, d, f)
 
 The decode cache keeps the reference's layout as it is:
 {"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}.

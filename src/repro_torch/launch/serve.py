@@ -5,9 +5,10 @@ Generates a Poisson request trace (the paper's Table-I workload shape:
 short prompts, short outputs), runs it through the engine twice — ICC
 priority admission vs FIFO — and prints satisfaction/latency stats. The
 model is the arch's smoke config in float32, as in the reference script;
-`--arch` takes every config the port runs (the dense and vlm families).
+`--arch` takes every config the port runs (the dense, vlm and moe
+families).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --rate 20
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --rate 20
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
 
@@ -48,7 +49,8 @@ def build_trace(cfg, rate: float, duration: float, n_input: int,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b", choices=sorted(list_configs()))
+    ap.add_argument("--arch", default="llama2-7b", choices=sorted(list_configs()),
+                    help="any config the port runs (dense, vlm and moe families)")
     ap.add_argument("--rate", type=float, default=10.0, help="req/s")
     ap.add_argument("--duration", type=float, default=3.0)
     ap.add_argument("--n-input", type=int, default=15)

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder (llama2-7b) in PyTorch."""
+"""Model zoo of the port: the dense, vlm and moe decoders in PyTorch."""
 
 from .common import RuntimeFlags
 from .model import Model, build_model

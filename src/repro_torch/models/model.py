@@ -2,7 +2,7 @@
 
     model = build_model(get_config("glm4-9b"))
     params = model.init(seed=0)                          # on the card
-    logits, aux = model.forward(params, tokens)
+    logits, aux = model.forward(params, tokens)         # aux: moe router losses
     logits, cache = model.prefill(params, prompt)        # serving
     logits, cache = model.decode(params, cache, tok, pos)
 
@@ -43,7 +43,8 @@ class Model:
         self, params: transformer.Decoder, batch: torch.Tensor,
         mrope_positions: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, dict]:
-        """-> (logits (B, S, V), aux)."""
+        """-> (logits (B, S, V), aux): for moe archs the router losses
+        `moe_lb_loss` and `moe_z_loss` summed over layers, else {}."""
         return transformer.decoder_forward(params, self.cfg, self.rt, batch,
                                            mrope_positions=mrope_positions)
 

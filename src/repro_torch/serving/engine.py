@@ -5,7 +5,9 @@ A fixed pool of `max_batch` decode slots over one batched cache; requests
 are prefilled individually (batch 1) and spliced into a free slot, decode
 advances all slots in lock-step (one `Model.decode` per tick). A prompt is
 tokens (S,) or, for vlm archs, frontend embeddings (S, d) in the params'
-dtype; generated tokens are always embedded from the table.
+dtype; generated tokens are always embedded from the table. Nothing here
+depends on the family: a moe model routes inside `Model.prefill/decode`
+(the prefill as one group of S tokens, each decode row as its own group).
 
 Timing: CUDA calls return before the card finishes, so the engine
 synchronises the device before every clock read; `prefill_s` and

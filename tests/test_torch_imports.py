@@ -45,7 +45,8 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.launch.serve", "repro_torch.convert",
                 "repro_torch.configs.glm4_9b", "repro_torch.configs.nemotron_4_15b",
                 "repro_torch.configs.qwen1_5_110b", "repro_torch.configs.mistral_large_123b",
-                "repro_torch.configs.qwen2_vl_72b"):
+                "repro_torch.configs.qwen2_vl_72b", "repro_torch.models.moe",
+                "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.llama4_scout_17b_a16e"):
         assert mod in res["imported"]
 
 
