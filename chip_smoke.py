@@ -48,7 +48,21 @@ Phases, each of which must pass or the script exits non-zero:
      profiled as glm4-9b, with a 576-slot cache under its 4096 window;
      llama4-scout (8 of 48 layers) calibrated at 15/15. Every kernel's
      launch count must have grown as one prefill or decode step of L layers
-     predicts (2L + 1 rmsnorm and L attention launches per forward).
+     predicts (2L + 1 rmsnorm and L attention launches per forward);
+  6. the paper's Fig. 6 on the port's slot simulator (`core`, host code):
+     `sweep` + `capacity_from_sweep` for the three schemes (ICC,
+     disjoint_ran, disjoint_mec), serially, under the analytic H100 service
+     time at b_total = 80 ms, then under llama2-7b's measured service time
+     (`MeasuredService` on phase 5's 15/15 calibration, whose kernel
+     launches phase 5 counts) at 80 ms and at the budget scaled by k =
+     service / the paper's 11.43 ms, each at Fig. 6's sim_time of 30 s and
+     3 seeds. It prints each run's service time per job, satisfaction
+     curves with the jobs scored at each rate and the spread across seeds,
+     capacities (interpolated across one UE of 1 prompt/s) and ICC/MEC
+     beside the card line, and checks that every sweep point scored a job,
+     every satisfaction lies in [0, 1], every capacity is finite and no
+     larger than the largest rate swept, and that the measured callable
+     gives prefill + decode at 15/15. Capacities are findings, not checks.
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -113,13 +127,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase_card(torch):
+    from repro_torch.launch.capacity import card_line
+
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()  # raises where nvidia-smi fails
     say(f"card: {card}")
     say(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -732,14 +743,15 @@ FULL_WIDTH = [  # (arch, served under ICCServer and profiled, or calibrated at 1
 
 def phase_full_width(torch):
     """Each full-width path with the launch counts set to 0 just before it
-    and read just after; returns their sum over the paths."""
-    total = {}
+    and read just after; returns their sum over the paths and each arch's
+    15/15 calibration."""
+    total, cal = {}, {}
     for arch, serve, layers in FULL_WIDTH:
-        n = full_width(torch, arch, serve, layers)
+        n, cal[arch] = full_width(torch, arch, serve, layers)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
     say(f"launches on the main paths, summed: {total}")
-    return total
+    return total, cal
 
 
 def full_width(torch, arch, serve, layers=None):
@@ -749,7 +761,8 @@ def full_width(torch, arch, serve, layers=None):
     served, `ICCServer` priority and fifo over a 32-request Poisson trace at
     the rate 8 slots serve at batch-1 speed; every kernel's launch count must
     have grown as one prefill or decode step of L layers predicts. The model
-    is freed before the next one loads."""
+    is freed before the next one loads. Returns the launch counts and the
+    15/15 calibration."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -829,7 +842,55 @@ def full_width(torch, arch, serve, layers=None):
         profile_decode(torch, model, params, cfg, M, Sc)
     del params, model
     torch.cuda.empty_cache()
-    return n
+    return n, cal[(15, 15)]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: service capacity on measured compute
+# ---------------------------------------------------------------------------
+
+CAPACITY_SIM_TIME, CAPACITY_SEEDS = 30.0, 3  # Fig. 6's
+
+
+def phase_capacity(cal, card):
+    """Fig. 6 on the port's simulator: the analytic H100 service time at the
+    paper's 80 ms budget, then llama2-7b's measured one (phase 5's 15/15
+    calibration) at 80 ms and at the scaled budget (`launch.capacity.run`,
+    serial sweeps)."""
+    from repro_torch.core.latency_model import H100, LLAMA2_7B, ModelService
+    from repro_torch.core.scheduler import Job
+    from repro_torch.launch.capacity import run
+    from repro_torch.serving import MeasuredService
+
+    t0 = time.perf_counter()
+    measured = MeasuredService(cal["prefill_s"], cal["decode_s"], 15, 15)
+    want = cal["prefill_s"] + cal["decode_s"]
+    got = measured(Job(-1, -1, 0.0, 15, 15, 0.08))
+    check(abs(got - want) <= 1e-12 * want,
+          f"measured service at 15/15 {got!r} != prefill + decode {want!r}")
+    calib = (f"llama2-7b 15/15 calibration: prefill {cal['prefill_s'] * 1e3:.3f} ms, "
+             f"decode {cal['decode_s'] * 1e3:.3f} ms")
+    for label, svc, budget in (("h100 analytic", ModelService(H100, LLAMA2_7B), "paper"),
+                               ("measured", measured, "paper"),
+                               ("measured", measured, "scaled")):
+        r = run(svc, budget=budget, sim_time=CAPACITY_SIM_TIME, n_seeds=CAPACITY_SEEDS, log=say)
+        name = f"{label}, budget {budget}"
+        for scheme, s in r["schemes"].items():
+            check(all(n >= 1 for n in s["n_jobs"]),
+                  f"{name} {scheme}: a sweep point scored no job: {s['n_jobs']}")
+            check(all(0.0 <= x <= 1.0 for x in s["satisfaction"]),
+                  f"{name} {scheme}: satisfaction outside [0, 1]: {s['satisfaction']}")
+            check(math.isfinite(s["capacity"]) and 0.0 <= s["capacity"] <= max(r["rates"]),
+                  f"{name} {scheme}: capacity {s['capacity']} not in [0, {max(r['rates'])}]")
+        caps = {k: s["capacity"] for k, s in r["schemes"].items()}
+        mec = caps["disjoint_mec"]
+        ratio = f"{caps['icc'] / mec:.3f}" if mec else ("inf" if caps["icc"] else "n/a (both 0)")
+        say(f"capacity ({name}): service {r['service_ms']:.3f} ms per 15/15 job, k "
+            f"{r['k']:.4f}, b_total {r['b_total_ms']:.2f} ms, rates {r['rates']}; ICC "
+            f"{caps['icc']:.3f}, disjoint_ran {caps['disjoint_ran']:.3f}, disjoint_mec "
+            f"{mec:.3f} prompts/s; ICC/MEC {ratio}; {calib}; card {card}")
+    say(f"phase 6 (capacity, {CAPACITY_SEEDS} seeds, sim_time {CAPACITY_SIM_TIME:g} s at 80 ms) took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
@@ -1080,7 +1141,8 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch, Timer(torch))
     phase_smoke_model(torch)
-    launches = phase_full_width(torch)
+    launches, cal = phase_full_width(torch)
+    phase_capacity(cal["llama2-7b"], card)
 
     seen = set()
     kernels = []

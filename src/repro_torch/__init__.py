@@ -4,9 +4,10 @@ The port imports torch, numpy and the standard library only: no JAX and
 nothing of `repro`. Its entry points run on the card (`device="cuda"`) and
 raise when there is none, unless the caller passes `device="cpu"`.
 
-This slice serves the dense decoder (llama2-7b) end to end:
-configs -> kernels (rmsnorm, flash_attention, decode_attention) -> models
--> serving (engine, ICC scheduling, calibration) -> launch.serve.
+The main path: configs -> kernels (rmsnorm, flash_attention,
+decode_attention) -> models (dense, vlm and moe families) -> serving
+(engine, ICC scheduling, calibration) -> launch.serve; and the measured
+service time -> core (the paper's slot simulator, numpy) -> launch.capacity.
 """
 
 from .configs import ModelConfig, get_config

@@ -1,6 +1,6 @@
 """Serving: continuous-batching engine + ICC priority scheduling."""
 
-from .calibrate import measure_service_time, measured_service_fn
+from .calibrate import MeasuredService, measure_service_time, measured_service_fn
 from .engine import GenRequest, GenResult, InferenceEngine, SamplingParams
 from .icc import ICCRequest, ICCServer, ServeStats
 
@@ -10,6 +10,7 @@ __all__ = [
     "ICCRequest",
     "ICCServer",
     "InferenceEngine",
+    "MeasuredService",
     "SamplingParams",
     "ServeStats",
     "measure_service_time",

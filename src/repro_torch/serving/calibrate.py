@@ -2,22 +2,24 @@
 
 Times the real engine (prefill + N decode steps at batch 1, the device
 synchronised before every clock read) and returns a service-time table plus
-a callable for a slot simulator. The callable reads `job.n_input` and
-`job.n_output` by duck typing; the port does not import the reference's
-`core.scheduler.Job`.
+a `MeasuredService` for the port's slot simulator
+(`core.simulator.simulate(service_time=...)`): the ICC-vs-MEC comparison
+then runs on measured compute instead of the analytic Eq. 7/8 model.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
+from ..core.scheduler import Job
 from ..models.model import Model
 from ..models.transformer import Decoder
 from .engine import GenRequest, InferenceEngine
 
-__all__ = ["measure_service_time", "measured_service_fn"]
+__all__ = ["MeasuredService", "measure_service_time", "measured_service_fn"]
 
 
 def measure_service_time(
@@ -51,15 +53,27 @@ def measure_service_time(
     }
 
 
-def measured_service_fn(
-    model: Model, params: Decoder, n_input: int, n_output: int, **kw
-) -> Tuple[Callable[[Any], float], Dict[str, float]]:
-    """-> (service_time(job) for a slot simulator, the measured table)."""
-    t = measure_service_time(model, params, n_input, n_output, **kw)
-    per_in = t["prefill_s"] / max(n_input, 1)
-    per_out = t["decode_s"] / max(n_output, 1)
+@dataclasses.dataclass(frozen=True)
+class MeasuredService:
+    """Job-level service time from one measured (n_input, n_output)
+    calibration: prefill scales with the prompt, decode with the output.
+    A frozen dataclass (as `core.latency_model.ModelService`), so that
+    `core.capacity.sweep(..., workers=N)` can pickle it."""
 
-    def service_time(job: Any) -> float:
+    prefill_s: float
+    decode_s: float
+    n_input: int
+    n_output: int
+
+    def __call__(self, job: Job) -> float:
+        per_in = self.prefill_s / max(self.n_input, 1)
+        per_out = self.decode_s / max(self.n_output, 1)
         return per_in * job.n_input + per_out * job.n_output
 
-    return service_time, t
+
+def measured_service_fn(
+    model: Model, params: Decoder, n_input: int, n_output: int, **kw
+) -> Tuple[MeasuredService, Dict[str, float]]:
+    """-> (service_time(job) for core.simulator, the measured table)."""
+    t = measure_service_time(model, params, n_input, n_output, **kw)
+    return MeasuredService(t["prefill_s"], t["decode_s"], n_input, n_output), t

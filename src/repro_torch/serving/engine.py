@@ -183,7 +183,13 @@ class InferenceEngine:
         return slot
 
     def _finish(self, slot: int) -> None:
+        # Park the idle row at position 0: the lock-step decode still runs
+        # it, and a stale position (up to max_seq after a request that
+        # filled the cache) would wrap a cache smaller than the window.
+        # Position 0 writes only the row's own slot 0, which the next
+        # `_splice` into this slot overwrites.
         self.active[slot] = False
+        self.pos[slot] = 0
         self._slot_req[slot] = None
         self._remaining[slot] = 0
 

@@ -46,7 +46,10 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.configs.glm4_9b", "repro_torch.configs.nemotron_4_15b",
                 "repro_torch.configs.qwen1_5_110b", "repro_torch.configs.mistral_large_123b",
                 "repro_torch.configs.qwen2_vl_72b", "repro_torch.models.moe",
-                "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.llama4_scout_17b_a16e"):
+                "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.llama4_scout_17b_a16e",
+                "repro_torch.core.simulator", "repro_torch.core.capacity",
+                "repro_torch.control.arrivals", "repro_torch.telemetry.recorder",
+                "repro_torch.launch.capacity"):
         assert mod in res["imported"]
 
 
@@ -107,6 +110,12 @@ class TestEntryPointsNeedTheCard:
         monkeypatch.setattr(sys, "argv", ["serve"])
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main()
+
+    def test_capacity_cli_measured(self, no_card):
+        from repro_torch.launch import capacity
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            capacity.main(["--service", "measured"])
 
     def test_kernel_wrapper_refuses_cpu_tensors(self):
         from repro_torch.kernels.rmsnorm import rmsnorm

@@ -316,3 +316,20 @@ class TestCacheSmallerThanWindow:
         pos = torch.full((B,), self.SC, dtype=torch.int32)
         with pytest.raises(ValueError, match="would wrap"):
             mt.decode(pt, ct, torch.from_numpy(toks[:, self.SC]), pos)
+
+    def test_engine_finished_slot_does_not_trip_the_wrap_check(self):
+        """A request that fills the cache exactly (4 + 21 - 1 = 24 slots)
+        finishes while the other still decodes: the finished row is parked
+        at position 0, so the next lock-step decode stays below the 24-slot
+        cache and both engines serve both requests with equal tokens."""
+        mj, pj, mt, pt, _ = pair("mixtral-8x22b")
+        ps = [token_ids(mt.cfg, n, seed=30 + i, batch=1)[0] for i, n in enumerate([4, 2])]
+        reqs = [GenRequest(uid=i, prompt=p, max_new_tokens=m)
+                for i, (p, m) in enumerate(zip(ps, [21, 23]))]
+        ours = InferenceEngine(mt, pt, max_batch=2, max_seq=self.SC, device="cpu").generate(reqs)
+        theirs = JaxEngine(mj, pj, max_batch=2, max_seq=self.SC).generate(
+            [JaxRequest(uid=r.uid, prompt=jnp.asarray(r.prompt), max_new_tokens=r.max_new_tokens)
+             for r in reqs])
+        for r in reqs:
+            assert len(ours[r.uid].tokens) == r.max_new_tokens
+            assert ours[r.uid].tokens == theirs[r.uid].tokens, r.uid
