@@ -11,18 +11,22 @@ Phases, each of which must pass or the script exits non-zero:
   2. build of every kernel in src/repro_torch/csrc/ with nvcc (sm_90a): the
      registers of each rmsnorm instantiation and which spill (ptxas -v), and
      from `cuobjdump -sass` the count of HGMMA (wgmma), UTMALDG (TMA load)
-     and LDGSTS (cp.async) instructions per kernel; the bf16 flash kernel
-     must hold HGMMA;
+     and LDGSTS (cp.async) instructions per kernel; the bf16 and f16 flash
+     kernels must hold HGMMA and UTMALDG at every head dim (16, 32, 64, 112
+     and 128);
   3. each kernel against its plain PyTorch version on the card, f32 (2e-5)
      and bf16 (2e-2), at the CPU tests' shapes and the main paths' (for
      rmsnorm also both sides of each regime of `rmsnorm_plan`, wider rows
-     up to nemotron-4-15b's d = 6144, and the scalar instantiation: a
-     misaligned gamma, rows d + 1 apart, d = 37; for decode G = 1 to 24,
-     head groups and splits; for flash G = 16 and windows); then a
-     timer-floor line (the timer around a launch that does no work), and at
-     the main paths' shapes (llama2-7b, glm4-9b, d = 6144, and the moe
-     paths': mixtral-8x22b's G = 6 with window 4096, llama4-scout's G = 5
-     and d = 5120) the kernel's time
+     up to nemotron-4-15b's d = 6144 and zamba2-7b's Mamba2 d_inner 7168,
+     and the scalar instantiation: a misaligned gamma, rows d + 1 apart,
+     d = 37; for decode G = 1 to 24, head groups, splits, dh = 112 and
+     enc-dec cross decode over a padded cross cache; for flash G = 16,
+     windows, dh = 112, non-causal and Sq != Sk); then a timer-floor line
+     (the timer around a launch that does no work), and at the main paths'
+     shapes (llama2-7b, glm4-9b, d = 6144, the moe paths': mixtral-8x22b's
+     G = 6 with window 4096, llama4-scout's G = 5 and d = 5120; zamba2-7b's
+     dh = 112 and d = 3584 / 7168, xlstm-1.3b's d = 2048, seamless-m4t's
+     encoder, cross attention and cross decode) the kernel's time
      (with the plan rmsnorm_plan chose), the plain version's, one PyTorch
      library call's (yardstick only) and the least time the card could take
      (bytes at 3.35 TB/s or flops at the dtype's dense peak);
@@ -32,10 +36,16 @@ Phases, each of which must pass or the script exits non-zero:
      tied embeddings, iRoPE, a ring cache under `window_override`, the moe
      smoke archs (mixtral-8x22b top-2 with a window, llama4-scout top-1 with
      iRoPE, mixtral at capacity factor 0.5, which drops picks, and under
-     einsum dispatch), glm4-9b at full width cut to 2 layers (G = 16, vocab
-     151552) and mixtral-8x22b at full width cut to 1 layer (capacity
-     factor 1.25); where a pick of the router differs between card and CPU,
-     the check names the token and the experts;
+     einsum dispatch), the hybrid, ssm and enc-dec smoke archs (zamba2-7b,
+     zamba2 with a remainder group, zamba2 at dh = 112, xlstm-1.3b, xlstm
+     with two groups, seamless-m4t with shorter encoder prompts than
+     enc_len),
+     glm4-9b at full width cut to 2 layers (G = 16, vocab 151552),
+     mixtral-8x22b at full width cut to 1 layer (capacity factor 1.25),
+     zamba2-7b at full width cut to 7 layers (dh = 112 in the f32 kernels)
+     and seamless-m4t at full width cut to 2 + 2 layers; where a pick of the
+     router differs between card and CPU, the check names the token and the
+     experts;
   5. the main paths at full width and depth, bf16, random weights from a
      seed, each with the launch counts set to 0 just before it: llama2-7b
      and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
@@ -46,9 +56,16 @@ Phases, each of which must pass or the script exits non-zero:
      cumsum, scatter and gather); nemotron-4-15b calibrated at 15/15;
      mixtral-8x22b (8 of its 56 layers: all 56 need ~282 GB) served and
      profiled as glm4-9b, with a 576-slot cache under its 4096 window;
-     llama4-scout (8 of 48 layers) calibrated at 15/15. Every kernel's
-     launch count must have grown as one prefill or decode step of L layers
-     predicts (2L + 1 rmsnorm and L attention launches per forward);
+     llama4-scout (8 of 48 layers) calibrated at 15/15; zamba2-7b (81
+     layers) served and profiled as llama2-7b; xlstm-1.3b (48 layers)
+     calibrated at 15/15 and profiled; seamless-m4t (24 + 24 layers)
+     through `InferenceEngine(enc_len=15)` at batch 1 and 8, and profiled.
+     Every kernel's launch count must be what the prefills and decode
+     steps the path ran predict for its family (`per_forward`: 2L + 1
+     rmsnorm and L attention a forward for dense and moe, 2L + 2 ng + 1 and
+     ng for zamba2's ng shared-block applications, 2L + 1 and none for
+     xlstm, 2 Le + 3 L + 2 and Le + 2 L flash a prefill, 3 L + 1 and 2 L
+     decode a step for enc-dec);
   6. the paper's Fig. 6 on the port's slot simulator (`core`, host code):
      `sweep` + `capacity_from_sweep` for the three schemes (ICC,
      disjoint_ran, disjoint_mec), serially, under the analytic H100 service
@@ -103,8 +120,13 @@ TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 4096),
                   (1, 4096), (131, 4096), (132, 4096), (133, 4096), (528, 4096), (529, 4096),
                   (8192, 4096), (8, 5120), (600, 5120), (8, 8192), (600, 8192),
-                  (8, 6144), (15, 6144), (8192, 6144)]  # nemotron-4-15b's d_model
+                  (8, 6144), (15, 6144), (8192, 6144),  # nemotron-4-15b's d_model
+                  # zamba2-7b's blocks and Mamba2 inner norm, xlstm-1.3b's blocks and
+                  # mLSTM inner norm, seamless-m4t's d_model
+                  (8, 3584), (512, 3584), (8, 7168), (512, 7168), (8, 2048), (15, 4096),
+                  (8, 1024), (512, 1024)]
 MODEL_TOL = 2e-3
+ENC_FRAMES = 10  # encoder frames of the enc-dec card-vs-CPU checks
 TPU_KERNELS = {  # the Pallas function each kernel replaces
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
     "flash_attention": "src/repro/kernels/flash_attention.py:94",
@@ -225,9 +247,14 @@ def phase_build():
     for label, c in sorted(counts.items()):
         if "attention" in label:
             say(f"sass {label}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-    tc = [c for label, c in counts.items() if label.startswith("flash_attention_tc_kernel<bf16")]
-    check(len(tc) == 4 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc),
-          "the bf16 flash kernels must hold HGMMA and UTMALDG")
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    for t in ("bf16", "f16"):  # every width, dh = 112 (zamba2-7b) included
+        tc = {label: c for label, c in counts.items()
+              if label.startswith(f"flash_attention_tc_kernel<{t},")}
+        check(sorted(int(label[:-1].split(",")[1]) for label in tc) == sorted(HEAD_DIMS)
+              and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc.values()),
+              f"the {t} flash kernels at dh {HEAD_DIMS} must hold HGMMA and UTMALDG: {tc}")
     fma = [label for label in counts if label.startswith("flash_attention_kernel<")]
     check(fma and all("<f32," in label for label in fma),
           f"only f32 may reach the FMA flash kernel: {fma}")
@@ -351,7 +378,12 @@ def phase_kernels(torch, timer):
                                      # glm4-9b (G = 16) prefills, nemotron-4-15b and
                                      # mixtral-8x22b (G = 6), llama4-scout (G = 5)
                                      (1, 32, 2, 15, 15, 128), (1, 32, 2, 512, 512, 128),
-                                     (1, 48, 8, 200, 200, 128), (1, 40, 8, 200, 200, 128)]:
+                                     (1, 48, 8, 200, 200, 128), (1, 40, 8, 200, 200, 128),
+                                     # zamba2-7b (dh = 112: a 64 + 48 column row), ragged
+                                     # tiles, Sq != Sk; seamless-m4t's encoder and cross
+                                     (1, 32, 32, 15, 15, 112), (1, 32, 32, 512, 512, 112),
+                                     (2, 8, 8, 130, 77, 112), (1, 16, 16, 512, 512, 64),
+                                     (1, 16, 16, 15, 512, 64), (2, 16, 16, 15, 7, 64)]:
             q, k, v = randn((B, Sq, H, dh), dtype), randn((B, Sk, K, dh), dtype), \
                 randn((B, Sk, K, dh), dtype)
             for causal, window, kv_len in [(True, 0, None), (True, 8, None),
@@ -382,6 +414,10 @@ def phase_kernels(torch, timer):
             (2, 40, 8, 200, 64, [200, 0]),  # G = 5: five head groups of 1
             (8, 48, 8, 576, 128, [16 + 2 * b for b in range(8)]),  # mixtral-8x22b, G = 6
             (1, 40, 8, 576, 128, [560]),  # llama4-scout, G = 5, batch 1
+            (8, 32, 32, 576, 112, [16 + 2 * b for b in range(8)]),  # zamba2-7b, dh = 112
+            (1, 32, 32, 576, 112, [560]),  # zamba2-7b batch 1, split
+            (2, 4, 4, 130, 112, [130, 0]),  # dh = 112, an all-empty row
+            (8, 16, 16, 576, 64, [16 + 2 * b for b in range(8)]),  # seamless-m4t self
         ]:
             q = randn((B, H, dh), dtype)
             k, v = randn((B, Sc, K, dh), dtype), randn((B, Sc, K, dh), dtype)
@@ -412,6 +448,19 @@ def phase_kernels(torch, timer):
             out = decode_attention(q, k, v, kv_pos, pos, window=window)
             err = assert_close(torch, out, ref.decode_attention(q, k, v, kv_pos, pos, window=window),
                                dtype, f"decode_attention ring cache Sc={Sc} {dtype}")
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+            n_checks += 1
+        # enc-dec cross decode (seamless-m4t): a static cross cache of Se frames, a
+        # shorter encoder prompt's frames padded with -1, the query position past
+        # every frame and no window, so only kv_pos >= 0 masks
+        for B, Se, lengths in [(8, 15, [15] * 7 + [9]), (2, 600, [600, 37])]:
+            q = randn((B, 16, 64), dtype)
+            k, v = randn((B, Se, 16, 64), dtype), randn((B, Se, 16, 64), dtype)
+            kv_pos, _ = decode_positions(torch, B, Se, lengths)
+            beyond = torch.full((B,), Se, dtype=torch.int32, device="cuda")
+            err = assert_close(torch, decode_attention(q, k, v, kv_pos, beyond),
+                               ref.decode_attention(q, k, v, kv_pos, beyond), dtype,
+                               f"decode_attention cross B={B} Se={Se} {dtype}")
             worst["decode_attention"] = max(worst["decode_attention"], err)
             n_checks += 1
         # splits > 1: the merge runs in a fixed order, so two calls agree bit for bit
@@ -456,8 +505,11 @@ def phase_kernels(torch, timer):
     # decode step (max_batch 8), Table-I prompt, long prompt, bytes-bound; then
     # nemotron-4-15b's and mixtral-8x22b's d_model at a decode step and
     # bytes-bound; llama4-scout's at a decode step
+    # zamba2-7b's blocks at a decode step, its Mamba2 inner norm (d_inner 7168) at a
+    # decode step and a 512-token prefill; xlstm-1.3b's blocks (its mLSTM inner norm
+    # is (8, 4096)); seamless-m4t's d_model
     for n, d in ((8, 4096), (15, 4096), (512, 4096), (8192, 4096), (8, 6144), (8192, 6144),
-                 (8, 5120)):
+                 (8, 5120), (8, 3584), (8, 7168), (512, 7168), (8, 2048), (8, 1024)):
         x = randn((n, d), "bfloat16")
         g = 1.0 + 0.1 * randn((d,), "bfloat16")
         say(f"rmsnorm plan ({n}, {d}) bf16: (rows per CTA, threads per row, vectors per "
@@ -489,9 +541,30 @@ def phase_kernels(torch, timer):
             lambda: max_err(flash_attention(q, k, v, window=window),
                             ref.flash_attention(q, k, v, window=window)))
 
+    # zamba2-7b (dh = 112, causal), seamless-m4t's encoder (non-causal, Sq = Sk)
+    # and its cross attention (15 decoder rows over 512 encoder frames)
+    for Sq, Sk, H, dh, causal, label in (
+            (15, 15, 32, 112, True, "zamba2-7b"), (512, 512, 32, 112, True, "zamba2-7b"),
+            (15, 15, 16, 64, False, "seamless encoder"),
+            (512, 512, 16, 64, False, "seamless encoder"),
+            (15, 512, 16, 64, False, "seamless cross")):
+        q = randn((1, Sq, H, dh), "bfloat16")
+        k, v = randn((1, Sk, H, dh), "bfloat16"), randn((1, Sk, H, dh), "bfloat16")
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        row("flash_attention",
+            f"{label}: B=1 Sq={Sq} Sk={Sk} H=K={H} dh={dh} "
+            + ("causal" if causal else "non-causal"),
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: ref.flash_attention(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal),
+            2 * (Sq + Sk) * H * dh * 2, 4.0 * pairs * dh * H,
+            lambda: max_err(flash_attention(q, k, v, causal=causal),
+                            ref.flash_attention(q, k, v, causal=causal)))
+
     Sc = 576
     icc = [16 + 2 * b for b in range(8)]
-    for B, H, K, lengths, label in [
+    for B, H, K, lengths, label, dh in [(b, h, k_, n, lab, 128) for b, h, k_, n, lab in [
         (8, 32, 32, icc, "ICC batch, 16-30 valid"),
         (1, 32, 32, [576], "calibration 512+64, 576 valid"),
         (8, 32, 2, icc, "ICC batch, 16-30 valid"),
@@ -500,6 +573,10 @@ def phase_kernels(torch, timer):
         (1, 48, 8, [560], "mixtral batch 1, 560 valid"),
         (8, 40, 8, icc, "llama4-scout ICC batch, 16-30 valid"),
         (1, 40, 8, [560], "llama4-scout batch 1, 560 valid"),
+    ]] + [
+        (8, 32, 32, icc, "zamba2-7b ICC batch, 16-30 valid", 112),
+        (1, 32, 32, [560], "zamba2-7b batch 1, 560 valid", 112),
+        (8, 16, 16, icc, "seamless self, ICC batch, 16-30 valid", 64),
     ]:
         q = randn((B, H, dh), "bfloat16")
         k, v = randn((B, Sc, K, dh), "bfloat16"), randn((B, Sc, K, dh), "bfloat16")
@@ -517,6 +594,24 @@ def phase_kernels(torch, timer):
             4.0 * n_valid * H * dh,
             lambda: max_err(decode_attention(q, k, v, kv_pos, pos),
                             ref.decode_attention(q, k, v, kv_pos, pos)))
+
+    # seamless-m4t's cross decode: the static cross cache of 15 encoder frames
+    # (Table I's N_input), every frame valid, the query position past them all
+    for B in (8, 1):
+        Se, H, dh = 15, 16, 64
+        q = randn((B, H, dh), "bfloat16")
+        k, v = randn((B, Se, H, dh), "bfloat16"), randn((B, Se, H, dh), "bfloat16")
+        kv_pos, _ = decode_positions(torch, B, Se, [Se] * B)
+        beyond = torch.full((B,), Se, dtype=torch.int32, device="cuda")
+        row("decode_attention", f"seamless cross: B={B} Se={Se} H=K={H} dh={dh}, all valid",
+            lambda: decode_attention(q, k, v, kv_pos, beyond),
+            lambda: ref.decode_attention(q, k, v, kv_pos, beyond),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                                   v.transpose(1, 2)),
+            2 * B * Se * H * dh * 2 + B * Se * 4 + B * 4 + 2 * B * H * dh * 2,
+            4.0 * B * Se * H * dh,
+            lambda: max_err(decode_attention(q, k, v, kv_pos, beyond),
+                            ref.decode_attention(q, k, v, kv_pos, beyond)))
     return rows
 
 
@@ -539,18 +634,27 @@ SMOKE_CASES = [  # (label, arch, fields replaced on its smoke config, RuntimeFla
     ("llama4-scout smoke", "llama4-scout-17b-a16e", {}, {}, True),  # top-1, iRoPE
     ("mixtral capacity 0.5", "mixtral-8x22b", {"capacity_factor": 0.5}, {}, True),  # drops
     ("mixtral einsum dispatch", "mixtral-8x22b", {}, {"moe_dispatch": "einsum"}, True),
+    ("zamba2-7b smoke", "zamba2-7b", {}, {}, True),  # 2 layers, a shared block every 2
+    # a remainder group: 2 groups of 2 Mamba2 layers and 1 more; chunks of 4 in the scan
+    ("zamba2 remainder", "zamba2-7b", {"n_layers": 5}, {"mamba_chunk": 4}, True),
+    ("zamba2 dh = 112", "zamba2-7b", {"d_model": 448, "n_heads": 4, "n_kv_heads": 4}, {},
+     True),
+    ("xlstm-1.3b smoke", "xlstm-1.3b", {}, {}, True),  # one mLSTM and one sLSTM block
+    ("xlstm two groups", "xlstm-1.3b", {"n_layers": 4}, {"mlstm_chunk": 5}, True),
+    ("seamless-m4t smoke", "seamless-m4t-large-v2", {}, {}, True),  # enc-dec, cross attention
 ]
 
 
 def perturb(torch, params, seed):
-    """Seeded non-zero QKV biases and norm gammas (the init leaves them 0 and 1)."""
+    """Seeded non-zero QKV biases and norm gammas (the init leaves them 0 and
+    1), and likewise the recurrent blocks' biases, A_log, D and skip."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in params.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("bq", "bk", "bv"):
+            if leaf in ("bq", "bk", "bv", "dt_bias", "A_log", "b_if", "b_gates"):
                 t.copy_(0.1 * torch.randn(t.shape, generator=gen))
-            elif leaf.endswith("norm"):
+            elif leaf.endswith("norm") or leaf in ("D", "skip"):
                 t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen))
 
 
@@ -594,7 +698,9 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8, flags=None):
     The decode steps are also held against the forward's logits unless moe
     capacity may drop picks in the 15-token forward (a decode row never
     drops). For moe the forward's router picks are compared too, and named
-    in any failure; a capacity factor below 1 must drop some."""
+    in any failure; a capacity factor below 1 must drop some. Enc-dec
+    archs take ENC_FRAMES encoder frames beside the decoder tokens, and the
+    engine an enc_len of ENC_FRAMES."""
     from repro_torch.models import RuntimeFlags, build_model
     from repro_torch.models.moe import expert_capacity
     from repro_torch.serving import GenRequest, InferenceEngine
@@ -606,18 +712,30 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8, flags=None):
     p_gpu = copy.deepcopy(p_cpu).to("cuda")
     gen = torch.Generator().manual_seed(1)
 
+    encdec = bool(cfg.n_encoder_layers)
+
     def make(shape):  # tokens, or frontend embeds for vlm
-        if cfg.embeds_input:
+        if cfg.embeds_input and not encdec:
             return 0.02 * torch.randn(*shape, cfg.d_model, generator=gen)
         return torch.randint(0, cfg.vocab_size, shape, generator=gen)
+
+    def frames(*shape):
+        return 0.5 * torch.randn(*shape, cfg.d_model, generator=gen)
+
+    enc = frames(2, ENC_FRAMES) if encdec else None
+
+    def inputs(dec, dev="cpu"):  # the model's input: tokens/embeds, or enc-dec's dict
+        if not encdec:
+            return dec.to(dev)
+        return {"enc_embeds": enc.to(dev), "dec_tokens": dec.to(dev)}
 
     x = make((2, 15))
     worst = 0.0
     dropless = not cfg.n_experts or expert_capacity(cfg, 15) >= 15 * cfg.top_k
     with recorded_picks([]) as picks_cpu:
-        lc, aux_c = model.forward(p_cpu, x)
+        lc, aux_c = model.forward(p_cpu, inputs(x))
     with recorded_picks([]) as picks_card:
-        lg, aux_g = model.forward(p_gpu, x.cuda())
+        lg, aux_g = model.forward(p_gpu, inputs(x, "cuda"))
     flips = pick_flips(picks_cpu, picks_card)
     dropped = sum(int((~keep).sum()) for _, keep in picks_cpu)
     check(cfg.capacity_factor >= 1 or dropped > 0, f"{label}: the forward dropped no pick")
@@ -626,9 +744,11 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8, flags=None):
                   default=0.0)
     check(aux_err <= MODEL_TOL, f"{label}: card vs CPU aux losses differ by {aux_err:.3g} "
           f"(relative) > {MODEL_TOL}")
-    _, cc = model.prefill(p_cpu, x[:, :12])
-    _, cg = model.prefill(p_gpu, x[:, :12].cuda())
+    _, cc = model.prefill(p_cpu, inputs(x[:, :12]))
+    _, cg = model.prefill(p_gpu, inputs(x[:, :12], "cuda"))
     for c in (cc, cg):
+        if "k" not in c:  # ssm: recurrent states only
+            continue
         for key in ("k", "v"):
             c[key] = torch.nn.functional.pad(c[key], (0, 0, 0, 0, 0, 3))
         c["pos"] = torch.nn.functional.pad(c["pos"], (0, 3), value=-1)
@@ -644,9 +764,14 @@ def card_vs_cpu(torch, label, cfg, nudge, n_reqs=4, new=8, flags=None):
 
     reqs = [GenRequest(uid=i, prompt=make((6 + 3 * i,)), max_new_tokens=new)
             for i in range(n_reqs)]
+    if encdec:  # encoder prompts of ENC_FRAMES and fewer frames
+        reqs = [dataclasses.replace(r, prompt={"enc_embeds": frames(ENC_FRAMES - 2 * i),
+                                               "dec_tokens": r.prompt})
+                for i, r in enumerate(reqs)]
     toks = {}
     for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
-        out = InferenceEngine(model, p, max_batch=3, max_seq=48, device=dev).generate(reqs)
+        out = InferenceEngine(model, p, max_batch=3, max_seq=48, device=dev,
+                              enc_len=ENC_FRAMES if encdec else 0).generate(reqs)
         toks[dev] = [out[r.uid].tokens for r in reqs]
     check(toks["cpu"] == toks["cuda"], f"{label} engine: greedy tokens differ {toks}"
           + (f"; router picks that differ: {flips}" if flips else ""))
@@ -698,11 +823,15 @@ def phase_smoke_model(torch):
     ring_card_vs_cpu(torch)
     # the real widths against the plain path, depth cut: glm4-9b (G = 16,
     # vocab 151552) to 2 layers; mixtral-8x22b (8 experts of d_ff 16384, G = 6,
-    # its own capacity factor 1.25) to 1 layer, 2.9 B parameters, 11.6 GB in f32
-    for arch, layers in (("glm4-9b", 2), ("mixtral-8x22b", 1)):
+    # its own capacity factor 1.25) to 1 layer, 2.9 B parameters, 11.6 GB in f32;
+    # zamba2-7b to 7 layers (one group of 6 and a remainder of 1; dh = 112 in the
+    # f32 FMA flash kernel and in decode); seamless-m4t to 2 + 2 layers (vocab 256206)
+    for arch, cut in (("glm4-9b", {"n_layers": 2}), ("mixtral-8x22b", {"n_layers": 1}),
+                      ("zamba2-7b", {"n_layers": 7}),
+                      ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2})):
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
-        label = f"{arch} full width, {layers} layer{'s' if layers > 1 else ''}"
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        label = f"{arch} full width, " + ", ".join(f"{k}={n}" for k, n in cut.items())
         card_vs_cpu(torch, label, cfg, True, n_reqs=3, new=4)
         say(f"{label}: {time.perf_counter() - t0:.1f} s")
 
@@ -730,39 +859,107 @@ def poisson_trace(cfg, n, rate, n_input, n_output, b_total, seed=0):
     return reqs
 
 
-FULL_WIDTH = [  # (arch, served under ICCServer and profiled, or calibrated at 15/15 only;
-    #               layers kept of the full depth, None: all)
-    ("llama2-7b", True, None),  # the paper's serving model
-    ("glm4-9b", True, None),  # G = 16, QKV bias, vocab 151552
-    ("nemotron-4-15b", False, None),  # relu2, d_model 6144, G = 6
+FULL_WIDTH = [  # (arch, what runs, layers kept of the full depth, None: all). "serve":
+    #               15/15 and 512/64 calibration, ICCServer priority and fifo, decode
+    #               profiles; "profile": 15/15 calibration and decode profiles;
+    #               "calibrate": 15/15 only; "encdec": requests through the engine
+    #               with enc_len (batch 1 and 8) and decode profiles
+    ("llama2-7b", "serve", None),  # the paper's serving model
+    ("glm4-9b", "serve", None),  # G = 16, QKV bias, vocab 151552
+    ("nemotron-4-15b", "calibrate", None),  # relu2, d_model 6144, G = 6
     # moe: the whole depth does not fit one 80 GB card (~282 and ~217 GB in bf16)
-    ("mixtral-8x22b", True, 8),  # 8 experts top-2, window 4096 over 576 slots, G = 6
-    ("llama4-scout-17b-a16e", False, 8),  # 16 experts top-1, iRoPE (layers 3, 7 NoPE), G = 5
+    ("mixtral-8x22b", "serve", 8),  # 8 experts top-2, window 4096 over 576 slots, G = 6
+    ("llama4-scout-17b-a16e", "calibrate", 8),  # 16 experts top-1, iRoPE, G = 5
+    ("zamba2-7b", "serve", None),  # hybrid: 81 Mamba2 layers, a shared block every 6, dh 112
+    ("xlstm-1.3b", "profile", None),  # ssm: 42 mLSTM + 6 sLSTM blocks, no attention
+    ("seamless-m4t-large-v2", "encdec", None),  # 24 encoder + 24 decoder layers
 ]
+ENC_LEN = 15  # seamless-m4t's encoder frames: Table I's N_input
 
 
 def phase_full_width(torch):
     """Each full-width path with the launch counts set to 0 just before it
     and read just after; returns their sum over the paths and each arch's
-    15/15 calibration."""
+    15/15 calibration (None for enc-dec)."""
     total, cal = {}, {}
-    for arch, serve, layers in FULL_WIDTH:
-        n, cal[arch] = full_width(torch, arch, serve, layers)
+    for arch, mode, layers in FULL_WIDTH:
+        n, cal[arch] = full_width(torch, arch, mode, layers)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
     say(f"launches on the main paths, summed: {total}")
     return total, cal
 
 
-def full_width(torch, arch, serve, layers=None):
+def per_forward(cfg):
+    """Kernel launches of one prefill and of one decode step, from the
+    reference's code: ((rmsnorm, flash_attention), (rmsnorm, decode_attention))."""
+    from repro_torch.models.transformer import group_shape
+
+    L = cfg.n_layers
+    if cfg.n_encoder_layers:  # encoder 2 per layer + its final norm; decoder 3 per layer
+        Le = cfg.n_encoder_layers  # + the final norm; self, cross (and encoder) attention
+        return (2 * Le + 1 + 3 * L + 1, Le + 2 * L), (3 * L + 1, 2 * L)
+    ng = group_shape(cfg)[0]
+    if cfg.family == "hybrid":  # 2 per Mamba2 block (block + inner), 2 per shared application
+        per = (2 * L + 2 * ng + 1, ng)
+    elif cfg.family == "ssm":  # 2 per mLSTM and per sLSTM block (block + inner), no attention
+        per = (2 * L + 1, 0)
+    else:
+        per = (2 * L + 1, L)
+    return per, per
+
+
+@contextlib.contextmanager
+def counted_forwards(counts):
+    """While inside, counts["prefill"] and counts["decode"] grow by one per
+    `Model.prefill` and `Model.decode` call, of any family."""
+    from repro_torch.models import encdec, transformer
+
+    saved = [(transformer, "decoder_prefill", "prefill"), (transformer, "decoder_decode", "decode"),
+             (encdec, "encdec_prefill", "prefill"), (encdec, "encdec_decode", "decode")]
+    fns = [getattr(mod, name) for mod, name, _ in saved]
+
+    def counted(fn, key):
+        def call(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name, key), fn in zip(saved, fns):
+        setattr(mod, name, counted(fn, key))
+    try:
+        yield counts
+    finally:
+        for (mod, name, _), fn in zip(saved, fns):
+            setattr(mod, name, fn)
+
+
+def check_launch_identity(arch, cfg, n, fwd):
+    """Every kernel's launch count is what fwd["prefill"] prefills and
+    fwd["decode"] decode steps of this family predict, and each kernel the
+    family runs launched at least once."""
+    (r_p, a_p), (r_d, a_d) = per_forward(cfg)
+    P, D = fwd["prefill"], fwd["decode"]
+    want = {"rmsnorm": r_p * P + r_d * D, "flash_attention": a_p * P,
+            "decode_attention": a_d * D}
+    check(n == want, f"{arch}: launches {n} != {want} predicted for {P} prefills and {D} "
+          f"decode steps ({r_p} rmsnorm + {a_p} flash per prefill, {r_d} rmsnorm + {a_d} "
+          "decode_attention per step)")
+    ran = {k for k, v in want.items() if v}
+    check(all(n[k] > 0 for k in ran) and ran >= {"rmsnorm"},
+          f"a kernel of the {arch} path never launched: {n}")
+    say(f"{arch}: launch identity holds over {P} prefills and {D} decode steps: "
+        f"{r_p} rmsnorm + {a_p} flash_attention per prefill, {r_d} rmsnorm + {a_d} "
+        "decode_attention per decode step")
+
+
+def full_width(torch, arch, mode, layers=None):
     """`arch` in bf16 at full width and depth (or the first `layers`), random
-    weights from seed 0:
-    `measure_service_time` at 15/15 (and 512/64 when served), then, when
-    served, `ICCServer` priority and fifo over a 32-request Poisson trace at
-    the rate 8 slots serve at batch-1 speed; every kernel's launch count must
-    have grown as one prefill or decode step of L layers predicts. The model
-    is freed before the next one loads. Returns the launch counts and the
-    15/15 calibration."""
+    weights from seed 0, driven as `mode` says (FULL_WIDTH): the launch
+    counts are set to 0 just before and read just after, and must be what
+    the prefills and decode steps run predict (`per_forward`). The model is
+    freed before the next one loads. Returns the launch counts and the 15/15
+    calibration (None for enc-dec)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -772,6 +969,8 @@ def full_width(torch, arch, serve, layers=None):
 
     cfg = get_config(arch)
     depth = f"{cfg.n_layers} layers"
+    if cfg.n_encoder_layers:
+        depth = f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers"
     if layers:
         depth = f"{layers} of its {cfg.n_layers} layers"
         cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -782,67 +981,112 @@ def full_width(torch, arch, serve, layers=None):
     n_params = sum(p.numel() for p in params.parameters())
     moe = (f" experts={cfg.n_experts} top_k={cfg.top_k} capacity_factor={cfg.capacity_factor}"
            if cfg.n_experts else "")
-    say(f"{arch} full width: {depth} d={cfg.d_model} H={cfg.n_heads} "
+    rec = (f" d_inner={cfg.d_inner} ssm_state={cfg.ssm_state} ssm_head_dim={cfg.ssm_head_dim}"
+           f" shared_attn_every={cfg.shared_attn_every}" if cfg.family == "hybrid" else
+           f" d_inner={cfg.d_inner} slstm_every={cfg.slstm_every}" if cfg.family == "ssm"
+           else "")
+    say(f"{arch} full width: {cfg.family}, {depth} d={cfg.d_model} H={cfg.n_heads} "
         f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"{cfg.activation}{' qkv_bias' if cfg.qkv_bias else ''}{moe}"
+        f"{cfg.activation}{' qkv_bias' if cfg.qkv_bias else ''}{moe}{rec}"
         f"{f' window={cfg.window}' if cfg.window else ''} {cfg.dtype}, "
         f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    ops.reset_launches()  # this path's run starts here
-    cal = {}
-    for n_in, n_out, max_seq in ((15, 15, 256), (512, 64, 576))[:2 if serve else 1]:
-        t = measure_service_time(model, params, n_in, n_out, max_seq=max_seq, repeats=3)
-        cal[(n_in, n_out)] = t
-        say(f"{arch} measure_service_time {n_in}-in/{n_out}-out (batch 1): prefill "
-            f"{t['prefill_s'] * 1e3:.3f} ms, decode {t['decode_s'] * 1e3:.3f} ms "
-            f"({t['decode_s'] / (n_out - 1) * 1e3:.3f} ms/step), total {t['total_s'] * 1e3:.3f} ms")
-
-    svc = cal[(15, 15)]["total_s"]
     M, Sc = 8, 576
-    rate = M / svc  # offered load: what 8 slots serve at batch-1 speed
-    b_total = 3.0 * svc
-    for policy in ("priority", "fifo") if serve else ():
-        trace = poisson_trace(cfg, 32, rate, 15, 15, b_total)
-        eng = InferenceEngine(model, params, max_batch=M, max_seq=Sc, device="cuda")
-        eng.warmup(trace[0].req.prompt)
-        srv = ICCServer(eng, policy=policy, est_latency=svc)
-        t0 = time.perf_counter()
-        st = srv.run(trace)
-        wall = time.perf_counter() - t0
-        res = list(eng.results.values())
-        check(all(1 <= r.n_tokens <= 15 for r in res), "served requests have 1..15 tokens")
-        check(all(0 <= tok < cfg.padded_vocab for r in res for tok in r.tokens),
-              "generated token ids out of range")
-        e2e = np.array(st.e2e) if st.e2e else np.array([np.nan])
-        pre = np.mean([r.prefill_s for r in res]) * 1e3 if res else float("nan")
-        steps = [r.decode_s / (r.n_tokens - 1) for r in res if r.n_tokens > 1]
-        say(f"{arch} ICCServer {policy}: {st.n_total} requests (rate {rate:.2f}/s, b_total "
-            f"{b_total * 1e3:.1f} ms), served {len(res)}, satisfied {st.n_satisfied}, "
-            f"satisfaction {st.satisfaction:.3f}, dropped {st.n_dropped}, e2e p50 "
-            f"{np.nanpercentile(e2e, 50) * 1e3:.1f} ms p95 {np.nanpercentile(e2e, 95) * 1e3:.1f} ms, "
-            f"prefill mean {pre:.3f} ms, decode step mean "
-            f"{np.mean(steps) * 1e3 if steps else float('nan'):.3f} ms, wall {wall:.1f} s")
-        check(st.n_total == 32 and st.n_dropped + len(res) == 32,
-              f"{policy}: every request is served or dropped")
-    torch.cuda.synchronize()
+    fwd = {"prefill": 0, "decode": 0}
+    ops.reset_launches()  # this path's run starts here
+    with counted_forwards(fwd):
+        if mode == "encdec":
+            cal15 = None
+            encdec_requests(torch, model, params, cfg, M, Sc)
+        else:
+            cal = {}
+            for n_in, n_out, max_seq in ((15, 15, 256), (512, 64, 576))[:2 if mode == "serve"
+                                                                         else 1]:
+                t = measure_service_time(model, params, n_in, n_out, max_seq=max_seq, repeats=3)
+                cal[(n_in, n_out)] = t
+                say(f"{arch} measure_service_time {n_in}-in/{n_out}-out (batch 1): prefill "
+                    f"{t['prefill_s'] * 1e3:.3f} ms, decode {t['decode_s'] * 1e3:.3f} ms "
+                    f"({t['decode_s'] / (n_out - 1) * 1e3:.3f} ms/step), total "
+                    f"{t['total_s'] * 1e3:.3f} ms")
+            cal15 = cal[(15, 15)]
+            svc = cal15["total_s"]
+            rate = M / svc  # offered load: what 8 slots serve at batch-1 speed
+            b_total = 3.0 * svc
+            for policy in ("priority", "fifo") if mode == "serve" else ():
+                trace = poisson_trace(cfg, 32, rate, 15, 15, b_total)
+                eng = InferenceEngine(model, params, max_batch=M, max_seq=Sc, device="cuda")
+                eng.warmup(trace[0].req.prompt)
+                srv = ICCServer(eng, policy=policy, est_latency=svc)
+                t0 = time.perf_counter()
+                st = srv.run(trace)
+                wall = time.perf_counter() - t0
+                res = list(eng.results.values())
+                check(all(1 <= r.n_tokens <= 15 for r in res), "served requests have 1..15 tokens")
+                check(all(0 <= tok < cfg.padded_vocab for r in res for tok in r.tokens),
+                      "generated token ids out of range")
+                e2e = np.array(st.e2e) if st.e2e else np.array([np.nan])
+                pre = np.mean([r.prefill_s for r in res]) * 1e3 if res else float("nan")
+                steps = [r.decode_s / (r.n_tokens - 1) for r in res if r.n_tokens > 1]
+                say(f"{arch} ICCServer {policy}: {st.n_total} requests (rate {rate:.2f}/s, "
+                    f"b_total {b_total * 1e3:.1f} ms), served {len(res)}, satisfied "
+                    f"{st.n_satisfied}, satisfaction {st.satisfaction:.3f}, dropped "
+                    f"{st.n_dropped}, e2e p50 {np.nanpercentile(e2e, 50) * 1e3:.1f} ms p95 "
+                    f"{np.nanpercentile(e2e, 95) * 1e3:.1f} ms, prefill mean {pre:.3f} ms, "
+                    f"decode step mean {np.mean(steps) * 1e3 if steps else float('nan'):.3f} "
+                    f"ms, wall {wall:.1f} s")
+                check(st.n_total == 32 and st.n_dropped + len(res) == 32,
+                      f"{policy}: every request is served or dropped")
+        torch.cuda.synchronize()
 
     n = dict(ops.LAUNCHES)
     say(f"launches on the {arch} path: {n}")
-    check(all(v > 0 for v in n.values()), f"a kernel of the {arch} path never launched: {n}")
-    L = cfg.n_layers
-    check(n["flash_attention"] % L == 0 and n["decode_attention"] % L == 0,
-          f"attention launches are not whole forwards of {L} layers: {n}")
-    forwards = (n["flash_attention"] + n["decode_attention"]) // L
-    check(n["rmsnorm"] == (2 * L + 1) * forwards,
-          f"rmsnorm launches {n['rmsnorm']} != {2 * L + 1} x {forwards} forwards")
-    say(f"{arch}: launch identity holds, {forwards} forwards of {L} layers: rmsnorm "
-        f"{2 * L + 1} and attention {L} per forward")
-    if serve:
+    check_launch_identity(arch, cfg, n, fwd)
+    if mode != "calibrate":
         profile_decode(torch, model, params, cfg, M, Sc)
     del params, model
     torch.cuda.empty_cache()
-    return n, cal[(15, 15)]
+    return n, cal15
+
+
+def prompt_maker(torch, cfg, gen):
+    """prompt(n): n random tokens, or for enc-dec ENC_LEN encoder frames
+    (bf16) and n decoder tokens."""
+    def prompt(n):
+        toks = torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+        if not cfg.n_encoder_layers:
+            return toks
+        frames = 0.5 * torch.randn(ENC_LEN, cfg.d_model, generator=gen)
+        return {"enc_embeds": frames.to(torch.bfloat16), "dec_tokens": toks}
+    return prompt
+
+
+def encdec_requests(torch, model, params, cfg, M, Sc, new=15):
+    """Enc-dec serving through `InferenceEngine(enc_len=ENC_LEN)`: ENC_LEN
+    encoder frames and a 1-token decoder prompt per request, `new` tokens
+    each, at batch 1 (3 requests in turn) and batch M (M requests at once);
+    prefill and decode-step times are the engine's (device synchronised)."""
+    import numpy as np
+
+    from repro_torch.serving import GenRequest, InferenceEngine
+
+    prompt = prompt_maker(torch, cfg, torch.Generator().manual_seed(3))
+    for batch, n_req in ((1, 3), (M, M)):
+        eng = InferenceEngine(model, params, max_batch=batch, max_seq=Sc, enc_len=ENC_LEN,
+                              device="cuda")
+        eng.warmup(prompt(1))
+        reqs = [GenRequest(uid=i, prompt=prompt(1), max_new_tokens=new) for i in range(n_req)]
+        t0 = time.perf_counter()
+        res = list(eng.generate(reqs).values())
+        wall = time.perf_counter() - t0
+        check(all(r.n_tokens == new for r in res), f"enc-dec requests give {new} tokens each")
+        check(all(0 <= tok < cfg.padded_vocab for r in res for tok in r.tokens),
+              "generated token ids out of range")
+        steps = [r.decode_s / (r.n_tokens - 1) for r in res]
+        say(f"{cfg.name} engine enc_len={ENC_LEN}, batch {batch}: {n_req} requests of "
+            f"{ENC_LEN} frames + 1 token -> {new} tokens, prefill mean "
+            f"{np.mean([r.prefill_s for r in res]) * 1e3:.3f} ms, decode step mean "
+            f"{np.mean(steps) * 1e3:.3f} ms, wall {wall:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -896,18 +1140,20 @@ def phase_capacity(cal, card):
 def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
     """Where a decode step's time goes, for the ICC batch (M slots, 15-token
     prompts) and for one sequence over a nearly full cache (a 552-token
-    prompt in Sc slots, so the steps attend over ~553-558 valid slots): wall
-    per step without the profiler, then device busy time per step by kernel
-    group under it (for moe, its routing apart from the expert GEMMs)."""
+    prompt in Sc slots, so the steps attend over ~553-558 valid slots); an
+    enc-dec prompt adds ENC_LEN encoder frames: wall per step without the
+    profiler, then device busy time per step by kernel group under it (for
+    moe, its routing apart from the expert GEMMs; for hybrid and ssm, the
+    recurrent blocks' elementwise work apart from their GEMMs and rmsnorm)."""
     from repro_torch.serving import GenRequest, InferenceEngine
 
-    gen = torch.Generator().manual_seed(7)
+    prompt = prompt_maker(torch, cfg, torch.Generator().manual_seed(7))
+    shown = {ROUTING: bool(cfg.n_experts), RECURRENT: cfg.family in ("hybrid", "ssm")}
     for batch, plen, label in ((M, 15, "ICC batch"), (1, 552, "one long sequence")):
-        eng = InferenceEngine(model, params, max_batch=batch, max_seq=Sc, device="cuda")
+        eng = InferenceEngine(model, params, max_batch=batch, max_seq=Sc, device="cuda",
+                              enc_len=ENC_LEN if cfg.n_encoder_layers else 0)
         for uid in range(batch):
-            eng.submit(GenRequest(uid=uid, prompt=torch.randint(0, cfg.vocab_size, (plen,),
-                                                                generator=gen),
-                                  max_new_tokens=2 * steps + 3))
+            eng.submit(GenRequest(uid=uid, prompt=prompt(plen), max_new_tokens=2 * steps + 3))
         eng.step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -915,42 +1161,54 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
             eng.step()
         wall = (time.perf_counter() - t0) / steps * 1e3
         groups, launches = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
-        check(not cfg.n_experts or groups[ROUTING] > 0,
-              f"{cfg.name}: the profile holds no routing kernels")
+        for rng, want in shown.items():
+            check(not want or groups[rng] > 0, f"{cfg.name}: the profile holds no {rng} kernels")
         busy = sum(groups.values()) / steps / 1e3
-        say(f"{cfg.name} decode step profile ({label}: batch {batch}, {plen}-token prompts, "
+        enc = f" + {ENC_LEN} encoder frames" if cfg.n_encoder_layers else ""
+        say(f"{cfg.name} decode step profile ({label}: batch {batch}, {plen}-token prompts{enc}, "
             f"Sc {Sc}, {steps} steps): wall {wall:.3f} ms/step unprofiled; device busy {busy:.3f} "
             f"ms/step ({100 * busy / wall:.1f}% of wall), "
             + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items()
-                        if k != ROUTING or cfg.n_experts)
+                        if shown.get(k, True))
             + f"; {launches / steps:.0f} kernel launches/step")
 
 
 ROUTING = "moe routing"  # the profiler range around moe's _route, _dispatch and _combine
+RECURRENT = "recurrent"  # the range around the Mamba2, mLSTM and sLSTM decode steps
+# range: (module path, functions wrapped, whether every kernel inside moves to the
+# range's group or only those that fall in "other")
+RANGES = {
+    ROUTING: ("repro_torch.models.moe", ("_route", "_dispatch", "_combine"), True),
+    RECURRENT: ("repro_torch.models.transformer",
+                ("mamba2_decode_step", "mlstm_decode_step", "slstm_decode_step"), False),
+}
 
 
 @contextlib.contextmanager
-def routing_ranges(torch):
-    """While inside, moe's routing (router product, softmax, top-k, one-hot,
-    cumsum: `_route`; scatter: `_dispatch`; gather and weighted sum:
-    `_combine`) runs in a profiler range named ROUTING."""
-    from repro_torch.models import moe
+def profiler_ranges(torch):
+    """While inside, each function of RANGES runs in a profiler range of its
+    name: moe's routing (router product, softmax, top-k, one-hot, cumsum:
+    `_route`; scatter: `_dispatch`; gather and weighted sum: `_combine`) and
+    the recurrent blocks' decode steps (as the stack calls them)."""
+    import importlib
 
-    saved = {name: getattr(moe, name) for name in ("_route", "_dispatch", "_combine")}
+    saved = []
+    for rng, (path, names, _) in RANGES.items():
+        mod = importlib.import_module(path)
+        for name in names:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
 
-    def ranged(fn):
-        def call(*args, **kwargs):
-            with torch.profiler.record_function(ROUTING):
-                return fn(*args, **kwargs)
-        return call
+            def call(*args, _fn=fn, _rng=rng, **kwargs):
+                with torch.profiler.record_function(_rng):
+                    return _fn(*args, **kwargs)
 
-    for name, fn in saved.items():
-        setattr(moe, name, ranged(fn))
+            setattr(mod, name, call)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(moe, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _kernel_group(name: str) -> str:
@@ -973,20 +1231,22 @@ def _range_kernels(e):
 
 def _device_time(torch, fn):
     """Device time (us) by kernel group and the kernel count of fn(), from
-    torch.profiler; the kernels launched inside moe's routing form their own
-    group (ROUTING), taken out of the groups their names fall in."""
+    torch.profiler; the kernels launched inside a range of RANGES form its
+    group, taken out of the groups their names fall in (for RECURRENT only
+    those of "other": its GEMMs and rmsnorm stay where they are)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with routing_ranges(torch), \
+    with profiler_ranges(torch), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, ROUTING: 0.0, "other": 0.0}
+    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, ROUTING: 0.0,
+              RECURRENT: 0.0, "other": 0.0}
     launches = 0
     for e in prof.key_averages():
-        # the range's own span on the device timeline is not a kernel
-        if e.device_type != DeviceType.CUDA or e.key == ROUTING:
+        # a range's own span on the device timeline is not a kernel
+        if e.device_type != DeviceType.CUDA or e.key in RANGES:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -994,10 +1254,13 @@ def _device_time(torch, fn):
         launches += e.count
         groups[_kernel_group(e.key)] += us
     for e in prof.events():
-        if e.name == ROUTING and e.device_type == DeviceType.CPU:
+        if e.name in RANGES and e.device_type == DeviceType.CPU:
+            move_all = RANGES[e.name][2]
             for k in _range_kernels(e):
-                groups[_kernel_group(k.name)] -= k.duration
-                groups[ROUTING] += k.duration
+                g = _kernel_group(k.name)
+                if move_all or g == "other":
+                    groups[g] -= k.duration
+                    groups[e.name] += k.duration
     return groups, launches
 
 

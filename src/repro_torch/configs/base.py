@@ -5,7 +5,7 @@ One frozen dataclass covers all six families (dense / moe / ssm / hybrid /
 vlm / audio); family-specific fields default to "off". Each architecture
 registers a full-size config plus a smoke variant of the same family
 (<=2 layers, d_model<=512, <=4 experts) for CPU tests. The port registers
-only the architectures it can run: the dense, vlm and moe families.
+every architecture of the JAX package, with the same FULL and SMOKE values.
 """
 
 from __future__ import annotations
@@ -162,4 +162,7 @@ def _ensure_loaded() -> None:
         nemotron_4_15b,
         qwen1_5_110b,
         qwen2_vl_72b,
+        seamless_m4t_large_v2,
+        xlstm_1_3b,
+        zamba2_7b,
     )

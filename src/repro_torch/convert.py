@@ -1,19 +1,29 @@
 """Weights and caches from the JAX package, as numpy, into the port.
 
 The reference keeps its parameters as a nested dict whose per-layer leaves
-carry a leading layer axis (`repro.models.model.Model.init`); the port
-splits that axis into `Decoder.layers[i]` (an `nn.ModuleList`):
+carry leading layer axes (`repro.models.model.Model.init`); the port splits
+them into `nn.ModuleList`s of blocks, one index per axis (`STACKED`):
 
-    {"layers": {"attn": {"wq": (L, d, H, dh)}}}  ->  "layers.{i}.attn.wq"
+    {"layers": {"attn": {"wq": (L, d, H, dh)}}}          ->  "layers.{i}.attn.wq"
+    {"mamba_groups": {"mamba": {"w_x": (ng, gs, d, di)}}} ->  "mamba_groups.{g}.{i}.mamba.w_x"
+    {"mamba_rest": ...: (rem, ...)}, {"slstm_blocks": ...: (ng, ...)},
+    {"mlstm_groups": ...: (ng, gs - 1, ...)}, {"enc_layers": ...: (Le, ...)},
+    {"dec_layers": ...: (L, ...)}
 
-Optional leaves follow the config on both sides: QKV biases (`bq`, `bk`,
-`bv`), `w3` only for gated MLPs, `lm_head` only without tied embeddings.
-A moe block's leaves keep their expert axis behind the layer axis:
+Unstacked subtrees (`shared`, zamba2's one shared attention block; the
+embeddings and norms) keep their paths. Optional leaves follow the config on
+both sides: QKV biases (`bq`, `bk`, `bv`), `w3` only for gated MLPs,
+`lm_head` only without tied embeddings. A moe block's leaves keep their
+expert axis behind the layer axis:
 
     {"layers": {"moe": {"w1": (L, E, d, f)}}}  ->  "layers.{i}.moe.w1" (E, d, f)
 
-The decode cache keeps the reference's layout as it is:
-{"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}.
+Every leaf must map onto a parameter and back (`load_state_dict(strict=True)`).
+
+Decode caches keep the reference's layout as it is, nested dicts included:
+{"k", "v", "pos"}, plus the hybrid family's Mamba2 states {"mamba",
+"rest"}, the ssm family's {"mlstm", "slstm"}, and enc-dec's
+{"cross_k", "cross_v", "cross_pos"}.
 
 Callers hand over numpy arrays (`jax.tree.map(np.asarray, params)`), so this
 module needs no JAX. bf16 crosses as its raw bits through a uint16 view.
@@ -28,9 +38,14 @@ import torch
 
 from .configs.base import ModelConfig
 from .models.common import resolve_device
+from .models.encdec import EncDec
 from .models.transformer import Decoder
 
-__all__ = ["to_tensor", "convert_params", "convert_cache"]
+__all__ = ["to_tensor", "convert_params", "convert_cache", "STACKED"]
+
+# Subtrees whose leaves carry leading layer axes, and how many.
+STACKED = {"layers": 1, "mamba_groups": 2, "mamba_rest": 1, "mlstm_groups": 2,
+           "slstm_blocks": 1, "enc_layers": 1, "dec_layers": 1}
 
 
 def to_tensor(a: Any, device) -> torch.Tensor:
@@ -54,29 +69,35 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def convert_params(params: Mapping[str, Any], cfg: ModelConfig, device="cuda") -> Decoder:
-    """JAX decoder params (numpy leaves) -> the port's `Decoder`, in the
-    arrays' own dtype. Every leaf must map onto a parameter and back."""
+def convert_params(params: Mapping[str, Any], cfg: ModelConfig, device="cuda"):
+    """JAX params (numpy leaves) -> the port's `Decoder`, or `EncDec` for an
+    enc-dec config, in the arrays' own dtype."""
     dev = resolve_device(device)
-    flat = _flatten(params)
     state: Dict[str, torch.Tensor] = {}
-    for name, arr in flat.items():
-        if name.startswith("layers."):
-            leaf = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{leaf}"] = to_tensor(np.asarray(arr)[i], dev)
-        else:
+    for name, arr in _flatten(params).items():
+        top, _, leaf = name.partition(".")
+        n_axes = STACKED.get(top, 0) if leaf else 0
+        arr = np.asarray(arr)
+        if not n_axes:
             state[name] = to_tensor(arr, dev)
-    dec = Decoder(cfg, device=dev, dtype=state["embed"].dtype)
-    dec.load_state_dict(state, strict=True)
-    return dec
+            continue
+        for idx in np.ndindex(*arr.shape[:n_axes]):
+            state[".".join([top, *map(str, idx), leaf])] = to_tensor(arr[idx], dev)
+    cls = EncDec if cfg.n_encoder_layers else Decoder
+    model = cls(cfg, device=dev, dtype=state["embed"].dtype)
+    model.load_state_dict(state, strict=True)
+    return model
 
 
 def convert_cache(cache: Mapping[str, Any], device="cuda") -> dict:
-    """JAX decode cache {"k", "v", "pos"} (numpy leaves) -> tensors."""
+    """A JAX decode cache (numpy leaves, nested dicts for recurrent states)
+    -> the same tree of tensors; positions as int32."""
     dev = resolve_device(device)
-    return {
-        "k": to_tensor(cache["k"], dev),
-        "v": to_tensor(cache["v"], dev),
-        "pos": to_tensor(cache["pos"], dev).to(torch.int32),
-    }
+
+    def conv(name, a):
+        if isinstance(a, Mapping):
+            return {k: conv(k, v) for k, v in a.items()}
+        t = to_tensor(a, dev)
+        return t.to(torch.int32) if name.endswith("pos") else t
+
+    return {k: conv(k, v) for k, v in cache.items()}

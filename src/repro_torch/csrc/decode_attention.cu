@@ -29,9 +29,12 @@
 //    length. The valid rows of the next non-empty tile are copied with
 //    cp.async (16 bytes a thread, chunks XOR-swizzled per row against bank
 //    conflicts) into the second stage of a two-stage ring while this tile is
-//    computed.
+//    computed. A shared row is a power of two of chunks, so a row whose
+//    chunks are not (dh = 112: 14 in bf16, 28 in f32) is padded, and the
+//    swizzle stays inside it.
 //  * Scores: two threads per slot, shuffle-combined; softmax: one warp per
-//    query head; mix: each thread a column pair over a group of rows, fully
+//    query head; mix: each thread a column pair over a group of rows (at
+//    dh = 112, 56 pairs in two groups: 16 threads sit out), fully
 //    unrolled (rows that were not copied are zeroed and have p = 0), the
 //    row groups summed once at the end.
 //  * The merge is in the same launch: every split writes its f32 (m, l,
@@ -50,6 +53,9 @@ constexpr int kTile = 64, kThreads = 128, kWarps = kThreads / 32;
 constexpr int kMaxSplits = 64;  // = kTile: the merge weights reuse the score buffer
 constexpr int kPassTiles = 32;  // tiles whose positions one pass holds
 constexpr unsigned kFull = 0xffffffffu;
+
+// The least power of two >= n.
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
 
 // Two neighbouring elements of a row as f32.
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
@@ -74,14 +80,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float scale) {
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
   constexpr int CH = DH / EPC;              // chunks per row
-  constexpr int SWM = (CH < 8 ? CH : 8) - 1;  // chunk swizzle: c ^ (row & SWM)
+  // A shared row holds CHP = a power of two of chunks (16 for a bf16 row of
+  // dh = 112, which has 14), so that the swizzle c ^ (row & SWM) never leaves
+  // its row; the chunks past CH are never written or read.
+  constexpr int CHP = pow2_ceil(CH);
+  constexpr int DS = CHP * EPC;  // shared row stride, elements
+  constexpr int SWM = (CHP < 8 ? CHP : 8) - 1;  // chunk swizzle: c ^ (row & SWM)
   constexpr int ITERS = kTile * CH / kThreads;
   constexpr int PAIRS = DH / 2;          // mix: one thread per column pair ...
-  constexpr int RG = kThreads / PAIRS;   // ... and row group
-  constexpr int RPG = kTile / RG;        // rows per group
+  constexpr int RG = kThreads / PAIRS;   // ... and row group; threads past RG * PAIRS
+  constexpr int RPG = kTile / RG;        // rows per group     (16 at dh = 112) sit out
+  static_assert(kTile * CH % kThreads == 0 && kTile % RG == 0 && RG >= 1, "tile shape");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);  // [2][kTile][DH], raw cache dtype
-  T* Vs = Ks + 2 * kTile * DH;
+  T* Ks = reinterpret_cast<T*>(smem);  // [2][kTile][DS], raw cache dtype
+  T* Vs = Ks + 2 * kTile * DS;
   float* red = reinterpret_cast<float*>(smem);  // [RG][GC][DH] after the last tile
   __shared__ __align__(16) float Qs[GC][DH];
   __shared__ float Ps[GC][kTile];  // scores, then probabilities; merge weights
@@ -100,6 +112,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_tiles = (Sc + kTile - 1) / kTile;
   const int t_lo = split * tiles_per_split, t_hi = min(t_lo + tiles_per_split, n_tiles);
   const int cp = tid % PAIRS, rg = tid / PAIRS;  // the mix's column pair and row group
+  const bool mixer = rg < RG;
 
   if (tid < GC) {
     g_m[tid] = kNegInf;
@@ -154,12 +167,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the mix can run over all rows (their p is exactly 0).
     auto issue = [&](int t, int st) {
       const uint32_t lo = lo_bits(t), hi = hi_bits(t);
-      T* kd = Ks + st * kTile * DH;
-      T* vd = Vs + st * kTile * DH;
+      T* kd = Ks + st * kTile * DS;
+      T* vd = Vs + st * kTile * DS;
 #pragma unroll
       for (int it = 0; it < ITERS; ++it) {
         const int i = tid + it * kThreads, r = i / CH, c = i % CH;
-        const int dst = r * DH + (c ^ (r & SWM)) * EPC;
+        const int dst = r * DS + (c ^ (r & SWM)) * EPC;
         if ((r < 32 ? lo >> r : hi >> (r - 32)) & 1u) {
           const long long s = (long long)t * kTile + r;
           cp_async16(kd + dst, kb + s * k_ss + c * EPC);
@@ -183,8 +196,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       const uint32_t lo = lo_bits(cur), hi = hi_bits(cur);
-      const T* kt = Ks + st * kTile * DH;
-      const T* vt = Vs + st * kTile * DH;
+      const T* kt = Ks + st * kTile * DS;
+      const T* vt = Vs + st * kTile * DS;
 
       // Scores: slot j on threads 2j, 2j + 1, each half of the chunks.
       {
@@ -197,7 +210,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int cc = 0; cc < CH / 2; ++cc) {
             const int c = 2 * cc + half;
-            const uint4 raw = *reinterpret_cast<const uint4*>(kt + j * DH + (c ^ (j & SWM)) * EPC);
+            const uint4 raw = *reinterpret_cast<const uint4*>(kt + j * DS + (c ^ (j & SWM)) * EPC);
             const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
             for (int g = 0; g < GC; ++g) {
@@ -239,7 +252,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // acc = acc * corr + P V over this thread's rows and column pair;
       // invalid rows hold zeros and p = 0, so every row is taken.
-      {
+      if (mixer) {
         const int d = 2 * cp, c = d / EPC, x = d % EPC;
 #pragma unroll
         for (int g = 0; g < GC; ++g) {
@@ -249,7 +262,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int jj = 0; jj < RPG; ++jj) {
           const int j = rg * RPG + jj;
-          const float2 vv = load2(vt + j * DH + (c ^ (j & SWM)) * EPC + x);
+          const float2 vv = load2(vt + j * DS + (c ^ (j & SWM)) * EPC + x);
 #pragma unroll
           for (int g = 0; g < GC; ++g) {
             acc[g][0] = fmaf(Ps[g][j], vv.x, acc[g][0]);
@@ -265,10 +278,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // Sum the mix's row groups: red[rg][g][d], then thread i owns (g, d) = i.
+  if (mixer) {
 #pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    red[(rg * GC + g) * DH + 2 * cp] = acc[g][0];
-    red[(rg * GC + g) * DH + 2 * cp + 1] = acc[g][1];
+    for (int g = 0; g < GC; ++g) {
+      red[(rg * GC + g) * DH + 2 * cp] = acc[g][0];
+      red[(rg * GC + g) * DH + 2 * cp + 1] = acc[g][1];
+    }
   }
   __syncthreads();
   auto summed = [&](int g, int d) {
@@ -375,7 +390,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, int GC>
 constexpr int smem_bytes() {  // the K/V ring (two stages), then the row-group sums
-  constexpr int ring = 2 * 2 * kTile * DH * (int)sizeof(T);
+  constexpr int ring = 2 * 2 * kTile * pow2_ceil(DH * (int)sizeof(T) / 16) * 16;
   constexpr int sums = (kThreads / (DH / 2)) * GC * DH * 4;
   static_assert(sums >= 2 * GC * kMaxSplits * 4, "the merge's (m, l) fit where the sums were");
   return ring > sums ? ring : sums;
@@ -460,6 +475,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
     DECODE_CASE(16)
     DECODE_CASE(32)
     DECODE_CASE(64)
+    DECODE_CASE(112)
     DECODE_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;

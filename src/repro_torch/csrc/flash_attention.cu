@@ -19,7 +19,8 @@
 //    strides, so the model layout needs no transpose, and rows past the end
 //    arrive as zeros, so the ragged last tile needs no padding copy. Shared
 //    tiles use the widest swizzle a row allows (128 B at dh >= 64, so a
-//    dh = 128 row arrives as two 64-column boxes). S = Q K^T is
+//    dh = 128 row arrives as two 64-column boxes, and a dh = 112 row as two
+//    boxes whose last 16 columns TMA fills with zeros). S = Q K^T is
 //    wgmma.m64n64k16 with both operands in shared memory (K rows are
 //    dh-contiguous: a K-major B). Masking and the online softmax run on the
 //    accumulator fragment in registers (a row lives on the four threads of
@@ -303,12 +304,17 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi, std::false_type /*
 }
 
 // Shared layout of one 64-row tile of a (rows, dh) operand as TMA writes it:
-// NCH column chunks of CW elements, each 64 rows x SW bytes, swizzled SW.
+// NCH column chunks of CW elements, each 64 rows x SW bytes, swizzled SW. A
+// dh that is not a whole number of chunks (112 = 64 + 48) takes PW columns:
+// the last box reaches past the map's dh, and TMA fills those columns with
+// zeros, so Q K^T runs dh / 16 k-steps over real columns only and P.V runs at
+// N = PW, its columns past dh zero and never stored.
 template <int DH>
 struct TcTile {
   static constexpr int CW = DH < 64 ? DH : 64;  // columns per TMA box
   static constexpr int SW = CW * 2;              // bytes per row of a chunk = swizzle span
-  static constexpr int NCH = DH / CW;
+  static constexpr int NCH = (DH + CW - 1) / CW;
+  static constexpr int PW = NCH * CW;  // padded columns: 128 at dh = 112
   static constexpr int CHUNK = 64 * SW;
   static constexpr int BYTES = NCH * CHUNK;
 };
@@ -322,7 +328,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           int causal, int window, int kv_len, float scale_log2) {
   constexpr bool F16 = std::is_same<T, __half>::value;
   using L = TcTile<DH>;
-  constexpr int NO = DH / 2;  // accumulator floats per thread
+  constexpr int NO = L::PW / 2;  // accumulator floats per thread
 
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[3];  // Q, K/V stage 0, K/V stage 1
@@ -461,7 +467,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<F16, DH>(acc, pa[kk], smem_desc(vt + kk * 16 * L::SW, L::CHUNK, 8 * L::SW, L::SW));
+      wgmma_pv<F16, L::PW>(acc, pa[kk], smem_desc(vt + kk * 16 * L::SW, L::CHUNK, 8 * L::SW, L::SW));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -583,6 +589,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)
+    FLASH_CASE(112)
     FLASH_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;

@@ -21,7 +21,7 @@ from . import _build
 
 __all__ = ["flash_attention", "HEAD_DIMS", "TMA_DTYPES"]
 
-HEAD_DIMS = (16, 32, 64, 128)  # dh values the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 112, 128)  # dh values the kernels are instantiated for
 TMA_DTYPES = (torch.bfloat16, torch.float16)  # dtypes of the tensor-core kernel
 
 

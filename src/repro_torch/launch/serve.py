@@ -5,8 +5,10 @@ Generates a Poisson request trace (the paper's Table-I workload shape:
 short prompts, short outputs), runs it through the engine twice — ICC
 priority admission vs FIFO — and prints satisfaction/latency stats. The
 model is the arch's smoke config in float32, as in the reference script;
-`--arch` takes every config the port runs (the dense, vlm and moe
-families).
+`--arch` takes every config of the JAX package: dense, vlm, moe, hybrid
+(zamba2-7b) and ssm (xlstm-1.3b) calibrate and serve token prompts;
+enc-dec (seamless-m4t-large-v2) is refused, as the reference's calibration
+builds its engines without `enc_len`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --rate 20
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
@@ -50,7 +52,7 @@ def build_trace(cfg, rate: float, duration: float, n_input: int,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b", choices=sorted(list_configs()),
-                    help="any config the port runs (dense, vlm and moe families)")
+                    help="any config but an enc-dec one (seamless-m4t-large-v2)")
     ap.add_argument("--rate", type=float, default=10.0, help="req/s")
     ap.add_argument("--duration", type=float, default=3.0)
     ap.add_argument("--n-input", type=int, default=15)
@@ -60,8 +62,11 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args()
 
-    device = resolve_device(args.device)
     cfg = dataclasses.replace(get_config(args.arch, smoke=True), dtype="float32")
+    if cfg.n_encoder_layers:
+        ap.error(f"{args.arch} is enc-dec: measure_service_time builds its engines "
+                 "without enc_len, as the reference's does")
+    device = resolve_device(args.device)
     model = build_model(cfg, RuntimeFlags(remat=False))
     params = model.init(seed=0, device=device)
     cal = measure_service_time(model, params, args.n_input, args.n_output)

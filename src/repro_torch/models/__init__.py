@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense, vlm and moe decoders in PyTorch."""
+"""Model zoo of the port in PyTorch: every family of the JAX package (dense,
+vlm, moe, hybrid, ssm and enc-dec)."""
 
 from .common import RuntimeFlags
 from .model import Model, build_model

@@ -20,7 +20,14 @@ overwrites was already masked: an empty slot (pos < Sc), or pos - Sc outside
 a window <= Sc. `InferenceEngine` sizes requests so that pos < Sc holds, and
 the stack refuses a ring cache smaller than its window.
 
-Not ported (enc-dec only): cross-attention.
+Cross attention (the enc-dec decoder): K/V come from `project_kv` over the
+encoder output (no RoPE), q is projected and rotated as usual, and the mask
+is full: no causal mask, no window. Prefill runs the flash kernel
+non-causally over the encoder's arange positions (Sq != Sk). Decode runs
+the decode kernel over the static cross cache (`cross_decode_attention`),
+masked by `cross_pos >= 0` only, as the reference is: the kernel also drops
+slots past the query position, so it is called with a position that no
+frame exceeds and no window. The cross cache is never written in decode.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ __all__ = [
     "chunked_attention",
     "attention_core",
     "attention_forward",
+    "project_kv",
     "decode_attention",
+    "cross_decode_attention",
 ]
 
 NEG_INF = -1e30
@@ -186,17 +195,32 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.view(d, n * dh)).view(*x.shape[:-1], n, dh)
 
 
+def _project_q(p: Attention, x: torch.Tensor,
+               rope: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    q = _project(x, p.wq)
+    if p.bq is not None:
+        q = q + p.bq
+    return q if rope is None else rotate(q, rope)
+
+
+def project_kv(p: Attention, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V projections only, no RoPE (cross-attention memory).
+    x: (B, S, d) -> k, v: (B, S, K, dh)."""
+    k, v = _project(x, p.wk), _project(x, p.wv)
+    if p.bk is not None:
+        k, v = k + p.bk, v + p.bv
+    return k, v
+
+
 def _project_qkv(
     p: Attention,
     x: torch.Tensor,  # (B, S, d)
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rope tables, None = NoPE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
-    if p.bq is not None:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    k, v = project_kv(p, x)
     if rope is not None:
-        q, k = rotate(q, rope), rotate(k, rope)
-    return q, k, v
+        k = rotate(k, rope)
+    return _project_q(p, x, rope), k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -215,13 +239,22 @@ def attention_forward(
     *,
     causal: bool = True,
     window: int = 0,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B, Sk, K, dh) each
+    cross_pos: Optional[torch.Tensor] = None,  # (B, Sk)
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Returns (out (B, S, d), (k, v) for cache collection)."""
+    """Returns (out (B, S, d), (k, v) for cache collection). With `cross_kv`
+    (enc-dec cross attention) only q is projected from x and the mask is
+    full; on the card `cross_pos` must be the encoder's arange positions."""
     B, S, _ = x.shape
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    q, k, v = _project_qkv(p, x, rope)
+    if cross_kv is None:
+        q, k, v = _project_qkv(p, x, rope)
+        k_pos = positions
+    else:
+        q, (k, v), k_pos = _project_q(p, x, rope), cross_kv, cross_pos
+        causal, window = False, 0
     qg = q.view(B, S, K, G, cfg.head_dim)
-    out = attention_core(qg, k, v, positions, positions, causal, window, rt)
+    out = attention_core(qg, k, v, positions, k_pos, causal, window, rt)
     return _out_proj(out.reshape(B, S, cfg.n_heads, cfg.head_dim), p.wo), (k, v)
 
 
@@ -247,4 +280,22 @@ def decode_attention(
     cache_k.view(-1, K, dh).index_copy_(0, flat_slot, k[:, 0])
     cache_v.view(-1, K, dh).index_copy_(0, flat_slot, v[:, 0])
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, cache_pos, pos, window=window)
+    return _out_proj(out, p.wo)
+
+
+def cross_decode_attention(
+    p: Attention,
+    x: torch.Tensor,  # (B, d)
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # tables of pos[:, None]
+    cache_k: torch.Tensor,  # (B, Se, K, dh) — static cross cache of this layer
+    cache_v: torch.Tensor,
+    cache_pos: torch.Tensor,  # (B, Se) int32 encoder positions, -1 = padding
+    beyond: torch.Tensor,  # (B,) int32, larger than every encoder position
+) -> torch.Tensor:
+    """One decode step of cross attention: softmax over the valid encoder
+    frames (cache_pos >= 0). The kernel also masks kv_pos > pos, so it gets
+    `beyond` as the query position and window 0, which mask nothing else.
+    Returns out (B, d); the cache is not written."""
+    q = _project_q(p, x[:, None, :], rope)
+    out = ops.decode_attention(q[:, 0], cache_k, cache_v, cache_pos, beyond, window=0)
     return _out_proj(out, p.wo)

@@ -37,10 +37,11 @@ class RuntimeFlags:
 
     The same fields as the reference's. The port runs `attention_impl` in
     {auto, naive, chunked, pallas} ("pallas" names the flash kernel, as in
-    the reference), `window_override` (ring caches) and `moe_dispatch`
-    (scatter or einsum, `models/moe.py`). The SSM, remat and sharding fields
-    have no effect in this slice (forward-only dense, vlm and moe decoders
-    on one card)."""
+    the reference), `window_override` (ring caches), `moe_dispatch`
+    (scatter or einsum, `models/moe.py`) and the chunk lengths of the
+    chunked scans, `mamba_chunk` (`models/mamba2.py`) and `mlstm_chunk`
+    (`models/xlstm.py`). The remat and sharding fields have no effect: the
+    port runs forward only, on one card."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024

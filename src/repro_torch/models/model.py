@@ -1,4 +1,5 @@
-"""Public model API (counterpart of `repro/models/model.py`).
+"""Public model API (counterpart of `repro/models/model.py`): one `Model`
+facade over every family.
 
     model = build_model(get_config("glm4-9b"))
     params = model.init(seed=0)                          # on the card
@@ -7,23 +8,27 @@
     logits, cache = model.decode(params, cache, tok, pos)
 
 Inputs are tokens (B, S) int, or frontend embeds (B, S, d) for vlm archs
-(with optional M-RoPE streams `mrope_positions` (3, B, S)). `params` is a
-`transformer.Decoder` module; every call runs on the device its parameters
-live on. Forward only: the loss and training are not ported yet.
+(with optional M-RoPE streams `mrope_positions` (3, B, S)); enc-dec archs
+take dict(enc_embeds=(B, S_enc, d), dec_tokens=(B, S_dec)). `params` is a
+`transformer.Decoder` module, or an `encdec.EncDec` for enc-dec archs;
+every call runs on the device its parameters live on. Forward only: the
+loss and training are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import encdec, transformer
 from .common import RuntimeFlags, resolve_device
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "Params"]
+
+Params = Union[transformer.Decoder, encdec.EncDec]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,41 +36,60 @@ class Model:
     cfg: ModelConfig
     rt: RuntimeFlags
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.cfg.n_encoder_layers > 0
+
     # ------------------------------------------------------------- params
-    def init(self, seed: int = 0, device="cuda", dtype=None) -> transformer.Decoder:
+    def init(self, seed: int = 0, device="cuda", dtype=None) -> Params:
         """Random weights drawn on `device` from a generator seeded `seed`."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        if self.is_encdec:
+            return encdec.init_encdec_params(self.cfg, gen, dev, dtype)
         return transformer.init_decoder_params(self.cfg, gen, dev, dtype)
 
     # -------------------------------------------------------------- forward
     def forward(
-        self, params: transformer.Decoder, batch: torch.Tensor,
+        self, params: Params, batch: Any,
         mrope_positions: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, dict]:
         """-> (logits (B, S, V), aux): for moe archs the router losses
         `moe_lb_loss` and `moe_z_loss` summed over layers, else {}."""
+        if self.is_encdec:
+            return encdec.encdec_forward(params, self.cfg, self.rt, batch["enc_embeds"],
+                                         batch["dec_tokens"])
         return transformer.decoder_forward(params, self.cfg, self.rt, batch,
                                            mrope_positions=mrope_positions)
 
     # ------------------------------------------------------------ serving
-    def init_cache(self, batch: int, cache_len: int, device="cuda", dtype=None) -> dict:
-        return transformer.init_decode_cache(
-            self.cfg, batch, cache_len, resolve_device(device), dtype
-        )
+    def init_cache(self, batch: int, cache_len: int, device="cuda", dtype=None,
+                   enc_len: int = 0) -> dict:
+        """Zeroed decode cache; enc-dec archs add a cross cache of `enc_len`
+        frames (`cache_len` when 0, as the reference)."""
+        dev = resolve_device(device)
+        if self.is_encdec:
+            return encdec.init_encdec_cache(self.cfg, batch, cache_len,
+                                            enc_len or cache_len, dev, dtype)
+        return transformer.init_decode_cache(self.cfg, batch, cache_len, dev, dtype)
 
     def prefill(
-        self, params: transformer.Decoder, prompt: torch.Tensor,
+        self, params: Params, prompt: Any,
         mrope_positions: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, dict]:
         """-> (last-position logits (B, V), cache)."""
+        if self.is_encdec:
+            return encdec.encdec_prefill(params, self.cfg, self.rt, prompt["enc_embeds"],
+                                         prompt["dec_tokens"])
         return transformer.decoder_prefill(params, self.cfg, self.rt, prompt,
                                            mrope_positions=mrope_positions)
 
     def decode(
-        self, params: transformer.Decoder, cache: dict, token: torch.Tensor, pos: torch.Tensor
+        self, params: Params, cache: dict, token: torch.Tensor, pos: torch.Tensor
     ) -> Tuple[torch.Tensor, dict]:
         """One token for every sequence in the batch -> (logits, cache)."""
+        if self.is_encdec:
+            return encdec.encdec_decode(params, self.cfg, self.rt, cache, token, pos)
         return transformer.decoder_decode(params, self.cfg, self.rt, cache, token, pos)
 
 

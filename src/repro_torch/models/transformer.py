@@ -1,27 +1,44 @@
-"""Decoder-only stack, dense, vlm and moe families (counterpart of
-`repro/models/transformer.py`).
+"""Decoder-only stacks for every decoder-only family (counterpart of
+`repro/models/transformer.py`); enc-dec lives in `encdec.py`.
 
-Parameters: a `Decoder` module whose `layers` is an `nn.ModuleList` of
-per-layer `Block`s; the reference keeps a leading layer axis on each leaf
-instead (`convert.py` splits it). The uniform stack is a Python loop over
-the blocks; iRoPE's per-layer RoPE flag is a Python `if` per layer. A moe
-block holds `moe` (routed experts, `moe.py`) where a dense one holds `mlp`,
-and `decoder_forward` returns the router aux losses summed over layers.
+Parameters: a `Decoder` module. The reference keeps a leading layer axis
+(two for grouped families) on each leaf; the port holds `nn.ModuleList`s of
+per-layer blocks instead (`convert.py` splits the axes):
 
-Inputs are tokens (B, S) or frontend embeddings (B, S, d) (vlm); decode
-embeds the generated tokens. Tied embeddings have no `lm_head`: the logits
-use a view of `embed.T`.
+  * dense / vlm / moe: `layers`, one `Block` (attention + MLP, or `moe`,
+    routed experts, `moe.py`) per layer; iRoPE's per-layer RoPE flag is a
+    Python `if` per layer, and `decoder_forward` returns the moe router aux
+    losses summed over layers.
+  * hybrid (zamba2): `mamba_groups` (ng groups of gs `MambaBlock`s), each
+    group followed by ONE weight-shared attention + MLP block (`shared`),
+    then `mamba_rest` (the rem = L - ng gs remaining Mamba2 blocks).
+  * ssm (xlstm): `mlstm_groups` (ng groups of slstm_every - 1 `MLSTMBlock`s),
+    each followed by its `slstm_blocks` entry. The sLSTM block's `ffn_norm`
+    is a leaf of the reference's tree that its stack never reads; the port
+    keeps it, unread, so that conversion stays strict both ways.
 
-Cache: {"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}, the reference's
-layout; decode updates it in place. Sliding-window serving
-(`window_override`) uses the same buffers as a ring (slot = pos % Sc).
+The stacks are Python loops over the blocks. Inputs are tokens (B, S) or
+frontend embeddings (B, S, d) (vlm); decode embeds the generated tokens.
+Tied embeddings have no `lm_head`: the logits use a view of `embed.T`.
 
-Not ported yet (they raise): hybrid (zamba2), ssm (xlstm), enc-dec.
+Caches, in the reference's layout, updated in place by decode:
+
+  * attention: {"k", "v": (L, B, Sc, K, dh), "pos": (B, Sc) int32}.
+    Sliding-window serving (`window_override`) uses the same buffers as a
+    ring (slot = pos % Sc).
+  * hybrid: the shared block's {"k", "v": (ng, B, Sc, K, dh), "pos"}, one
+    entry per group application, plus the Mamba2 states {"mamba": leaves
+    (ng, gs, B, ...), "rest": leaves (rem, B, ...)} (`mamba2.py`).
+  * ssm: {"mlstm": leaves (ng, gs - 1, B, ...), "slstm": leaves (ng, B, ...)}
+    (`xlstm.py`).
+
+`CACHE_BATCH_AXIS` gives the batch axis of every cache leaf by its
+top-level key, as the reference's "kv_batch" logical axis does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,13 +46,31 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .attention import Attention, attention_forward, decode_attention, init_attention
 from .common import DTYPES, RuntimeFlags, init_normal_, param, rms_norm
+from .mamba2 import Mamba2, init_mamba2, init_mamba_state, mamba2_decode_step, mamba2_forward
 from .mlp import MLP, init_mlp, mlp_forward
 from .moe import MoE, init_moe, moe_forward
 from .rope import mrope_tables, rope_tables, text_mrope_positions
+from .xlstm import (
+    MLSTM,
+    SLSTM,
+    init_mlstm,
+    init_mlstm_state,
+    init_slstm,
+    init_slstm_state,
+    mlstm_decode_step,
+    mlstm_forward,
+    slstm_decode_step,
+    slstm_forward,
+)
 
 __all__ = [
     "Block",
+    "MambaBlock",
+    "MLSTMBlock",
+    "SLSTMBlock",
     "Decoder",
+    "CACHE_BATCH_AXIS",
+    "group_shape",
     "init_decoder_params",
     "decoder_forward",
     "decoder_prefill",
@@ -46,9 +81,23 @@ __all__ = [
 ]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.n_encoder_layers:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+UNIFORM = ("dense", "vlm", "moe")
+# The batch axis of every cache leaf, by its top-level key (nested dicts
+# share their key's axis); enc-dec's cross-attention leaves included.
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "pos": 0, "mamba": 2, "rest": 1, "mlstm": 2,
+                    "slstm": 1, "cross_k": 1, "cross_v": 1, "cross_pos": 0}
+
+
+def group_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, group_size, remainder) for grouped families."""
+    if cfg.family == "hybrid":
+        g = cfg.shared_attn_every
+    elif cfg.family == "ssm":
+        g = cfg.slstm_every
+    else:
+        return (0, 0, cfg.n_layers)
+    n_groups = cfg.n_layers // g
+    return n_groups, g, cfg.n_layers - n_groups * g
 
 
 class Block(nn.Module):
@@ -66,21 +115,75 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, device=device, dtype=dtype)
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 residual block (hybrid family)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.norm = param((cfg.d_model,), device, dtype)
+        self.mamba = Mamba2(cfg, device=device, dtype=dtype)
+
+
+class MLSTMBlock(nn.Module):
+    """Pre-norm mLSTM residual block (ssm family)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.norm = param((cfg.d_model,), device, dtype)
+        self.mlstm = MLSTM(cfg, device=device, dtype=dtype)
+
+
+class SLSTMBlock(nn.Module):
+    """Pre-norm sLSTM residual block (ssm family); `ffn_norm` is kept and never read."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.norm = param((cfg.d_model,), device, dtype)
+        self.ffn_norm = param((cfg.d_model,), device, dtype)
+        self.slstm = SLSTM(cfg, device=device, dtype=dtype)
+
+
+def _blocks(cls, n: int, cfg, device, dtype) -> nn.ModuleList:
+    return nn.ModuleList(cls(cfg, device=device, dtype=dtype) for _ in range(n))
+
+
 class Decoder(nn.Module):
-    """All parameters of a dense, vlm or moe decoder; `init_decoder_params` fills
+    """All parameters of a decoder-only model; `init_decoder_params` fills
     them. `lm_head` is None under tied embeddings."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.n_encoder_layers or cfg.family not in UNIFORM + ("hybrid", "ssm"):
+            raise ValueError(f"family {cfg.family!r}: enc-dec models are `encdec.EncDec`")
         dtype = dtype or DTYPES[cfg.dtype]
         self.embed = param((cfg.padded_vocab, cfg.d_model), device, dtype)
         self.final_norm = param((cfg.d_model,), device, dtype)
         self.lm_head = (None if cfg.tie_embeddings
                         else param((cfg.d_model, cfg.padded_vocab), device, dtype))
-        self.layers = nn.ModuleList(
-            Block(cfg, device=device, dtype=dtype) for _ in range(cfg.n_layers)
-        )
+        ng, gs, rem = group_shape(cfg)
+        if cfg.family in UNIFORM:
+            self.layers = _blocks(Block, cfg.n_layers, cfg, device, dtype)
+        elif cfg.family == "hybrid":
+            self.mamba_groups = nn.ModuleList(
+                _blocks(MambaBlock, gs, cfg, device, dtype) for _ in range(ng))
+            self.mamba_rest = _blocks(MambaBlock, rem, cfg, device, dtype)
+            self.shared = Block(cfg, device=device, dtype=dtype)
+        else:
+            if rem:
+                raise ValueError("xlstm stack must divide into (mLSTM*, sLSTM) groups")
+            self.mlstm_groups = nn.ModuleList(
+                _blocks(MLSTMBlock, gs - 1, cfg, device, dtype) for _ in range(ng))
+            self.slstm_blocks = _blocks(SLSTMBlock, ng, cfg, device, dtype)
+
+
+def init_block(blk: Block, cfg: ModelConfig, gen: torch.Generator) -> None:
+    blk.attn_norm.fill_(1.0)
+    blk.mlp_norm.fill_(1.0)
+    init_attention(blk.attn, gen)
+    if cfg.n_experts:
+        init_moe(blk.moe, gen)
+    else:
+        init_mlp(blk.mlp, gen)
 
 
 @torch.no_grad()
@@ -89,21 +192,30 @@ def init_decoder_params(
 ) -> Decoder:
     """Random weights with the reference's shapes and scales: embed 0.02,
     wo 1/sqrt(H*dh), the leading dim otherwise (fan-in; E for the expert
-    weights), norms ones. Drawn on `device` from
-    `gen` (a generator of that device)."""
+    weights), the recurrent blocks' own (`init_mamba2`, `init_mlstm`,
+    `init_slstm`), norms ones. Drawn on `device` from `gen` (a generator of
+    that device)."""
     p = Decoder(cfg, device=device, dtype=dtype)
     init_normal_(p.embed, gen, scale=0.02)
     p.final_norm.fill_(1.0)
     if p.lm_head is not None:
         init_normal_(p.lm_head, gen)
-    for blk in p.layers:
-        blk.attn_norm.fill_(1.0)
-        blk.mlp_norm.fill_(1.0)
-        init_attention(blk.attn, gen)
-        if cfg.n_experts:
-            init_moe(blk.moe, gen)
-        else:
-            init_mlp(blk.mlp, gen)
+    if cfg.family in UNIFORM:
+        for blk in p.layers:
+            init_block(blk, cfg, gen)
+    elif cfg.family == "hybrid":
+        for blk in [b for grp in p.mamba_groups for b in grp] + list(p.mamba_rest):
+            blk.norm.fill_(1.0)
+            init_mamba2(blk.mamba, gen)
+        init_block(p.shared, cfg, gen)
+    else:
+        for blk in [b for grp in p.mlstm_groups for b in grp]:
+            blk.norm.fill_(1.0)
+            init_mlstm(blk.mlstm, gen)
+        for blk in p.slstm_blocks:
+            blk.norm.fill_(1.0)
+            blk.ffn_norm.fill_(1.0)
+            init_slstm(blk.slstm, gen)
     return p
 
 
@@ -190,9 +302,11 @@ def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
     return x, kvs, aux
 
 
-def _uniform_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
-    """Write-then-attend decode. The new position goes into cache["pos"]
-    before the first layer, so every layer's kernel sees the fresh slot.
+def write_positions(cache: dict, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """Write-then-attend decode, step one: the new position goes into
+    cache["pos"] before the first layer, so every layer's kernel sees the
+    fresh slot. Returns the new token's flat row b * Sc + pos % Sc of each
+    layer's (B * Sc, K, dh) cache.
 
     Writing first equals the reference's two-part softmax whenever the slot
     a step overwrites is one the reference does not attend to: an empty slot
@@ -205,20 +319,126 @@ def _uniform_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
     (CPU tensors): on the card it would cost a device-to-host sync every
     step. There `InferenceEngine.submit` keeps every position below Sc
     (prompt + new tokens <= max_seq), checked on the host at admission."""
-    window = rt.window_for(cfg.window)
-    Sc = cache["k"].shape[2]
+    Sc = cache["pos"].shape[1]
     if window and Sc < window and not pos.is_cuda and int(pos.max()) >= Sc:
         raise ValueError(f"position {int(pos.max())} would wrap a cache of {Sc} slots, "
                          f"smaller than the window {window}")
     slot = (pos % Sc).long()  # ring-buffer slot (full cache: pos < Sc)
-    flat_slot = torch.arange(x.shape[0], device=x.device) * Sc + slot
+    flat_slot = torch.arange(pos.shape[0], device=pos.device) * Sc + slot
     cache["pos"].view(-1).index_copy_(0, flat_slot, pos)
+    return flat_slot
+
+
+def _uniform_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
+    window = rt.window_for(cfg.window)
+    flat_slot = write_positions(cache, pos, window)
     rope = _rope_tables(cfg, pos[:, None])
     for i, lp in enumerate(params.layers):
         x = _attn_block_decode(
             lp, x, cfg, rt, pos, rope if _uses_rope(cfg, i) else None, flat_slot,
             cache["k"][i], cache["v"][i], cache["pos"], window,
         )
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2) stack
+# ---------------------------------------------------------------------------
+
+
+def _index_state(states: dict, *idx) -> dict:
+    """One layer's state: views into the stacked leaves, so that decode's
+    in-place updates land in the cache."""
+    return {k: v[idx] for k, v in states.items()}
+
+
+def _stack_states(states: List[dict]) -> dict:
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _mamba_layer(blk: MambaBlock, x, cfg, rt):
+    y, st = mamba2_forward(blk.mamba, rms_norm(x, blk.norm, cfg.norm_eps), cfg,
+                           chunk=rt.mamba_chunk)
+    return x + y, st
+
+
+def _mamba_layer_decode(blk: MambaBlock, x, cfg, state):
+    return x + mamba2_decode_step(blk.mamba, rms_norm(x, blk.norm, cfg.norm_eps), state,
+                                  cfg)[0]
+
+
+def _hybrid_stack(params: Decoder, cfg, rt, x, positions, collect_cache: bool):
+    """-> (x, (mamba states (ng, gs, B, ...), rest states (rem, B, ...) or
+    None, the shared block's per-group (k, v)) if collect_cache, {})."""
+    window = rt.window_for(cfg.window)
+    rope = _rope_tables(cfg, positions)
+    groups, kvs = [], []
+    for grp in params.mamba_groups:
+        sts = []
+        for blk in grp:
+            x, st = _mamba_layer(blk, x, cfg, rt)
+            sts.append(st)
+        x, kv, _ = _attn_block_apply(params.shared, x, cfg, rt, positions, rope, window)
+        groups.append(sts)
+        kvs.append(kv)
+    rest = []
+    for blk in params.mamba_rest:
+        x, st = _mamba_layer(blk, x, cfg, rt)
+        rest.append(st)
+    if not collect_cache:
+        return x, None, {}
+    mamba = _stack_states([_stack_states(sts) for sts in groups])
+    return x, (mamba, _stack_states(rest) if rest else None, kvs), {}
+
+
+def _hybrid_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
+    window = rt.window_for(cfg.window)
+    flat_slot = write_positions(cache, pos, window)
+    rope = _rope_tables(cfg, pos[:, None])
+    for g, grp in enumerate(params.mamba_groups):
+        for i, blk in enumerate(grp):
+            x = _mamba_layer_decode(blk, x, cfg, _index_state(cache["mamba"], g, i))
+        x = _attn_block_decode(params.shared, x, cfg, rt, pos, rope, flat_slot,
+                               cache["k"][g], cache["v"][g], cache["pos"], window)
+    for i, blk in enumerate(params.mamba_rest):
+        x = _mamba_layer_decode(blk, x, cfg, _index_state(cache["rest"], i))
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# ssm (xlstm) stack
+# ---------------------------------------------------------------------------
+
+
+def _ssm_stack(params: Decoder, cfg, rt, x, collect_cache: bool):
+    """-> (x, (mLSTM states (ng, gs - 1, B, ...), sLSTM states (ng, B, ...))
+    if collect_cache, {})."""
+    mstates, sstates = [], []
+    for grp, sblk in zip(params.mlstm_groups, params.slstm_blocks):
+        sts = []
+        for blk in grp:
+            y, st = mlstm_forward(blk.mlstm, rms_norm(x, blk.norm, cfg.norm_eps), cfg,
+                                  chunk=rt.mlstm_chunk)
+            x = x + y
+            sts.append(st)
+        # the sLSTM block: cell + its own gated FFN, inside slstm_forward
+        y, sst = slstm_forward(sblk.slstm, rms_norm(x, sblk.norm, cfg.norm_eps), cfg)
+        x = x + y
+        mstates.append(sts)
+        sstates.append(sst)
+    if not collect_cache:
+        return x, None, {}
+    return x, (_stack_states([_stack_states(sts) for sts in mstates]),
+               _stack_states(sstates)), {}
+
+
+def _ssm_decode(params: Decoder, cfg, rt, x, cache: dict):
+    for g, (grp, sblk) in enumerate(zip(params.mlstm_groups, params.slstm_blocks)):
+        for i, blk in enumerate(grp):
+            x = x + mlstm_decode_step(blk.mlstm, rms_norm(x, blk.norm, cfg.norm_eps),
+                                      _index_state(cache["mlstm"], g, i), cfg)[0]
+        x = x + slstm_decode_step(sblk.slstm, rms_norm(x, sblk.norm, cfg.norm_eps),
+                                  _index_state(cache["slstm"], g), cfg)[0]
     return x, cache
 
 
@@ -238,6 +458,15 @@ def _arange_positions(inputs: torch.Tensor, positions: Optional[torch.Tensor]):
     return torch.arange(S, dtype=torch.int32, device=inputs.device).expand(B, S)
 
 
+def _stack(params: Decoder, cfg, rt, x, positions, mrope_positions, collect_cache: bool):
+    """The family's stack -> (x, its cache pieces or None, aux)."""
+    if cfg.family in UNIFORM:
+        return _uniform_stack(params, cfg, rt, x, positions, mrope_positions, collect_cache)
+    if cfg.family == "hybrid":
+        return _hybrid_stack(params, cfg, rt, x, positions, collect_cache)
+    return _ssm_stack(params, cfg, rt, x, collect_cache)
+
+
 @torch.no_grad()
 def decoder_forward(
     params: Decoder,
@@ -248,28 +477,50 @@ def decoder_forward(
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
 ) -> Tuple[torch.Tensor, dict]:
     """Full forward to logits. Returns (logits (B, S, V), aux): the moe
-    router losses summed over layers, {} for dense and vlm."""
+    router losses summed over layers, {} for the other families."""
     positions = _arange_positions(inputs, positions)
     x = embed_inputs(params, cfg, inputs)
-    x, _, aux = _uniform_stack(params, cfg, rt, x, positions, mrope_positions,
-                               collect_cache=False)
+    x, _, aux = _stack(params, cfg, rt, x, positions, mrope_positions, collect_cache=False)
     return logits_from_hidden(params, cfg, x), aux
+
+
+def _stacked_zeros(shape_prefix, state: dict) -> dict:
+    """One zeroed state per layer: each leaf repeated over `shape_prefix`."""
+    return {k: v.new_empty((*shape_prefix, *v.shape)).copy_(v) for k, v in state.items()}
 
 
 def init_decode_cache(
     cfg: ModelConfig, batch: int, cache_len: int, device, dtype=None
 ) -> dict:
-    """Zeroed decode cache, every slot empty (pos -1).
+    """Zeroed decode cache, every attention slot empty (pos -1), every
+    recurrent state at its start (`init_mamba_state`, `init_mlstm_state`,
+    `init_slstm_state`).
 
     cache_len: KV capacity (== seq_len, or window size for ring caches)."""
-    _check_supported(cfg)
     dtype = dtype or DTYPES[cfg.dtype]
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
-    }
+    ng, gs, rem = group_shape(cfg)
+
+    def attn_cache(n_layers):
+        shape = (n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
+        }
+
+    if cfg.family in UNIFORM:
+        return attn_cache(cfg.n_layers)
+    if cfg.family == "hybrid":
+        cache = attn_cache(ng)
+        st1 = init_mamba_state(cfg, batch, device, dtype)
+        cache["mamba"] = _stacked_zeros((ng, gs), st1)
+        if rem:
+            cache["rest"] = _stacked_zeros((rem,), st1)
+        return cache
+    if cfg.family == "ssm":
+        return {"mlstm": _stacked_zeros((ng, gs - 1), init_mlstm_state(cfg, batch, device, dtype)),
+                "slstm": _stacked_zeros((ng,), init_slstm_state(cfg, batch, device))}
+    raise ValueError(f"family {cfg.family!r}: enc-dec caches are `encdec.init_encdec_cache`")
 
 
 @torch.no_grad()
@@ -284,13 +535,20 @@ def decoder_prefill(
     """Process the prompt; returns (last-position logits (B, V), cache)."""
     positions = _arange_positions(inputs, positions)
     x = embed_inputs(params, cfg, inputs)
-    x, kvs, _ = _uniform_stack(params, cfg, rt, x, positions, mrope_positions,
-                               collect_cache=True)
-    cache = {
-        "k": torch.stack([k for k, _ in kvs]),  # (L, B, S, K, dh)
-        "v": torch.stack([v for _, v in kvs]),
-        "pos": positions.to(torch.int32).contiguous(),
-    }
+    x, pieces, _ = _stack(params, cfg, rt, x, positions, mrope_positions, collect_cache=True)
+    if cfg.family == "ssm":
+        cache = {"mlstm": pieces[0], "slstm": pieces[1]}
+    else:
+        kvs = pieces if cfg.family in UNIFORM else pieces[2]
+        cache = {
+            "k": torch.stack([k for k, _ in kvs]),  # (L or ng, B, S, K, dh)
+            "v": torch.stack([v for _, v in kvs]),
+            "pos": positions.to(torch.int32).contiguous(),
+        }
+        if cfg.family == "hybrid":
+            cache["mamba"] = pieces[0]
+            if pieces[1] is not None:
+                cache["rest"] = pieces[1]
     return logits_from_hidden(params, cfg, x[:, -1]), cache
 
 
@@ -308,5 +566,11 @@ def decoder_decode(
         x = token
     else:
         x = params.embed[token.long()]
-    x, cache = _uniform_decode(params, cfg, rt, x, pos.to(torch.int32), cache)
+    pos = pos.to(torch.int32)
+    if cfg.family in UNIFORM:
+        x, cache = _uniform_decode(params, cfg, rt, x, pos, cache)
+    elif cfg.family == "hybrid":
+        x, cache = _hybrid_decode(params, cfg, rt, x, pos, cache)
+    else:
+        x, cache = _ssm_decode(params, cfg, rt, x, cache)
     return logits_from_hidden(params, cfg, x), cache

@@ -15,8 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..core.scheduler import Job
-from ..models.model import Model
-from ..models.transformer import Decoder
+from ..models.model import Model, Params
 from .engine import GenRequest, InferenceEngine
 
 __all__ = ["MeasuredService", "measure_service_time", "measured_service_fn"]
@@ -24,7 +23,7 @@ __all__ = ["MeasuredService", "measure_service_time", "measured_service_fn"]
 
 def measure_service_time(
     model: Model,
-    params: Decoder,
+    params: Params,
     n_input: int,
     n_output: int,
     max_seq: int = 256,
@@ -72,7 +71,7 @@ class MeasuredService:
 
 
 def measured_service_fn(
-    model: Model, params: Decoder, n_input: int, n_output: int, **kw
+    model: Model, params: Params, n_input: int, n_output: int, **kw
 ) -> Tuple[MeasuredService, Dict[str, float]]:
     """-> (service_time(job) for core.simulator, the measured table)."""
     t = measure_service_time(model, params, n_input, n_output, **kw)

@@ -5,9 +5,19 @@ A fixed pool of `max_batch` decode slots over one batched cache; requests
 are prefilled individually (batch 1) and spliced into a free slot, decode
 advances all slots in lock-step (one `Model.decode` per tick). A prompt is
 tokens (S,) or, for vlm archs, frontend embeddings (S, d) in the params'
-dtype; generated tokens are always embedded from the table. Nothing here
-depends on the family: a moe model routes inside `Model.prefill/decode`
-(the prefill as one group of S tokens, each decode row as its own group).
+dtype, or for enc-dec archs a dict {"enc_embeds": (S_enc, d), "dec_tokens":
+(S_dec,)} (the engine then needs `enc_len` >= S_enc); generated tokens are
+always embedded from the table. A moe model routes inside
+`Model.prefill/decode` (the prefill as one group of S tokens, each decode
+row as its own group).
+
+Splicing is generic across cache families (attention KV, Mamba2 and xLSTM
+states, enc-dec cross KV): every leaf is written into its slot along its
+batch axis (`transformer.CACHE_BATCH_AXIS`, the reference's "kv_batch"), and
+a leaf shorter than the buffer along a sequence axis is filled up to it,
+positions with -1 (empty), everything else with 0. Idle rows are stepped in
+lock-step with the others, as in the reference; the next splice into a slot
+overwrites whatever its row holds.
 
 Timing: CUDA calls return before the card finishes, so the engine
 synchronises the device before every clock read; `prefill_s` and
@@ -23,8 +33,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..models.common import resolve_device
-from ..models.model import Model
-from ..models.transformer import Decoder
+from ..models.model import Model, Params
+from ..models.transformer import CACHE_BATCH_AXIS
 
 __all__ = ["GenRequest", "GenResult", "InferenceEngine", "SamplingParams", "sample_token"]
 
@@ -39,7 +49,8 @@ class SamplingParams:
 @dataclasses.dataclass
 class GenRequest:
     uid: int
-    prompt: Any  # (S,) int tokens or (S, d) frontend embeds: a tensor, numpy array or list
+    prompt: Any  # (S,) int tokens, (S, d) frontend embeds (tensor, array or list), or a
+    #              dict {"enc_embeds": (S_enc, d), "dec_tokens": (S_dec,)} for enc-dec
     max_new_tokens: int
     eos_token: Optional[int] = None
     sampling: SamplingParams = SamplingParams()
@@ -89,14 +100,12 @@ class InferenceEngine:
     def __init__(
         self,
         model: Model,
-        params: Decoder,
+        params: Params,
         max_batch: int = 8,
         max_seq: int = 256,
         enc_len: int = 0,
         device="cuda",
     ):
-        if enc_len:
-            raise NotImplementedError("enc-dec serving is not ported yet")
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(
@@ -106,6 +115,7 @@ class InferenceEngine:
         self.params = params
         self.M = max_batch
         self.Sc = max_seq
+        self._enc_len = enc_len
         self._dtype = params.embed.dtype
         self.reset()
 
@@ -118,7 +128,8 @@ class InferenceEngine:
         self.results: Dict[int, GenResult] = {}
         self._slot_req: List[Optional[GenRequest]] = [None] * self.M
         self._remaining = [0] * self.M
-        self._cache = self.model.init_cache(self.M, self.Sc, self.device, self._dtype)
+        self._cache = self.model.init_cache(self.M, self.Sc, self.device, self._dtype,
+                                            enc_len=self._enc_len)
 
     def warmup(self, sample_prompt: Any) -> None:
         """Run one short request so the first timed request pays no
@@ -137,14 +148,25 @@ class InferenceEngine:
     def n_active(self) -> int:
         return sum(self.active)
 
-    def _splice(self, cache1: dict, slot: int, plen: int) -> None:
-        """Insert a batch-1 prefill cache into slot `slot`: K/V at [:plen],
-        positions arange(plen), the rest of the row empty (-1)."""
-        self._cache["k"][:, slot, :plen] = cache1["k"][:, 0]
-        self._cache["v"][:, slot, :plen] = cache1["v"][:, 0]
-        row = self._cache["pos"][slot]
-        row[:plen] = cache1["pos"][0]
-        row[plen:] = -1
+    def _splice(self, cache1: dict, slot: int) -> None:
+        """Insert a batch-1 prefill cache into slot `slot`, leaf by leaf."""
+
+        def ins(full: torch.Tensor, one: torch.Tensor, bax: int) -> None:
+            dst, one = full.select(bax, slot), one.squeeze(bax)
+            if dst.shape != one.shape:  # a sequence axis shorter than the buffer
+                if any(h > w for h, w in zip(one.shape, dst.shape)):
+                    raise ValueError(f"cache leaf {tuple(one.shape)} exceeds {tuple(full.shape)}")
+                dst.fill_(-1 if one.dtype == torch.int32 else 0)
+                dst = dst[tuple(slice(0, n) for n in one.shape)]
+            dst.copy_(one)
+
+        for key, leaf in cache1.items():
+            bax = CACHE_BATCH_AXIS[key]
+            if isinstance(leaf, dict):
+                for name, one in leaf.items():
+                    ins(self._cache[key][name], one, bax)
+            else:
+                ins(self._cache[key], leaf, bax)
 
     # ----------------------------------------------------------- serving
     def submit(self, req: GenRequest) -> int:
@@ -153,10 +175,19 @@ class InferenceEngine:
         if not slots:
             raise RuntimeError("no free slot")
         slot = slots[0]
-        prompt = torch.as_tensor(req.prompt)  # (S,) tokens or (S, d) embeds
-        dtype = self._dtype if prompt.dim() == 2 else torch.long
-        prompt = prompt.to(self.device, dtype)[None]
-        plen = prompt.shape[1]
+        if isinstance(req.prompt, dict):  # enc-dec: encoder frames + decoder prompt
+            enc = torch.as_tensor(req.prompt["enc_embeds"]).to(self.device, self._dtype)
+            dec = torch.as_tensor(req.prompt["dec_tokens"]).to(self.device, torch.long)
+            if enc.shape[0] > self._enc_len:
+                raise ValueError(f"request {req.uid}: {enc.shape[0]} encoder frames exceed "
+                                 f"enc_len={self._enc_len}")
+            prompt = {"enc_embeds": enc[None], "dec_tokens": dec[None]}
+            plen = dec.shape[0]
+        else:
+            prompt = torch.as_tensor(req.prompt)  # (S,) tokens or (S, d) embeds
+            dtype = self._dtype if prompt.dim() == 2 else torch.long
+            prompt = prompt.to(self.device, dtype)[None]
+            plen = prompt.shape[1]
         # Decode writes position p into slot p % Sc; p < Sc keeps every
         # written slot empty beforehand (see models/attention.py).
         if plen + req.max_new_tokens - 1 > self.Sc:
@@ -168,7 +199,7 @@ class InferenceEngine:
         t0 = time.perf_counter()
         logits, cache1 = self.model.prefill(self.params, prompt)
         tok = sample_token(logits[0], req.sampling, req.uid, 0)
-        self._splice(cache1, slot, plen)
+        self._splice(cache1, slot)
         _sync(self.device)
         self.active[slot] = True
         self.pos[slot] = plen

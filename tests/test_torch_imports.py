@@ -49,7 +49,10 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.llama4_scout_17b_a16e",
                 "repro_torch.core.simulator", "repro_torch.core.capacity",
                 "repro_torch.control.arrivals", "repro_torch.telemetry.recorder",
-                "repro_torch.launch.capacity"):
+                "repro_torch.launch.capacity", "repro_torch.models.mamba2",
+                "repro_torch.models.xlstm", "repro_torch.models.encdec",
+                "repro_torch.configs.zamba2_7b", "repro_torch.configs.xlstm_1_3b",
+                "repro_torch.configs.seamless_m4t_large_v2"):
         assert mod in res["imported"]
 
 

@@ -25,9 +25,12 @@ FLASH_SHAPES = [  # B, H, K, Sq, Sk, dh, bq, bk — as tests/test_kernels.py
     (2, 8, 2, 48, 48, 32, 16, 16),  # GQA 4:1
     (1, 4, 1, 40, 72, 16, 16, 32),  # MQA, Sq != Sk, ragged blocks
     (1, 2, 2, 17, 33, 8, 16, 16),  # non-divisible padding
+    (1, 2, 2, 20, 20, 112, 16, 16),  # zamba2-7b's dh = 3584 / 32
+    (1, 2, 2, 15, 40, 112, 16, 16),  # dh 112, Sq != Sk (cross attention's shape)
 ]
 MASKS = [(True, 0), (True, 8), (False, 0)]
-DECODE_SHAPES = [(2, 4, 2, 64, 16, 16), (1, 8, 8, 70, 32, 32)]  # B, H, K, Sc, dh, bk
+DECODE_SHAPES = [(2, 4, 2, 64, 16, 16), (1, 8, 8, 70, 32, 32),  # B, H, K, Sc, dh, bk
+                 (2, 2, 2, 40, 112, 16)]  # zamba2-7b's dh
 
 
 @pytest.fixture(scope="module")
@@ -208,6 +211,10 @@ class TestKernelsOnCard:
         (1, 8, 2, 77, 140, 64),
         # G = 16 (glm4-9b) and G = 6 (nemotron-4-15b)
         (1, 32, 2, 200, 200, 128), (2, 48, 8, 77, 77, 128),
+        # dh = 112 (zamba2-7b): a 64 + 48 column row, ragged tiles; Sq != Sk
+        (1, 32, 32, 15, 15, 112), (1, 8, 8, 130, 130, 112), (2, 4, 4, 77, 200, 112),
+        # seamless-m4t's cross attention: 15 decoder rows over 512 frames
+        (1, 16, 16, 15, 512, 64),
     ])
     def test_flash_attention(self, card, dtype, B, H, K, Sq, Sk, dh):
         from repro_torch.kernels.flash_attention import flash_attention
@@ -249,7 +256,8 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("B,H,K,Sc,dh", [(2, 4, 2, 64, 16), (1, 8, 8, 70, 32),
-                                             (8, 32, 32, 576, 128)])
+                                             (8, 32, 32, 576, 128), (8, 32, 32, 576, 112),
+                                             (2, 4, 4, 130, 112)])
     def test_decode_attention(self, card, dtype, B, H, K, Sc, dh):
         from repro_torch.kernels.decode_attention import decode_attention
 
@@ -271,6 +279,8 @@ class TestKernelsOnCard:
         (1, 32, 32, 576, 128, "short"),  # 40 valid slots: most splits empty
         (1, 32, 32, 576, 128, "full"),  # the 512 + 64 calibration
         (1, 32, 32, 576, 128, "ring"),  # a ring window across a split boundary
+        (1, 32, 32, 576, 112, "full"),  # zamba2-7b's dh, batch 1
+        (2, 8, 2, 1000, 112, "rows"),
     ])
     def test_decode_attention_split(self, card, dtype, B, H, K, Sc, dh, case):
         """Split-K in one launch: right, and bit-identical from call to call."""

@@ -1,5 +1,6 @@
 """The port's dense and vlm stack against the JAX reference on the CPU
-(the moe family: tests/test_torch_moe.py).
+(the moe family: tests/test_torch_moe.py; hybrid and ssm:
+tests/test_torch_ssm.py; enc-dec: tests/test_torch_encdec.py).
 
 Every dense and vlm arch of the JAX package at its smoke size, plus three
 cases made with `dataclasses.replace` on a smoke config: tied embeddings,
@@ -28,10 +29,9 @@ from repro.models import RuntimeFlags as JaxFlags  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving import GenRequest as JaxRequest  # noqa: E402
 from repro.serving import InferenceEngine as JaxEngine  # noqa: E402
-from repro_torch.configs import ModelConfig, get_config, list_configs  # noqa: E402
+from repro_torch.configs import get_config, list_configs  # noqa: E402
 from repro_torch.convert import convert_params  # noqa: E402
 from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
-from repro_torch.models.transformer import Decoder  # noqa: E402
 from repro_torch.serving import GenRequest, InferenceEngine  # noqa: E402
 
 TOL = 2e-3
@@ -40,6 +40,8 @@ S, EXTRA, B = 12, 3, 2
 DENSE_VLM = ["glm4-9b", "llama2-7b", "mistral-large-123b", "nemotron-4-15b", "qwen1.5-110b",
              "qwen2-vl-72b"]
 MOE = ["mixtral-8x22b", "llama4-scout-17b-a16e"]  # held against JAX in test_torch_moe.py
+# hybrid, ssm and enc-dec: held against JAX in test_torch_ssm.py and test_torch_encdec.py
+OTHER = ["zamba2-7b", "xlstm-1.3b", "seamless-m4t-large-v2"]
 CASES = {  # case: (arch, fields replaced on its smoke config)
     "glm4-9b": ("glm4-9b", {}),  # QKV bias, G = 4
     "nemotron-4-15b": ("nemotron-4-15b", {}),  # relu2, no w3
@@ -290,16 +292,9 @@ def test_calibration_runs(case):
         t["prefill_s"] + t["decode_s"])
 
 
-@pytest.mark.parametrize("arch", DENSE_VLM + MOE)
+@pytest.mark.parametrize("arch", DENSE_VLM + MOE + OTHER)
 def test_configs_equal_reference(arch):
     for smoke in (False, True):
         assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
             dataclasses.asdict(jax_get_config(arch, smoke=smoke))
     assert arch in list_configs()
-
-
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b", "seamless-m4t-large-v2"])
-def test_other_families_raise(arch):
-    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch, smoke=True)))
-    with pytest.raises(NotImplementedError):
-        Decoder(cfg, device="cpu")
