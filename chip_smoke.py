@@ -29,7 +29,13 @@ Phases, each of which must pass or the script exits non-zero:
      encoder, cross attention and cross decode) the kernel's time
      (with the plan rmsnorm_plan chose), the plain version's, one PyTorch
      library call's (yardstick only) and the least time the card could take
-     (bytes at 3.35 TB/s or flops at the dtype's dense peak);
+     (bytes at 3.35 TB/s or flops at the dtype's dense peak); and rmsnorm's
+     backward kernel (`rmsnorm_bwd`: dx and dgamma) against `ref.rmsnorm_bwd`
+     at the CPU tests' shapes, the training step's (2048, 4096), rows
+     around its stage-1 grid, d = 37, d = 6144 and the scalar path, two
+     launches bit-equal, timed at (2048, 4096) bf16 and (64, 4096) f32
+     beside the forward plus backward of `F.rms_norm` through autograd
+     less its forward;
   4. models on the card (kernels) against the same weights on the CPU (plain
      path), f32, logits within 2e-3 and greedy tokens equal: the smoke size
      of every dense and vlm arch (seeded non-zero QKV biases and gammas),
@@ -45,7 +51,10 @@ Phases, each of which must pass or the script exits non-zero:
      zamba2-7b at full width cut to 7 layers (dh = 112 in the f32 kernels)
      and seamless-m4t at full width cut to 2 + 2 layers; where a pick of the
      router differs between card and CPU, the check names the token and the
-     experts;
+     experts; then one train step of llama2-7b at full width cut to 2
+     layers, f32, batch 2 x 64, remat on, the same weights on the card and
+     the CPU: the loss within 2e-3, every gradient leaf within 2e-4 of its
+     largest magnitude, and the losses of 3 AdamW steps within 2e-3;
   5. the main paths at full width and depth, bf16, random weights from a
      seed, each with the launch counts set to 0 just before it: llama2-7b
      and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
@@ -79,7 +88,20 @@ Phases, each of which must pass or the script exits non-zero:
      beside the card line, and checks that every sweep point scored a job,
      every satisfaction lies in [0, 1], every capacity is finite and no
      larger than the largest rate swept, and that the measured callable
-     gives prefill + decode at 15/15. Capacities are findings, not checks.
+     gives prefill + decode at 15/15. Capacities are findings, not checks;
+  7. training at full width: llama2-7b, bf16, 16 of its 32 layers (3.50 B
+     parameters, 42 GB of weights, gradients and moments), batch 4 x 512,
+     remat on, 10 steps of `train_loop` on `SyntheticLM` with the launch
+     counts set to 0 just before: wall time a step (synchronised) split
+     into forward + backward and the optimizer, tokens/s, the model-flop
+     share of 989 TFLOP/s, peak device memory, and a profiled step's
+     device-busy share by kernel group. It checks every loss and gradient
+     norm finite, the last loss below the first, the launches (4L + 1
+     rmsnorm and 2L + 1 rmsnorm_bwd a step, no attention kernel: training
+     takes naive attention, neither package has a flash backward), and a
+     checkpoint round trip on the card (llama2-7b smoke, bf16, through
+     `train_loop`: the restored state bit-equal to the saved one, the
+     resumed run's losses and weights equal to a straight run's).
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -125,10 +147,21 @@ RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 
                   # mLSTM inner norm, seamless-m4t's d_model
                   (8, 3584), (512, 3584), (8, 7168), (512, 7168), (8, 2048), (15, 4096),
                   (8, 1024), (512, 1024)]
+# rmsnorm's backward: the CPU tests' shapes, the training step's (2048, 4096)
+# and (64, 4096), rows around its stage-1 grid (2 CTAs per SM: 264 on 132
+# SMs) and around the forward plan's regime threshold (528), d = 37 and
+# nemotron-4-15b's d = 6144
+RMSNORM_BWD_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (64, 4096), (2048, 4096),
+                      (263, 4096), (264, 4096), (265, 4096), (528, 4096), (529, 4096),
+                      (15, 37), (8, 6144), (600, 6144)]
 MODEL_TOL = 2e-3
+GRAD_TOL = 2e-4  # each gradient leaf, against its largest magnitude
 ENC_FRAMES = 10  # encoder frames of the enc-dec card-vs-CPU checks
 TPU_KERNELS = {  # the Pallas function each kernel replaces
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+    # no Pallas backward: the reference differentiates its plain rms_norm, whose
+    # forward on the TPU is the rmsnorm kernel
+    "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:27",
     "flash_attention": "src/repro/kernels/flash_attention.py:94",
     "decode_attention": "src/repro/kernels/decode_attention.py:86",
 }
@@ -329,14 +362,15 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention, decode_splits
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plan, vector_path
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_plan, vector_path
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
 
-    worst = {"rmsnorm": 0.0, "flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {"rmsnorm": 0.0, "rmsnorm_bwd": 0.0, "flash_attention": 0.0,
+             "decode_attention": 0.0}
     n_checks = 0
 
     # --- correctness sweep: the CPU tests' shapes plus the main path's ----
@@ -370,6 +404,27 @@ def phase_kernels(torch, timer):
                                f"rmsnorm {what} {dtype} gamma {g.dtype}")
             worst["rmsnorm"] = max(worst["rmsnorm"], err)
             n_checks += 1
+            # the backward on the same rows (scalar path, strided rows)
+            dy = randn(tuple(x.shape), dtype)
+            for got, want, part in zip(rmsnorm_bwd(x, g, dy), ref.rmsnorm_bwd(x, g, dy),
+                                       ("dx", "dgamma")):
+                err = assert_close(torch, got, want, dtype,
+                                   f"rmsnorm_bwd {part} {what} {dtype} gamma {g.dtype}")
+                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
+                n_checks += 1
+        for shape in RMSNORM_BWD_SHAPES:
+            x, dy = randn(shape, dtype), randn(shape, dtype)
+            for g in (1.0 + 0.1 * randn(shape[-1:], "float32"),
+                      1.0 + 0.1 * randn(shape[-1:], dtype)):
+                out = rmsnorm_bwd(x, g, dy)
+                for got, want, part in zip(out, ref.rmsnorm_bwd(x, g, dy), ("dx", "dgamma")):
+                    err = assert_close(torch, got, want, dtype,
+                                       f"rmsnorm_bwd {part} {shape} {dtype} gamma {g.dtype}")
+                    worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
+                    n_checks += 1
+                again = rmsnorm_bwd(x, g, dy)  # no atomics: the same bits
+                check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                      f"rmsnorm_bwd {shape} {dtype}: two launches differ")
         for B, H, K, Sq, Sk, dh in [(1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32),
                                      (1, 4, 1, 40, 72, 16), (1, 2, 2, 17, 33, 16),
                                      (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128),
@@ -482,14 +537,19 @@ def phase_kernels(torch, timer):
     # --- timing at the main path's shapes (bf16) ---------------------------
     rows = []
 
-    def row(name, shape, fn, plain, library, nbytes, flops, errfn):
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    def row(name, shape, fn, plain, library, nbytes, flops, errfn, dtype="bfloat16",
+            peak="bfloat16"):
+        """`library` is a callable, or a float already measured; `peak`: the
+        dtype whose peak rate bounds the operations."""
+        b_ms, b_by = bound(nbytes, flops, peak)
         r = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": TPU_KERNELS[name], "shape": shape, "dtype": "bfloat16",
+            "source": "src/repro_torch/csrc/rmsnorm.cu" if name == "rmsnorm_bwd"
+            else f"src/repro_torch/csrc/{name}.cu",
+            "replaces": TPU_KERNELS[name], "shape": shape, "dtype": dtype,
             "ms": timer(fn), "plain_ms": timer(plain),
-            "library_ms": timer(library) if library else None,
+            "library_ms": (library if isinstance(library, float) else
+                           timer(library) if library else None),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errfn(),
         }
         rows.append(r)
@@ -517,6 +577,26 @@ def phase_kernels(torch, timer):
         row("rmsnorm", f"({n}, {d})", lambda: rmsnorm(x, g), lambda: ref.rmsnorm(x, g),
             rms_lib and (lambda: rms_lib(x, (d,), g, 1e-5)), 2 * (2 * n * d) + 2 * d, 4.0 * n * d,
             lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
+
+    # rmsnorm's backward at the training step's rows: llama2-7b's 4 x 512 tokens
+    # in bf16 (the full-width run) and 64 rows in f32. Bound: x and dy read, dx
+    # written, gamma read and dgamma written once (the f64 workspace of the
+    # two stages is the kernel's own traffic, not the function's); ~12 f32
+    # operations an element at the f32 peak. Library: F.rms_norm's forward
+    # and backward through autograd, less its forward.
+    for n, d, dtype in ((2048, 4096, "bfloat16"), (64, 4096, "float32")):
+        x, dy = randn((n, d), dtype), randn((n, d), dtype)
+        g = 1.0 + 0.1 * randn((d,), dtype)
+        lib = None
+        if rms_lib:
+            xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+            fwd_bwd = timer(lambda: torch.autograd.grad(rms_lib(xr, (d,), gr, 1e-5), (xr, gr), dy))
+            lib = fwd_bwd - timer(lambda: rms_lib(x, (d,), g, 1e-5))
+        itemsize = x.element_size()
+        row("rmsnorm_bwd", f"({n}, {d})", lambda: rmsnorm_bwd(x, g, dy),
+            lambda: ref.rmsnorm_bwd(x, g, dy), lib, 3 * n * d * itemsize + 2 * d * itemsize,
+            12.0 * n * d, lambda: max(max_err(a, b) for a, b in zip(
+                rmsnorm_bwd(x, g, dy), ref.rmsnorm_bwd(x, g, dy))), dtype=dtype, peak="float32")
 
     dh = 128
     # llama2-7b (K = H): Table-I prompt, calibration prompt, operations-bound;
@@ -814,6 +894,73 @@ def ring_card_vs_cpu(torch, W=8, T=20):
         f"logits max|err| {worst:.3g} (<= {MODEL_TOL})")
 
 
+def grads_of(torch, model, params, batch):
+    """(loss, {name: gradient}) of one batch, parameters requiring grad."""
+    loss, _ = model.loss(params, batch)
+    names, leaves = zip(*params.named_parameters())
+    return float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def train_card_vs_cpu(torch, B=2, S=64, steps=3):
+    """One train step of llama2-7b at full width cut to 2 layers, f32, remat
+    on, the same weights (norm gammas seeded off 1) on the card (kernels:
+    rmsnorm and its backward) and on the CPU (plain): the loss within
+    MODEL_TOL, every gradient leaf within GRAD_TOL of its largest magnitude,
+    then `steps` AdamW steps on both with their losses within MODEL_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, adamw_init,
+                                      make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2, dtype="float32")
+    model = build_model(cfg, RuntimeFlags(remat=True))
+    p_cpu = model.init(seed=0, device="cpu")
+    perturb(torch, p_cpu, seed=8)
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    for p in (p_cpu, p_gpu):
+        p.requires_grad_(True)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=4))
+    batches = [{k: torch.from_numpy(v) for k, v in data.batch(i).items()} for i in range(steps)]
+    batch, gpu_batch = batches[0], {k: v.cuda() for k, v in batches[0].items()}
+    ops.reset_launches()
+    loss_g, grads_g = grads_of(torch, model, p_gpu, gpu_batch)
+    torch.cuda.synchronize()
+    launched = dict(ops.LAUNCHES)
+    loss_c, grads_c = grads_of(torch, model, p_cpu, batch)
+    L = cfg.n_layers
+    check(launched["rmsnorm"] == 4 * L + 1 and launched["rmsnorm_bwd"] == 2 * L + 1
+          and launched["flash_attention"] == 0,
+          f"train step launches {launched} != {4 * L + 1} rmsnorm, {2 * L + 1} rmsnorm_bwd")
+    check(abs(loss_g - loss_c) <= MODEL_TOL, f"train step: loss card {loss_g} vs CPU {loss_c}")
+    worst, worst_name = 0.0, ""
+    for name, gc in grads_c.items():
+        err = max_err(grads_g[name].cpu(), gc) / max(float(gc.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    check(worst <= GRAD_TOL, f"train step: gradient {worst_name} differs by {worst:.3g} of its "
+          f"largest magnitude > {GRAD_TOL}")
+    del grads_g, grads_c
+    opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+    step = make_train_step(model, opt)
+    states = [adamw_init(p_cpu), adamw_init(p_gpu)]
+    losses = []
+    for b in batches:  # a new batch of the synthetic stream each step
+        _, states[0], m_c = step(p_cpu, states[0], b)
+        _, states[1], m_g = step(p_gpu, states[1], {k: v.cuda() for k, v in b.items()})
+        losses.append((float(m_c["loss"]), float(m_g["loss"])))
+    diff = max(abs(a - b) for a, b in losses)
+    check(diff <= MODEL_TOL, f"train steps: losses card vs CPU {losses}")
+    say(f"train step, llama2-7b full width, 2 layers, f32, batch {B} x {S}, remat: loss card "
+        f"{loss_g:.6f} vs CPU {loss_c:.6f}; worst gradient leaf {worst_name} {worst:.3g} of its "
+        f"largest magnitude (<= {GRAD_TOL}); launches a step {launched}; {steps} AdamW steps, "
+        f"losses (CPU, card) {losses}, max diff {diff:.3g} (<= {MODEL_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del p_gpu, states
+    torch.cuda.empty_cache()
+
+
 def phase_smoke_model(torch):
     from repro_torch.configs import get_config
 
@@ -834,6 +981,7 @@ def phase_smoke_model(torch):
         label = f"{arch} full width, " + ", ".join(f"{k}={n}" for k, n in cut.items())
         card_vs_cpu(torch, label, cfg, True, n_reqs=3, new=4)
         say(f"{label}: {time.perf_counter() - t0:.1f} s")
+    train_card_vs_cpu(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -940,8 +1088,8 @@ def check_launch_identity(arch, cfg, n, fwd):
     family runs launched at least once."""
     (r_p, a_p), (r_d, a_d) = per_forward(cfg)
     P, D = fwd["prefill"], fwd["decode"]
-    want = {"rmsnorm": r_p * P + r_d * D, "flash_attention": a_p * P,
-            "decode_attention": a_d * D}
+    want = {"rmsnorm": r_p * P + r_d * D, "rmsnorm_bwd": 0,  # serving builds no graph
+            "flash_attention": a_p * P, "decode_attention": a_d * D}
     check(n == want, f"{arch}: launches {n} != {want} predicted for {P} prefills and {D} "
           f"decode steps ({r_p} rmsnorm + {a_p} flash per prefill, {r_d} rmsnorm + {a_d} "
           "decode_attention per step)")
@@ -1137,6 +1285,210 @@ def phase_capacity(cal, card):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 512, 10  # of llama2-7b's 32 layers
+
+
+def train_reckoning(cfg, params, B, S):
+    """The step's work from its shapes: model flops (6 N T for the matmul
+    parameters, every one but the embedding, a gather; attention over the
+    causal half), the flops issued (remat runs each block's forward again;
+    naive attention computes the full (S, S) square), and the bytes the
+    AdamW pass must move (22 a parameter: bf16 p and g read, p written, f32
+    mu and nu read and written)."""
+    T, L = B * S, cfg.n_layers
+    n = sum(p.numel() for p in params.parameters())
+    n_mm = n - params.embed.numel()
+    n_blocks = sum(p.numel() for p in params.layers.parameters())
+    attn = 2 * 2 * B * cfg.n_heads * S * S * cfg.head_dim  # QK^T and PV, one layer's forward
+    return {
+        "params": n,
+        "model_flops": 6 * n_mm * T + 3 * L * attn / 2,
+        "issued_flops": 6 * n_mm * T + 2 * n_blocks * T + 4 * L * attn,
+        "adamw_bytes": 22 * n,
+    }
+
+
+@contextlib.contextmanager
+def timed_updates(torch, marks):
+    """While inside, every `adamw_update` of a train step appends its
+    (start, end) host times, the device synchronised at both."""
+    from repro_torch.training import loop
+
+    update = loop.adamw_update
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append((t0, time.perf_counter()))
+        return out
+
+    loop.adamw_update = timed
+    try:
+        yield marks
+    finally:
+        loop.adamw_update = update
+
+
+def phase_training(torch, card):
+    """llama2-7b at full width, bf16, TRAIN_LAYERS of its 32 layers, batch
+    TRAIN_BATCH x TRAIN_SEQ, remat on: TRAIN_STEPS steps of `train_loop` on
+    `SyntheticLM` with the launch counts set to 0 just before and read just
+    after, then one profiled step and a checkpoint round trip. Returns the
+    train_loop run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, adamw_init,
+                                      adamw_update, make_train_step, train_loop)
+
+    t_phase = time.perf_counter()
+    full = get_config("llama2-7b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    model = build_model(cfg, RuntimeFlags(remat=True))
+    params = model.init(seed=0, device="cuda")
+    work = train_reckoning(cfg, params, B, S)
+    peak = PEAK_FLOPS["bfloat16"]
+    say(f"training llama2-7b full width: {L} of its {full.n_layers} layers, d={cfg.d_model} "
+        f"H={cfg.n_heads} d_ff={cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"{cfg.dtype}, {work['params'] / 1e9:.3f} B params, batch {B} x {S}, remat; reckoning: "
+        f"model {work['model_flops'] / 1e12:.2f} TFLOP, issued {work['issued_flops'] / 1e12:.2f} "
+        f"TFLOP ({work['issued_flops'] / peak * 1e3:.1f} ms at 989 TFLOP/s), AdamW "
+        f"{work['adamw_bytes'] / 1e9:.1f} GB ({work['adamw_bytes'] / HBM_BYTES_PER_S * 1e3:.1f} "
+        f"ms at 3.35 TB/s)")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B)
+    # 3e-4 held (the cosine runs over 1000 steps): at this width 1e-3 and 3e-3
+    # made the loss rise within 10 steps (PERF.md §6)
+    oc = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=1000)
+    marks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # this path's run starts here
+    t0 = time.perf_counter()
+    with timed_updates(torch, marks):
+        params, hist = train_loop(model, dc, oc, n_steps=TRAIN_STEPS, log_every=1, log_fn=say,
+                                  params=params)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    mem = torch.cuda.max_memory_allocated()
+    say(f"launches on the training path: {launches}")
+    want = {"rmsnorm": TRAIN_STEPS * (4 * L + 1), "rmsnorm_bwd": TRAIN_STEPS * (2 * L + 1),
+            "flash_attention": 0, "decode_attention": 0}
+    check(launches == want, f"training launches {launches} != {want} ({TRAIN_STEPS} steps of "
+          f"4L + 1 rmsnorm (forward, remat) and 2L + 1 rmsnorm_bwd, no attention kernel)")
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                           for h in hist), f"non-finite loss or grad norm: {hist}")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+    ends = [t0] + [e for _, e in marks]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    opt_s = [e - b for b, e in marks]
+    steady = step_s[1:]
+    mean_step = sum(steady) / len(steady)
+    mean_opt = sum(opt_s[1:]) / len(steady)
+    say(f"training steps (wall, synchronised): step 0 {step_s[0] * 1e3:.3f} ms (first), steps "
+        f"1-{TRAIN_STEPS - 1} mean {mean_step * 1e3:.3f} ms (min {min(steady) * 1e3:.3f}, max "
+        f"{max(steady) * 1e3:.3f}) = forward + backward {(mean_step - mean_opt) * 1e3:.3f} ms + "
+        f"optimizer {mean_opt * 1e3:.3f} ms; {B * S / mean_step:.1f} tokens/s; model-flop share "
+        f"{work['model_flops'] / mean_step / peak:.4f} and issued-flop share "
+        f"{work['issued_flops'] / mean_step / peak:.4f} of 989 TFLOP/s; optimizer "
+        f"{work['adamw_bytes'] / mean_opt / 1e12:.3f} TB/s of 3.35; peak device memory "
+        f"{mem / 2**30:.2f} GiB; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} (ln V "
+        f"{math.log(cfg.vocab_size):.4f}, stream floor {dc.loss_floor:.4f}); card {card}")
+
+    # one more step under the profiler, with fresh moments (train_loop's are
+    # freed): the loss and gradients profiled apart from the optimizer
+    state = adamw_init(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(dc).batch(TRAIN_STEPS).items()}
+    grads = {}
+    make_train_step(model, oc)(params, state, batch)  # warm both paths
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    groups, n_fb, by_name = _device_time(
+        torch, lambda: grads.update(grads_of(torch, model, params, batch)[1]))
+    one = dict(ops.LAUNCHES)
+    check(one == {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1, "flash_attention": 0,
+                  "decode_attention": 0}, f"one train step's launches {one}")
+    opt, n_opt, opt_names = _device_time(torch, lambda: adamw_update(oc, params, grads, state))
+    fb_ms, opt_ms = sum(groups.values()) / 1e3, sum(opt.values()) / 1e3
+    for k, v in opt_names.items():
+        by_name[k] = by_name.get(k, 0.0) + v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    say(f"training step profile: device busy {fb_ms + opt_ms:.3f} ms "
+        f"({100 * (fb_ms + opt_ms) / (mean_step * 1e3):.1f}% of the {mean_step * 1e3:.3f} ms step): "
+        f"forward + backward {fb_ms:.3f} ms in {n_fb} kernels ("
+        + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in groups.items()
+                    if k not in (ROUTING, RECURRENT, "decode_attention"))
+        + f"), optimizer {opt_ms:.3f} ms in {n_opt} kernels; top kernels "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    say(f"one train step's launches: {one} (4L + 1 = {4 * L + 1}, 2L + 1 = {2 * L + 1})")
+    del params, state, batch, grads, model
+    torch.cuda.empty_cache()
+    checkpoint_round_trip(torch)
+    say(f"phase 7 (training) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def checkpoint_round_trip(torch):
+    """llama2-7b smoke, bf16, on the card through `train_loop`: a straight
+    8-step run; a 4-step run that checkpoints; the checkpoint restored into
+    fresh parameters and moments (bit-equal to the run's parameters, and
+    written again, entry for entry the same bytes); and a run resumed from
+    it to 8 steps, whose losses and weights equal the straight run's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, DataConfig, adamw_init, restore_checkpoint,
+                                      save_checkpoint, train_loop)
+
+    cfg = get_config("llama2-7b", smoke=True)  # bf16
+    model = build_model(cfg)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    quiet = lambda msg: None  # noqa: E731
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="ckpt_"))
+    try:
+        p_a, h_a = train_loop(model, dc, oc, 8, log_every=1, log_fn=quiet,
+                              params=model.init(seed=0))
+        p_b, _ = train_loop(model, dc, oc, 4, ckpt_dir=str(tmp / "run"), ckpt_every=4,
+                            log_fn=quiet, params=model.init(seed=0))
+        fresh = model.init(seed=1)
+        state = adamw_init(fresh)
+        _, step = restore_checkpoint(str(tmp / "run"), (fresh, state))
+        check(step == 4 and int(state["step"]) == 4, f"restored step {step}")
+        check(all(torch.equal(a, b) for a, b in zip(fresh.parameters(), p_b.parameters())),
+              "checkpoint round trip: restored weights differ from the saved run's")
+        save_checkpoint(str(tmp / "again"), 4, (fresh, state))
+        with np.load(tmp / "run" / "ckpt_00000004.npz") as x, \
+                np.load(tmp / "again" / "ckpt_00000004.npz") as y:
+            check(x.files == y.files and all(x[k].tobytes() == y[k].tobytes() for k in x.files),
+                  "checkpoint round trip: the restored state writes other bytes")
+            n_entries = len(x.files)
+        p_c, h_c = train_loop(model, dc, oc, 8, ckpt_dir=str(tmp / "run"), log_every=1,
+                              log_fn=quiet, params=model.init(seed=2))
+        resumed = [h["loss"] for h in h_c]
+        straight = [h["loss"] for h in h_a[4:]]
+        check(resumed == straight, f"resumed losses {resumed} != straight {straight}")
+        check(all(torch.equal(a, b) for a, b in zip(p_c.parameters(), p_a.parameters())),
+              "resumed weights differ from the straight run's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"checkpoint round trip on the card (llama2-7b smoke, bf16): {n_entries} entries "
+        f"restored bit-equal and written again byte-equal; steps 4-7 resumed equal the "
+        f"straight run's losses {straight} and weights, bit for bit")
+
+
 def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
     """Where a decode step's time goes, for the ICC batch (M slots, 15-token
     prompts) and for one sequence over a nearly full cache (a 552-token
@@ -1148,7 +1500,8 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
     from repro_torch.serving import GenRequest, InferenceEngine
 
     prompt = prompt_maker(torch, cfg, torch.Generator().manual_seed(7))
-    shown = {ROUTING: bool(cfg.n_experts), RECURRENT: cfg.family in ("hybrid", "ssm")}
+    shown = {ROUTING: bool(cfg.n_experts), RECURRENT: cfg.family in ("hybrid", "ssm"),
+             "rmsnorm_bwd": False}
     for batch, plen, label in ((M, 15, "ICC batch"), (1, 552, "one long sequence")):
         eng = InferenceEngine(model, params, max_batch=batch, max_seq=Sc, device="cuda",
                               enc_len=ENC_LEN if cfg.n_encoder_layers else 0)
@@ -1160,7 +1513,7 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
         for _ in range(steps):
             eng.step()
         wall = (time.perf_counter() - t0) / steps * 1e3
-        groups, launches = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
+        groups, launches, _ = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
         for rng, want in shown.items():
             check(not want or groups[rng] > 0, f"{cfg.name}: the profile holds no {rng} kernels")
         busy = sum(groups.values()) / steps / 1e3
@@ -1215,6 +1568,8 @@ def _kernel_group(name: str) -> str:
     name = name.lower()
     if "decode_attention" in name:
         return "decode_attention"
+    if "rmsnorm_bwd" in name:
+        return "rmsnorm_bwd"
     if "rmsnorm" in name:
         return "rmsnorm"
     if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "gemv")):
@@ -1230,10 +1585,11 @@ def _range_kernels(e):
 
 
 def _device_time(torch, fn):
-    """Device time (us) by kernel group and the kernel count of fn(), from
-    torch.profiler; the kernels launched inside a range of RANGES form its
-    group, taken out of the groups their names fall in (for RECURRENT only
-    those of "other": its GEMMs and rmsnorm stay where they are)."""
+    """Device time (us) by kernel group, the kernel count of fn() and the
+    device time (us) by kernel name, from torch.profiler; the kernels
+    launched inside a range of RANGES form its group, taken out of the
+    groups their names fall in (for RECURRENT only those of "other": its
+    GEMMs and rmsnorm stay where they are)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1241,9 +1597,9 @@ def _device_time(torch, fn):
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, ROUTING: 0.0,
-              RECURRENT: 0.0, "other": 0.0}
-    launches = 0
+    groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, "rmsnorm_bwd": 0.0,
+              ROUTING: 0.0, RECURRENT: 0.0, "other": 0.0}
+    launches, by_name = 0, {}
     for e in prof.key_averages():
         # a range's own span on the device timeline is not a kernel
         if e.device_type != DeviceType.CUDA or e.key in RANGES:
@@ -1253,6 +1609,7 @@ def _device_time(torch, fn):
             us = e.self_cuda_time_total
         launches += e.count
         groups[_kernel_group(e.key)] += us
+        by_name[e.key] = by_name.get(e.key, 0.0) + us
     for e in prof.events():
         if e.name in RANGES and e.device_type == DeviceType.CPU:
             move_all = RANGES[e.name][2]
@@ -1261,7 +1618,7 @@ def _device_time(torch, fn):
                 if move_all or g == "other":
                     groups[g] -= k.duration
                     groups[e.name] += k.duration
-    return groups, launches
+    return groups, launches, by_name
 
 
 def rmsnorm_sweep(torch, timer):
@@ -1406,6 +1763,8 @@ def main() -> int:
     phase_smoke_model(torch)
     launches, cal = phase_full_width(torch)
     phase_capacity(cal["llama2-7b"], card)
+    for k, v in phase_training(torch, card).items():
+        launches[k] = launches.get(k, 0) + v
 
     seen = set()
     kernels = []

@@ -27,11 +27,20 @@ Decode caches keep the reference's layout as it is, nested dicts included:
 
 Callers hand over numpy arrays (`jax.tree.map(np.asarray, params)`), so this
 module needs no JAX. bf16 crosses as its raw bits through a uint16 view.
+
+The way back: `restack` joins per-layer tensors keyed by the port's names
+(parameters, or the optimizer's moments, which share their keys) along the
+`STACKED` axes into the reference's nested layout, and `export_params` gives
+that tree as numpy (bf16 as its raw bits, uint16), the inverse of
+`convert_params`. `reference_key` maps one port name to its reference leaf
+and index, and `reference_rank` gives that leaf's rank (the optimizer's
+decay rule reads it). `training/checkpoint.py` writes the reference's
+checkpoint format through these.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +50,8 @@ from .models.common import resolve_device
 from .models.encdec import EncDec
 from .models.transformer import Decoder
 
-__all__ = ["to_tensor", "convert_params", "convert_cache", "STACKED"]
+__all__ = ["to_tensor", "to_numpy", "convert_params", "convert_cache", "STACKED",
+           "reference_key", "reference_rank", "restack", "export_params"]
 
 # Subtrees whose leaves carry leading layer axes, and how many.
 STACKED = {"layers": 1, "mamba_groups": 2, "mamba_rest": 1, "mlstm_groups": 2,
@@ -56,6 +66,64 @@ def to_tensor(a: Any, device) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same values; bf16 as its raw bits
+    (a uint16 array: numpy has no bf16 without ml_dtypes)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy()
+    return t.numpy()
+
+
+def reference_key(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """A port parameter name -> (the reference leaf's path, the index along
+    its stacked axes): "layers.3.attn.wq" -> (("layers", "attn", "wq"), (3,)),
+    "final_norm" -> (("final_norm",), ())."""
+    top, *rest = name.split(".")
+    n_axes = STACKED.get(top, 0) if rest else 0
+    return (top, *rest[n_axes:]), tuple(int(i) for i in rest[:n_axes])
+
+
+def reference_rank(name: str, t: torch.Tensor) -> int:
+    """The rank of the reference leaf that `t` (named `name`) is a slice of."""
+    return t.dim() + len(reference_key(name)[1])
+
+
+def restack(named: Mapping[str, torch.Tensor], device="cpu") -> Dict[str, Any]:
+    """Tensors keyed by the port's names -> the reference's nested dict, the
+    per-layer tensors stacked along their leading layer axes, on `device`."""
+    groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], torch.Tensor]] = {}
+    for name, t in named.items():
+        path, idx = reference_key(name)
+        groups.setdefault(path, {})[idx] = t
+    tree: Dict[str, Any] = {}
+    for path, pieces in groups.items():
+        if list(pieces) == [()]:
+            leaf = pieces[()].detach().to(device)
+        else:
+            lead = tuple(max(i[a] for i in pieces) + 1 for a in range(len(next(iter(pieces)))))
+            if sorted(pieces) != list(np.ndindex(*lead)):
+                raise ValueError(f"{'/'.join(path)}: layer indices {sorted(pieces)} are not "
+                                 f"a full {lead} grid")
+            flat = torch.stack([pieces[i].detach().to(device) for i in np.ndindex(*lead)])
+            leaf = flat.reshape(*lead, *flat.shape[1:])
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _map_leaves(fn, tree: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
+def export_params(module: torch.nn.Module) -> Dict[str, Any]:
+    """The port's parameters -> the reference's nested params dict as numpy
+    (bf16 as uint16 raw bits): the inverse of `convert_params`."""
+    return _map_leaves(to_numpy, restack(dict(module.named_parameters())))
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:

@@ -26,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["LAUNCHES", "library", "library_path", "check", "stream_of", "dtype_code",
-           "sm_count", "row_strides", "check_aligned"]
+           "sm_count", "row_strides", "check_aligned", "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,7 +37,8 @@ NVCC_FLAGS = [
 
 # Kernel launches, one count per kernel, raised by each wrapper where it
 # launches its kernel and nowhere else.
-LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
+                            "decode_attention": 0}
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -45,6 +46,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F] + [_I] * 6 + [_P],
+    "rmsnorm_bwd": [_P] * 6 + [_L] * 4 + [_F] + [_I] * 4 + [_P],
     "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
     "decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
 }
@@ -170,4 +172,15 @@ def check_aligned(what: str, data_ptr: int, strides: Sequence[int], itemsize: in
         raise ValueError(
             f"{what} is not 16-byte aligned (base pointer {data_ptr:#x}, strides "
             f"{tuple(strides)} x {itemsize} bytes)"
+        )
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a gradient is being recorded through `tensors`: a kernel's
+    output is a fresh tensor with no `grad_fn`, so autograd would drop the
+    gradient silently. `ops.rmsnorm` is the differentiable entry."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} kernel: an input requires grad and the kernel has no autograd "
+            "node; call it under torch.no_grad() (rmsnorm: use ops.rmsnorm)"
         )

@@ -76,6 +76,7 @@ def decode_attention(
     """One query token per sequence against its cache; returns (B, H, dh)."""
     B, H, dh = q.shape
     Bk, Sc, K, dhk = k.shape
+    _build.refuse_grad("decode_attention", q, k, v)  # no backward, in either package
     if not all(t.is_cuda for t in (q, k, v, kv_pos, pos)):
         raise ValueError("decode_attention kernel: tensors must be on the card")
     if k.shape != v.shape or Bk != B or dhk != dh or H % K:

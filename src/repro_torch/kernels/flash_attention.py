@@ -37,6 +37,7 @@ def flash_attention(
     """Attention over arange positions; returns (B, Sq, H, dh), q's dtype."""
     B, Sq, H, dh = q.shape
     Bk, Sk, K, dhk = k.shape
+    _build.refuse_grad("flash_attention", q, k, v)  # no backward, in either package
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel: tensors must be on the card")
     if k.shape != v.shape or Bk != B or dhk != dh or H % K:

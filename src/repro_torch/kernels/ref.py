@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each computes what its CUDA kernel computes, in the kernel's own layout and
 rounding: f32 scores and softmax, f32 accumulation, one rounding to the
@@ -12,16 +12,19 @@ kernels, these follow the kernels:
 The CPU path of `ops` runs these; `chip_smoke.py` holds each kernel against
 its plain version on the card. `decode_attention_split` is the decode
 kernel's split-and-merge rule written out plainly, for the tests.
+`rmsnorm_bwd` is rmsnorm's gradient written out as a formula, the plain
+version of the backward kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention", "decode_attention", "decode_attention_split", "rmsnorm"]
+__all__ = ["flash_attention", "decode_attention", "decode_attention_split", "rmsnorm",
+           "rmsnorm_bwd"]
 
 NEG_INF = -1e30
 
@@ -140,10 +143,42 @@ def decode_attention_split(
     return (A / L.clamp_min(1e-30)).reshape(B, H, dh).to(q.dtype)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """f32, the kernels' arithmetic; f64 stays f64 (for gradcheck)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm: f32 mean of squares, normalise, round to x's dtype,
     times gamma, round to x's dtype again."""
-    xf = x.float()
+    xf = _wide(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
-    return (y.float() * gamma.float()).to(x.dtype)
+    return (_wide(y) * _wide(gamma)).to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `rmsnorm` for the output's gradient dy: (dx in x's
+    dtype, dgamma in gamma's dtype). In f32, with r = rsqrt(mean(x^2) + eps),
+    xhat = x r and g = dy gamma:
+
+        dx = r (g - xhat mean(g xhat)),   dgamma = sum over rows of dy xhat',
+
+    where xhat' is xhat rounded to x's dtype, as the forward multiplies it.
+    The roundings of the forward are passed through, as the reference's
+    gradient of `.astype` passes them. As the kernel does, the sums are
+    taken in f64 (mean(x^2) and mean(g x) per row, dgamma over rows) and r is
+    the f64 rsqrt rounded once, so the two agree on every rounding of xhat'.
+    """
+    d = x.shape[-1]
+    xf = _wide(x.reshape(-1, d))
+    dyf = _wide(dy.reshape(-1, d))
+    rd = torch.rsqrt((xf.double() ** 2).mean(dim=-1, keepdim=True) + eps)
+    r = rd.to(xf.dtype)
+    xhat = xf * r
+    g = dyf * _wide(gamma)
+    c = ((g.double() * xf.double()).sum(dim=-1, keepdim=True) * rd / d).to(xf.dtype)
+    dx = r * (g - xhat * c)
+    dgamma = (dyf.double() * xhat.to(x.dtype).double()).sum(dim=0)
+    return dx.to(x.dtype).reshape(x.shape), dgamma.to(gamma.dtype)

@@ -1,9 +1,14 @@
-"""RMSNorm on the card: wrapper over `csrc/rmsnorm.cu`.
+"""RMSNorm on the card: wrappers over `csrc/rmsnorm.cu`.
 
-Replaces the Pallas kernel `repro/kernels/rmsnorm.py:rmsnorm`; the plain
-version is `ref.rmsnorm`. One read and one write per element: latency-bound
-at the decode step's few rows, bytes-bound at a long prompt's many.
-`rmsnorm_plan` chooses the kernel's CTA shape from the row count.
+`rmsnorm` replaces the Pallas kernel `repro/kernels/rmsnorm.py:rmsnorm`; the
+plain version is `ref.rmsnorm`. One read and one write per element:
+latency-bound at the decode step's few rows, bytes-bound at a long prompt's
+many. `rmsnorm_plan` chooses the kernel's CTA shape from the row count.
+
+`rmsnorm_bwd` is its gradient (plain version `ref.rmsnorm_bwd`): stage 1
+writes dx and a per-CTA f64 partial of dgamma into a workspace, stage 2
+sums the partials. Neither wrapper records a gradient: `ops.RMSNormFn` ties
+the two together for autograd.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ import torch
 
 from . import _build
 
-__all__ = ["rmsnorm", "rmsnorm_plan", "vector_path", "launch", "max_threads", "VPTS"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_plan", "vector_path", "launch", "max_threads",
+           "VPTS"]
 
 VEC_BYTES = 16  # one load or store per thread and vector
 VPTS = (1, 2, 4, 8, 16)  # vectors per thread the kernel is built for
@@ -26,6 +32,8 @@ FEW_ROWS_PER_SM = 4
 FEW_THREADS = 256  # most threads a row gets in the few-rows regime
 MANY_THREADS = 128  # most threads a row gets in the many-rows regime
 MANY_CTA = 256  # threads per CTA in the many-rows regime
+BWD_CTAS_PER_SM = 2  # the backward's stage-1 CTAs (256 threads each) per SM
+BWD_MAX_D = 16384  # the backward's per-CTA f64 partial of dgamma: 128 KB of shared memory
 
 
 def max_threads(vpt: int, vec: bool = True) -> int:
@@ -84,6 +92,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     """x (..., d) on the card, its rows a view of one stride (a slice such
     as x[:, -1] is fine); gamma (d,) of x's dtype or f32. Returns a
     contiguous tensor of x's shape and dtype."""
+    _build.refuse_grad("rmsnorm", x, gamma)
     if not (x.is_cuda and gamma.is_cuda):
         raise ValueError("rmsnorm kernel: tensors must be on the card")
     d = x.shape[-1]
@@ -116,3 +125,42 @@ def launch(rows: torch.Tensor, gamma: torch.Tensor, out: torch.Tensor, eps: floa
     )
     _build.check(err, "rmsnorm")
     _build.LAUNCHES["rmsnorm"] += 1
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `rmsnorm(x, gamma, eps)` for the output's gradient dy
+    (x's shape): (dx, contiguous, x's shape and dtype; dgamma, gamma's
+    dtype). x's rows a view of one stride, as the forward takes them."""
+    _build.refuse_grad("rmsnorm_bwd", x, gamma, dy)
+    if not (x.is_cuda and gamma.is_cuda and dy.is_cuda):
+        raise ValueError("rmsnorm_bwd kernel: tensors must be on the card")
+    d = x.shape[-1]
+    if gamma.shape != (d,) or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd kernel: x {tuple(x.shape)}, gamma "
+                         f"{tuple(gamma.shape)}, dy {tuple(dy.shape)}")
+    if not 1 <= d <= BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd kernel: d={d} not in [1, {BWD_MAX_D}]")
+    if x.stride(-1) != 1 or not gamma.is_contiguous():
+        raise ValueError("rmsnorm_bwd kernel: the d axis and gamma must be contiguous")
+    if dy.dtype != x.dtype or gamma.dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"rmsnorm_bwd kernel: x {x.dtype}, dy {dy.dtype}, gamma {gamma.dtype}")
+    rows = x.view(-1, d)  # raises where the rows are not one stride apart
+    dy_rows = dy.contiguous().view(-1, d)  # an expanded or permuted gradient is copied
+    n = rows.shape[0]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return dx, torch.zeros_like(gamma)
+    dgamma = torch.empty_like(gamma)
+    n_cta = min(n, BWD_CTAS_PER_SM * _build.sm_count(x.device.index))  # none idle
+    ws = torch.empty((n_cta, d), dtype=torch.float64, device=x.device)
+    vec = vector_path(rows, gamma, dx) and dy_rows.data_ptr() % VEC_BYTES == 0
+    err = _build.library().rmsnorm_bwd(
+        rows.data_ptr(), gamma.data_ptr(), dy_rows.data_ptr(), dx.data_ptr(),
+        dgamma.data_ptr(), ws.data_ptr(), n, d, rows.stride(0), dy_rows.stride(0), float(eps),
+        _build.dtype_code(rows, "rmsnorm_bwd"), _build.dtype_code(gamma, "rmsnorm_bwd"),
+        n_cta, int(vec), _build.stream_of(rows),
+    )
+    _build.check(err, "rmsnorm_bwd")
+    _build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dgamma

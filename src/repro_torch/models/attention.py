@@ -7,7 +7,9 @@
               query and KV chunks; the CPU path above `naive_below`, and
               wherever the caller asks for it.
   * pallas  — the flash kernel (`kernels/ops.flash_attention`); what "auto"
-              takes on the card. The name follows the reference's flag.
+              takes on the card when no gradient is recorded. The name
+              follows the reference's flag. The kernel has no backward, so
+              training takes naive or chunked, as the reference does.
 
 GQA is native: q is shaped (B, S, K, G, dh) against KV (B, S, K, dh).
 Optional QKV biases are added after the projections and before RoPE;
@@ -174,8 +176,11 @@ def chunked_attention(
 def attention_core(
     q, k, v, q_pos, k_pos, causal: bool, window: int, rt: RuntimeFlags
 ) -> torch.Tensor:
-    """On the card q_pos/k_pos are arange positions (see decoder_forward)."""
-    impl = rt.attn_impl_for(k.shape[1], q.is_cuda)
+    """On the card q_pos/k_pos are arange positions (see decoder_forward).
+    While a gradient is recorded through q, k or v, "auto" takes the
+    reference's differentiable rule (`RuntimeFlags.attn_impl_for`)."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    impl = rt.attn_impl_for(k.shape[1], q.is_cuda, grad)
     if impl == "pallas":
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     if impl == "chunked":

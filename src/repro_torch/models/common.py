@@ -2,8 +2,10 @@
 `repro/models/common.py`).
 
 Parameters live in `nn.Module`s that mirror the reference's nested dicts
-leaf for leaf; the compute is plain functions on tensors. Forward only: every
-parameter is created with `requires_grad=False`.
+leaf for leaf; the compute is plain functions on tensors. Every parameter is
+created with `requires_grad=False`, so serving builds no autograd graph;
+training turns gradients on (`training.train_loop`), and the dense, vlm and
+moe stacks are differentiable (`Model.loss`).
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ class RuntimeFlags:
     The same fields as the reference's. The port runs `attention_impl` in
     {auto, naive, chunked, pallas} ("pallas" names the flash kernel, as in
     the reference), `window_override` (ring caches), `moe_dispatch`
-    (scatter or einsum, `models/moe.py`) and the chunk lengths of the
-    chunked scans, `mamba_chunk` (`models/mamba2.py`) and `mlstm_chunk`
-    (`models/xlstm.py`). The remat and sharding fields have no effect: the
-    port runs forward only, on one card."""
+    (scatter or einsum, `models/moe.py`), the chunk lengths of the chunked
+    scans, `mamba_chunk` (`models/mamba2.py`) and `mlstm_chunk`
+    (`models/xlstm.py`), and `remat`: while a gradient is recorded, each
+    dense/vlm/moe block is recomputed in the backward
+    (`torch.utils.checkpoint`), as the reference's `jax.checkpoint`. The
+    sharding field has no effect: the port runs on one card."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024
@@ -54,16 +58,21 @@ class RuntimeFlags:
     moe_dispatch: str = "scatter"  # scatter | einsum (Mesh-TF baseline)
     attn_seq_shard: bool = False  # context parallelism over the model axis
 
-    def attn_impl_for(self, seq: int, on_cuda: bool) -> str:
-        """"auto" takes the flash kernel on the card and, on the CPU, the
-        reference's rule: naive up to `naive_below` keys, chunked above."""
+    def attn_impl_for(self, seq: int, on_cuda: bool, grad: bool = False) -> str:
+        """"auto" takes the flash kernel on the card and, on the CPU or while
+        a gradient is recorded (`grad`), the reference's rule: naive up to
+        `naive_below` keys, chunked above. The flash kernel has no backward
+        (nor has the reference's), so "pallas" under a gradient raises."""
         impl = self.attention_impl
         if impl == "auto":
-            if on_cuda:
+            if on_cuda and not grad:
                 return "pallas"
             return "naive" if seq <= self.naive_below else "chunked"
         if impl not in ("naive", "chunked", "pallas"):
             raise ValueError(f"unknown attention_impl {impl!r}")
+        if impl == "pallas" and grad:
+            raise ValueError("attention_impl='pallas': the flash kernel has no backward; "
+                             "train with 'auto', 'naive' or 'chunked'")
         return impl
 
     def window_for(self, cfg_window: int) -> int:
@@ -83,7 +92,8 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def param(shape: Sequence[int], device, dtype) -> nn.Parameter:
-    """An uninitialised inference-only parameter."""
+    """An uninitialised parameter, created without gradients (serving
+    records none; `training.train_loop` turns them on)."""
     return nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype),
                         requires_grad=False)
 

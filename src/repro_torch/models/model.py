@@ -4,6 +4,7 @@ facade over every family.
     model = build_model(get_config("glm4-9b"))
     params = model.init(seed=0)                          # on the card
     logits, aux = model.forward(params, tokens)         # aux: moe router losses
+    loss, aux = model.loss(params, batch)                # train
     logits, cache = model.prefill(params, prompt)        # serving
     logits, cache = model.decode(params, cache, tok, pos)
 
@@ -11,8 +12,10 @@ Inputs are tokens (B, S) int, or frontend embeds (B, S, d) for vlm archs
 (with optional M-RoPE streams `mrope_positions` (3, B, S)); enc-dec archs
 take dict(enc_embeds=(B, S_enc, d), dec_tokens=(B, S_dec)). `params` is a
 `transformer.Decoder` module, or an `encdec.EncDec` for enc-dec archs;
-every call runs on the device its parameters live on. Forward only: the
-loss and training are not ported yet.
+every call runs on the device its parameters live on. `loss` is
+differentiable for the dense, vlm and moe families (`training/` trains
+them); for hybrid, ssm and enc-dec it raises until a later slice audits
+their in-place recurrences and cross caches for autograd.
 """
 
 from __future__ import annotations
@@ -26,9 +29,24 @@ from ..configs.base import ModelConfig
 from . import encdec, transformer
 from .common import RuntimeFlags, resolve_device
 
-__all__ = ["Model", "build_model", "Params"]
+__all__ = ["Model", "build_model", "Params", "cross_entropy_loss"]
 
 Params = Union[transformer.Decoder, encdec.EncDec]
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S) int
+    vocab_size: int,
+) -> torch.Tensor:
+    """Mean token NLL: logsumexp in f32, minus the picked logit rounded
+    through bf16, as the reference's bf16 one-hot contraction computes it
+    (its gradient rounds likewise). The picked logit is gathered, not
+    contracted with a (B, S, V) one-hot. The padded vocab tail is never a
+    label; `vocab_size` is kept for the reference's signature."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - picked.to(torch.bfloat16).float())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +79,22 @@ class Model:
                                          batch["dec_tokens"])
         return transformer.decoder_forward(params, self.cfg, self.rt, batch,
                                            mrope_positions=mrope_positions)
+
+    def loss(self, params: Params, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """Next-token LM loss (+ the moe aux terms, weighted 0.01 and 0.001),
+        as the reference's `Model.loss`. batch: {"tokens" (B, S) or "embeds"
+        (B, S, d), "labels" (B, S)}. Returns (loss, aux)."""
+        if self.cfg.family not in transformer.UNIFORM:  # dense, vlm, moe
+            raise NotImplementedError(
+                f"Model.loss for the {self.cfg.family} family is not ported yet: training "
+                "the hybrid, ssm and enc-dec families is a later slice of the port")
+        inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        logits, aux = transformer.decoder_forward(params, self.cfg, self.rt, inputs)
+        loss = cross_entropy_loss(logits, batch["labels"], self.cfg.padded_vocab)
+        if aux:
+            loss = loss + 0.01 * aux.get("moe_lb_loss", 0.0) \
+                        + 0.001 * aux.get("moe_z_loss", 0.0)
+        return loss, aux
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int, device="cuda", dtype=None,

@@ -8,7 +8,8 @@ per-layer blocks instead (`convert.py` splits the axes):
   * dense / vlm / moe: `layers`, one `Block` (attention + MLP, or `moe`,
     routed experts, `moe.py`) per layer; iRoPE's per-layer RoPE flag is a
     Python `if` per layer, and `decoder_forward` returns the moe router aux
-    losses summed over layers.
+    losses summed over layers. `decoder_forward` is differentiable for
+    these families, each block checkpointed under `RuntimeFlags.remat`.
   * hybrid (zamba2): `mamba_groups` (ng groups of gs `MambaBlock`s), each
     group followed by ONE weight-shared attention + MLP block (`shared`),
     then `mamba_rest` (the rem = L - ng gs remaining Mamba2 blocks).
@@ -42,6 +43,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import Attention, attention_forward, decode_attention, init_attention
@@ -285,16 +287,23 @@ def _attn_block_decode(lp: Block, x, cfg, rt, pos, rope, flat_slot, ck, cv, cach
 def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
                    collect_cache: bool):
     """-> (x, per-layer (k, v) if collect_cache, aux losses summed over
-    layers: zeros-started for moe configs, {} otherwise)."""
+    layers: zeros-started for moe configs, {} otherwise). Under `rt.remat`,
+    while autograd records through the blocks (grad mode on, parameters
+    that require grad), each block keeps only its input and runs again in
+    the backward, as the reference's `jax.checkpoint` around its scanned
+    block."""
     window = rt.window_for(cfg.window)
     rope = _rope_tables(cfg, positions, mrope_positions)
     aux = (dict.fromkeys(("moe_lb_loss", "moe_z_loss"),
                          torch.zeros((), dtype=torch.float32, device=x.device))
            if cfg.n_experts else {})
+    remat = (rt.remat and not collect_cache and torch.is_grad_enabled()
+             and any(p.requires_grad for p in params.layers.parameters()))
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for i, lp in enumerate(params.layers):
-        x, kv, a = _attn_block_apply(lp, x, cfg, rt, positions,
-                                     rope if _uses_rope(cfg, i) else None, window)
+        args = (lp, x, cfg, rt, positions, rope if _uses_rope(cfg, i) else None, window)
+        x, kv, a = (checkpoint(_attn_block_apply, *args, use_reentrant=False) if remat
+                    else _attn_block_apply(*args))
         for name, v in a.items():
             aux[name] = aux[name] + v
         if collect_cache:
@@ -467,7 +476,6 @@ def _stack(params: Decoder, cfg, rt, x, positions, mrope_positions, collect_cach
     return _ssm_stack(params, cfg, rt, x, collect_cache)
 
 
-@torch.no_grad()
 def decoder_forward(
     params: Decoder,
     cfg: ModelConfig,
@@ -477,7 +485,12 @@ def decoder_forward(
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
 ) -> Tuple[torch.Tensor, dict]:
     """Full forward to logits. Returns (logits (B, S, V), aux): the moe
-    router losses summed over layers, {} for the other families."""
+    router losses summed over layers, {} for the other families.
+
+    Differentiable for the dense, vlm and moe families (the training path,
+    `Model.loss`); prefill and decode run under `torch.no_grad()`. The
+    hybrid and ssm stacks update recurrent states in place and are run here
+    without gradients only."""
     positions = _arange_positions(inputs, positions)
     x = embed_inputs(params, cfg, inputs)
     x, _, aux = _stack(params, cfg, rt, x, positions, mrope_positions, collect_cache=False)

@@ -52,7 +52,10 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.launch.capacity", "repro_torch.models.mamba2",
                 "repro_torch.models.xlstm", "repro_torch.models.encdec",
                 "repro_torch.configs.zamba2_7b", "repro_torch.configs.xlstm_1_3b",
-                "repro_torch.configs.seamless_m4t_large_v2"):
+                "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.training",
+                "repro_torch.training.optimizer", "repro_torch.training.data",
+                "repro_torch.training.checkpoint", "repro_torch.training.loop",
+                "repro_torch.launch.train"):
         assert mod in res["imported"]
 
 
@@ -113,6 +116,20 @@ class TestEntryPointsNeedTheCard:
         monkeypatch.setattr(sys, "argv", ["serve"])
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main()
+
+    def test_train_cli(self, no_card):
+        from repro_torch.launch import train
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--steps", "1"])
+
+    def test_train_loop_defaults_to_the_card(self, no_card):
+        from repro_torch.training import AdamWConfig, DataConfig, train_loop
+
+        m = self._model()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_loop(m, DataConfig(vocab_size=m.cfg.vocab_size, seq_len=4, batch_size=1),
+                       AdamWConfig(), n_steps=1, log_fn=lambda s: None)
 
     def test_capacity_cli_measured(self, no_card):
         from repro_torch.launch import capacity

@@ -375,3 +375,59 @@ class TestKernelsOnCard:
             assert vector_path(x.view(-1, n_g), g, out) == (case == "last_token")
             torch.testing.assert_close(out.float(), ref.rmsnorm(x, g).float(),
                                        rtol=CARD_TOLS[dtype], atol=CARD_TOLS[dtype])
+
+
+# rmsnorm's backward: the CPU tests' shapes, the training step's (2048, 4096)
+# and 64-row f32 rows, rows around the stage-1 grid (2 CTAs per SM: 264 on
+# 132 SMs) and the forward plan's regime threshold (528), d = 37 (the scalar
+# path) and d = 6144
+RMSNORM_BWD_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (64, 4096), (2048, 4096),
+                      (263, 4096), (264, 4096), (265, 4096), (528, 4096), (529, 4096),
+                      (15, 37), (8, 6144), (600, 6144)]
+
+
+@pytest.mark.cuda
+class TestRMSNormBackwardOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("shape", RMSNORM_BWD_SHAPES)
+    def test_against_plain_and_bit_equal(self, card, dtype, shape):
+        from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+        t = TORCH[dtype]
+        x = torch.from_numpy(randn(3, shape)).to(card, t)
+        dy = torch.from_numpy(randn(5, shape)).to(card, t)
+        g = torch.from_numpy(1.0 + 0.1 * randn(4, shape[-1:])).to(card)
+        for gamma in (g, g.to(t)):
+            dx, dg = rmsnorm_bwd(x, gamma, dy)
+            rx, rg = ref.rmsnorm_bwd(x, gamma, dy)
+            assert dx.dtype == x.dtype and dg.dtype == gamma.dtype
+            torch.testing.assert_close(dx.float(), rx.float(), rtol=CARD_TOLS[dtype],
+                                       atol=CARD_TOLS[dtype])
+            torch.testing.assert_close(dg.float(), rg.float(), rtol=CARD_TOLS[dtype],
+                                       atol=CARD_TOLS[dtype])
+            dx2, dg2 = rmsnorm_bwd(x, gamma, dy)  # no atomics: the same bits
+            assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
+
+    @pytest.mark.parametrize("case", ["gamma_misaligned", "rows_apart", "last_token", "expanded_dy"])
+    def test_scalar_path_strided_rows_and_autograd(self, card, case):
+        """Both paths and strided x rows, through `ops.RMSNormFn` too."""
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+        d = 4096
+        shape, view = {"gamma_misaligned": ((8, d), lambda a: a),
+                       "rows_apart": ((8, d + 1), lambda a: a[:, :d]),
+                       "last_token": ((4, 15, d), lambda a: a[:, -1]),
+                       "expanded_dy": ((8, d), lambda a: a)}[case]
+        x = view(torch.from_numpy(randn(3, shape)).to(card))
+        off = 1 if case == "gamma_misaligned" else 0
+        g = torch.empty(d + off, device=card)[off:]
+        g.copy_(torch.from_numpy(1.0 + 0.1 * randn(4, (d,))))
+        dy = (torch.ones((), device=card).expand(x.shape) if case == "expanded_dy"
+              else torch.from_numpy(randn(5, tuple(x.shape))).to(card))
+        for a, b in zip(rmsnorm_bwd(x, g, dy), ref.rmsnorm_bwd(x, g, dy)):
+            torch.testing.assert_close(a, b, rtol=TOLS["float32"], atol=TOLS["float32"])
+        xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+        ops.rmsnorm(xr, gr).backward(dy)
+        for a, b in zip((xr.grad, gr.grad), ref.rmsnorm_bwd(x, g, dy)):
+            torch.testing.assert_close(a, b, rtol=TOLS["float32"], atol=TOLS["float32"])
