@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rmsnorm-sweep [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --rmsnorm-bwd-sweep [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --rmsnorm-bwd-profile
     python3 chip_smoke.py --decode-sweep
 
 Phases, each of which must pass or the script exits non-zero:
@@ -13,7 +15,10 @@ Phases, each of which must pass or the script exits non-zero:
      from `cuobjdump -sass` the count of HGMMA (wgmma), UTMALDG (TMA load)
      and LDGSTS (cp.async) instructions per kernel; the bf16 and f16 flash
      kernels must hold HGMMA and UTMALDG at every head dim (16, 32, 64, 112
-     and 128);
+     and 128); for each instantiation of rmsnorm's backward its registers,
+     spills (none may spill) and F2F.F64 (f32 to f64 conversion) count, and
+     every vector instantiation must hold UBLKCP (the TMA bulk copy of its
+     ring);
   3. each kernel against its plain PyTorch version on the card, f32 (2e-5)
      and bf16 (2e-2), at the CPU tests' shapes and the main paths' (for
      rmsnorm also both sides of each regime of `rmsnorm_plan`, wider rows
@@ -31,11 +36,14 @@ Phases, each of which must pass or the script exits non-zero:
      library call's (yardstick only) and the least time the card could take
      (bytes at 3.35 TB/s or flops at the dtype's dense peak); and rmsnorm's
      backward kernel (`rmsnorm_bwd`: dx and dgamma) against `ref.rmsnorm_bwd`
-     at the CPU tests' shapes, the training step's (2048, 4096), rows
-     around its stage-1 grid, d = 37, d = 6144 and the scalar path, two
-     launches bit-equal, timed at (2048, 4096) bf16 and (64, 4096) f32
-     beside the forward plus backward of `F.rms_norm` through autograd
-     less its forward;
+     in f32, bf16 and f16 at the CPU tests' shapes, the training step's
+     (2048, 4096), rows around its grid, the trained widths (d = 5120 to
+     12288), 8192 rows, d = 16384 (one ring stage in f32), d = 37 and the
+     scalar path, two launches bit-equal, one device kernel a call (the
+     profiler's count), timed at (2048, d) bf16 for d = 4096 to 12288,
+     (8192, 4096) bf16 and (64, 4096) f32 beside the forward plus backward
+     of `F.rms_norm` through autograd less its forward. Times are medians
+     of 20 calls, printed with their min and max;
   4. models on the card (kernels) against the same weights on the CPU (plain
      path), f32, logits within 2e-3 and greedy tokens equal: the smoke size
      of every dense and vlm arch (seeded non-zero QKV biases and gammas),
@@ -107,6 +115,14 @@ With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
 in `kernels/rmsnorm.py` comes from; --src times another checkout's package
 with the same timer, such as the parent commit unpacked by `git archive`.
+With --rmsnorm-bwd-sweep it only builds the kernels, prints each backward
+instantiation's F2F.F64 conversions from the SASS, and times the backward's
+plans (threads per CTA and ring stages) against `F.rms_norm`'s backward
+(`rmsnorm_bwd_sweep`), where `rmsnorm_bwd_plan`'s caps come from; --src
+times another checkout's wrapper with the same timer. With
+--rmsnorm-bwd-profile it builds a copy of the backward with clock reads at
+its phase boundaries and prints where a call's time goes
+(`rmsnorm_bwd_profile`).
 With --decode-sweep it only builds the kernels and times decode_attention at
 each head-group size against SDPA (`decode_sweep`), where `head_groups`'s
 rule in `kernels/decode_attention.py` comes from.
@@ -125,6 +141,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -135,7 +153,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
-TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}  # f16: bf16's bound
 # rmsnorm: the CPU tests' shapes, the main path's, rows around 132 SMs and
 # around rmsnorm_plan's regime threshold (4 rows per SM), and wider rows
 # (d_model of 13B- and 70B-class models)
@@ -148,12 +166,21 @@ RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 
                   (8, 3584), (512, 3584), (8, 7168), (512, 7168), (8, 2048), (15, 4096),
                   (8, 1024), (512, 1024)]
 # rmsnorm's backward: the CPU tests' shapes, the training step's (2048, 4096)
-# and (64, 4096), rows around its stage-1 grid (2 CTAs per SM: 264 on 132
-# SMs) and around the forward plan's regime threshold (528), d = 37 and
-# nemotron-4-15b's d = 6144
+# and (64, 4096), rows around its grid (one and two CTAs per SM: 132 and 264
+# on 132 SMs) and around the forward plan's regime threshold (528), d = 37,
+# nemotron-4-15b's d = 6144, the trained widths (llama4-scout's 5120,
+# qwen's 8192, mistral-large-123b's 12288), 8192 rows, and d = 16384 (one
+# ring stage in f32)
 RMSNORM_BWD_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (64, 4096), (2048, 4096),
-                      (263, 4096), (264, 4096), (265, 4096), (528, 4096), (529, 4096),
-                      (15, 37), (8, 6144), (600, 6144)]
+                      (131, 4096), (132, 4096), (133, 4096), (263, 4096), (264, 4096),
+                      (265, 4096), (528, 4096), (529, 4096), (15, 37), (8, 6144), (600, 6144),
+                      (2048, 5120), (2048, 6144), (2048, 8192), (2048, 12288), (8192, 4096),
+                      (8, 16384), (64, 16384)]
+# where the backward is timed: the trained widths at 2048 rows (bf16), 8192
+# rows, and the 64 f32 rows of phase 4's step
+RMSNORM_BWD_TIMED = [(2048, 4096, "bfloat16"), (2048, 5120, "bfloat16"),
+                     (2048, 6144, "bfloat16"), (2048, 8192, "bfloat16"),
+                     (2048, 12288, "bfloat16"), (8192, 4096, "bfloat16"), (64, 4096, "float32")]
 MODEL_TOL = 2e-3
 GRAD_TOL = 2e-4  # each gradient leaf, against its largest magnitude
 ENC_FRAMES = 10  # encoder frames of the enc-dec card-vs-CPU checks
@@ -200,28 +227,51 @@ def phase_card(torch):
 # ---------------------------------------------------------------------------
 
 
-def sass_counts(lib_path):
-    """{kernel label: {op: count}} from `cuobjdump -sass` of the library."""
-    import re
+SASS_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+# rmsnorm's backward kernels by (x dtype, gamma dtype, vectors per thread,
+# path): rmsnorm_bwd_kernel<T, G, VPT, kVec> (and the two stage kernels of
+# older trees, rmsnorm_bwd_rows<T, G, kVec>)
+BWD_NAME = re.compile(r"(rmsnorm_bwd_[a-z]+)I(13__nv_bfloat16|6__half|f)(S\d*_|13__nv_bfloat16|"
+                      r"6__half|f)(?:Li(\d+)E)?Lb([01])E")
 
-    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+
+def bwd_label(mangled: str):
+    """`rmsnorm_bwd_kernel<bf16,bf16,2,vec>` for a backward kernel's mangled
+    name, else None."""
+    m = BWD_NAME.search(mangled)
+    if not m:
+        return None
+    t = SASS_TYPES[m.group(2)]
+    g = SASS_TYPES.get(m.group(3), t)  # a substitution (S1_) repeats x's type
+    return (f"{m.group(1)}<{t},{g}," + (f"{m.group(4)}," if m.group(4) else "")
+            + ("vec>" if m.group(5) == "1" else "scalar>"))
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "UBLKCP", "F2F.F64")
+
+
+def sass_counts(lib_path):
+    """{kernel label: {op: count}} from `cuobjdump -sass` of the library, for
+    each op of SASS_OPS: the instructions whose opcode starts with it."""
+    ops = SASS_OPS
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
     counts, label = {}, None
+    pattern = re.compile(r"\b(?:" + "|".join(re.escape(op) for op in ops) + r")\b")
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:  # ..._kernelI13__nv_bfloat16Li128ELi4EEv... -> kernel<bf16,128,4>
             t = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|6__half|f)L[ij](\d+)E"
                           r"(?:L[ij](\d+)E)?", m.group(1))
-            label = (f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}"
-                     + (f",{t.group(4)}>" if t.group(4) else ">")) if t else m.group(1)
+            label = bwd_label(m.group(1)) or ((
+                f"{t.group(1)}<{SASS_TYPES[t.group(2)]},{t.group(3)}"
+                + (f",{t.group(4)}>" if t.group(4) else ">")) if t else m.group(1))
             counts[label] = dict.fromkeys(ops, 0)
-        elif label is not None:
+        elif label is not None and pattern.search(line):
             for op in ops:
-                if re.search(rf"\b{op}\b", line):
+                if re.search(rf"\b{re.escape(op)}", line):
                     counts[label][op] += 1
     return counts
 
@@ -229,9 +279,7 @@ def sass_counts(lib_path):
 def rmsnorm_registers(log: str):
     """{(x dtype, gamma dtype, vectors per thread, vector path): (registers,
     spill-store bytes)} of the rmsnorm kernels, from ptxas -v in build.log."""
-    import re
-
-    types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    types = SASS_TYPES
     out, key, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*rmsnorm_kernelI(13__nv_bfloat16|6__half|f)"
@@ -251,9 +299,56 @@ def rmsnorm_registers(log: str):
     return out
 
 
-def phase_build():
-    import re
+def bwd_registers(log: str):
+    """{backward kernel label: (registers, spill-store bytes)}, from ptxas -v
+    in build.log."""
+    out, label, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            label = bwd_label(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and label is not None:
+            out[label] = (int(m.group(1)), spill)
+    return out
 
+
+def bwd_elems(label: str) -> int:
+    """Elements a thread takes of a row in one unrolled pass body of the
+    backward kernel labelled `label`: vectors per thread (one where the
+    label has none: the stage kernels of older trees loop over vectors)
+    times elements a vector."""
+    fields = label[label.index("<") + 1:-1].split(",")
+    vpt = int(fields[2]) if len(fields) == 4 else 1
+    return vpt * ((16 // (4 if fields[0] == "f32" else 2)) if fields[-1] == "vec" else 1)
+
+
+def report_bwd(log, counts):
+    """Phase 2's lines for rmsnorm's backward: per instantiation its
+    registers, spills, F2F.F64 conversions (static count in the SASS, with
+    the elements a thread covers in one unrolled pass body; the passes
+    appear several times, `csrc/rmsnorm.cu`) and TMA bulk copies; fails on a
+    spill or a vector instantiation without UBLKCP."""
+    regs = bwd_registers(log) if log else {}
+    bwd = {label: c for label, c in counts.items() if label.startswith("rmsnorm_bwd_kernel<")}
+    check(bwd, "no rmsnorm_bwd_kernel in the library")
+    for label, c in sorted(bwd.items()):
+        r = regs.get(label)
+        say(f"rmsnorm_bwd {label[len('rmsnorm_bwd_kernel'):]}: "
+            + (f"{r[0]} registers, {r[1]} bytes spilled, " if r else "")
+            + f"F2F.F64 {c['F2F.F64']} ({bwd_elems(label)} elements a pass body), "
+            f"UBLKCP {c['UBLKCP']}")
+    spilled = {label: r for label, r in regs.items() if r[1]}
+    check(not spilled, f"rmsnorm_bwd instantiations spill: {spilled}")
+    no_tma = [label for label, c in bwd.items() if label.endswith("vec>") and not c["UBLKCP"]]
+    check(not no_tma, f"vector rmsnorm_bwd kernels without the TMA bulk copy: {no_tma}")
+
+
+def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -279,7 +374,9 @@ def phase_build():
     counts = sass_counts(_build.library_path())
     for label, c in sorted(counts.items()):
         if "attention" in label:
-            say(f"sass {label}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+            say(f"sass {label}: " + ", ".join(f"{op} {c[op]}" for op in
+                                               ("HGMMA", "UTMALDG", "LDGSTS")))
+    report_bwd(log.read_text() if log.is_file() else None, counts)
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     for t in ("bf16", "f16"):  # every width, dh = 112 (zamba2-7b) included
@@ -299,23 +396,26 @@ def phase_build():
 
 
 class Timer:
-    """Mean device ms of one call: CUDA events around each call, the 50 MB
-    L2 flushed before each (the main path streams ~0.4 GB of weights between
+    """Median device ms of one call over `iters` calls (one slow call moves a
+    mean, not the median): CUDA events around each call, the 50 MB L2
+    flushed before each (the main path streams ~0.4 GB of weights between
     two calls of a kernel, so its caller finds L2 cold). A ~1 ms device spin
     before each timed call lets the host enqueue the whole call before the
-    card reaches it, so host overhead never shows as device time."""
+    card reaches it, so host overhead never shows as device time. `spread`
+    holds the last call's (min, max)."""
 
     def __init__(self, torch, iters=20):
         self.torch = torch
         self.iters = iters
         self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+        self.spread = (math.nan, math.nan)
 
     def __call__(self, fn) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(self.iters):
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)  # ~1 ms at the H100's clock
@@ -325,8 +425,9 @@ class Timer:
             fn()
             e.record()
             e.synchronize()
-            total += s.elapsed_time(e)
-        return total / self.iters
+            times.append(s.elapsed_time(e))
+        self.spread = (min(times), max(times))
+        return statistics.median(times)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -347,6 +448,20 @@ def assert_close(torch, out, want, dtype, what):
     return err
 
 
+def device_kernels(torch, fn):
+    """Names of the device kernels (and copies, sets) one call of fn runs,
+    from torch.profiler, after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def decode_positions(torch, B, Sc, lengths):
     """kv_pos (B, Sc) with rows filled 0..len-1 then empty, pos = len - 1."""
     kv_pos = torch.full((B, Sc), -1, dtype=torch.int32)
@@ -362,7 +477,8 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention, decode_splits
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_plan, vector_path
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd, rmsnorm_bwd_plan, rmsnorm_plan,
+                                             vector_path)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -373,7 +489,41 @@ def phase_kernels(torch, timer):
              "decode_attention": 0.0}
     n_checks = 0
 
+    def bwd_checks(dtype):
+        """rmsnorm_bwd against ref.rmsnorm_bwd: dx and dgamma with both gamma
+        dtypes at RMSNORM_BWD_SHAPES, two launches bit-equal; the scalar
+        instantiation (a gamma 2 or 4 bytes off 16-byte alignment, rows d + 1
+        apart, d = 37) and x[:, -1] of (B, S, d) on the vector path."""
+        nonlocal n_checks
+        cases = [(f"{shape}", randn(shape, dtype), g_dtype, 0, None)
+                 for shape in RMSNORM_BWD_SHAPES for g_dtype in ("float32", dtype)]
+        d = 4096
+        cases += [("gamma misaligned", randn((8, d), dtype), "float32", 1, False),
+                  ("gamma misaligned", randn((8, d), dtype), dtype, 1, False),
+                  ("rows d + 1 apart", randn((8, d + 1), dtype)[:, :d], dtype, 0, False),
+                  ("d = 37", randn((15, 37), dtype), dtype, 0, False),
+                  ("x[:, -1] of (4, 15, d)", randn((4, 15, d), dtype)[:, -1], dtype, 0, True)]
+        for what, x, gdt, g_off, vec in cases:
+            n_g = x.shape[-1]
+            g = torch.empty(n_g + g_off, device="cuda", dtype=getattr(torch, gdt))[g_off:]
+            g.copy_(1.0 + 0.1 * randn((n_g,), "float32"))
+            dy = randn(tuple(x.shape), dtype)
+            out = rmsnorm_bwd(x, g, dy)
+            if vec is not None:
+                check(vector_path(x.view(-1, n_g), g, out[0].view(-1, n_g)) == vec,
+                      f"rmsnorm_bwd {what}: expected the {'vector' if vec else 'scalar'} path")
+            for got, want, part in zip(out, ref.rmsnorm_bwd(x, g, dy), ("dx", "dgamma")):
+                err = assert_close(torch, got, want, dtype,
+                                   f"rmsnorm_bwd {part} {what} {dtype} gamma {g.dtype}")
+                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
+                n_checks += 1
+            again = rmsnorm_bwd(x, g, dy)  # no atomics: the same bits
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"rmsnorm_bwd {what} {dtype} gamma {g.dtype}: two launches differ")
+
     # --- correctness sweep: the CPU tests' shapes plus the main path's ----
+    for dtype in ("float32", "bfloat16", "float16"):
+        bwd_checks(dtype)
     for dtype in ("float32", "bfloat16"):
         for shape in RMSNORM_SHAPES:
             x = randn(shape, dtype)
@@ -404,27 +554,6 @@ def phase_kernels(torch, timer):
                                f"rmsnorm {what} {dtype} gamma {g.dtype}")
             worst["rmsnorm"] = max(worst["rmsnorm"], err)
             n_checks += 1
-            # the backward on the same rows (scalar path, strided rows)
-            dy = randn(tuple(x.shape), dtype)
-            for got, want, part in zip(rmsnorm_bwd(x, g, dy), ref.rmsnorm_bwd(x, g, dy),
-                                       ("dx", "dgamma")):
-                err = assert_close(torch, got, want, dtype,
-                                   f"rmsnorm_bwd {part} {what} {dtype} gamma {g.dtype}")
-                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
-                n_checks += 1
-        for shape in RMSNORM_BWD_SHAPES:
-            x, dy = randn(shape, dtype), randn(shape, dtype)
-            for g in (1.0 + 0.1 * randn(shape[-1:], "float32"),
-                      1.0 + 0.1 * randn(shape[-1:], dtype)):
-                out = rmsnorm_bwd(x, g, dy)
-                for got, want, part in zip(out, ref.rmsnorm_bwd(x, g, dy), ("dx", "dgamma")):
-                    err = assert_close(torch, got, want, dtype,
-                                       f"rmsnorm_bwd {part} {shape} {dtype} gamma {g.dtype}")
-                    worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
-                    n_checks += 1
-                again = rmsnorm_bwd(x, g, dy)  # no atomics: the same bits
-                check(all(torch.equal(a, b) for a, b in zip(out, again)),
-                      f"rmsnorm_bwd {shape} {dtype}: two launches differ")
         for B, H, K, Sq, Sk, dh in [(1, 4, 4, 32, 32, 16), (2, 8, 2, 48, 48, 32),
                                      (1, 4, 1, 40, 72, 16), (1, 2, 2, 17, 33, 16),
                                      (1, 32, 32, 15, 15, 128), (1, 32, 32, 512, 512, 128),
@@ -533,6 +662,13 @@ def phase_kernels(torch, timer):
     torch.cuda.synchronize()
     say(f"kernels: {n_checks} kernel-vs-plain checks passed; worst max|err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    # one device kernel a backward call: the cooperative launch, nothing else
+    x, dy = randn((2048, 4096), "bfloat16"), randn((2048, 4096), "bfloat16")
+    g = 1.0 + 0.1 * randn((4096,), "bfloat16")
+    names = device_kernels(torch, lambda: rmsnorm_bwd(x, g, dy))
+    check(len(names) == 1 and "rmsnorm_bwd_kernel" in names[0],
+          f"rmsnorm_bwd at (2048, 4096) ran {len(names)} device kernels: {names}")
+    say(f"rmsnorm_bwd (2048, 4096) bf16: {len(names)} device kernel a call ({names[0][:70]})")
 
     # --- timing at the main path's shapes (bf16) ---------------------------
     rows = []
@@ -547,13 +683,18 @@ def phase_kernels(torch, timer):
             "source": "src/repro_torch/csrc/rmsnorm.cu" if name == "rmsnorm_bwd"
             else f"src/repro_torch/csrc/{name}.cu",
             "replaces": TPU_KERNELS[name], "shape": shape, "dtype": dtype,
-            "ms": timer(fn), "plain_ms": timer(plain),
+            "ms": timer(fn)}
+        spread = timer.spread
+        r.update({
+            "plain_ms": timer(plain),
             "library_ms": (library if isinstance(library, float) else
                            timer(library) if library else None),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errfn(),
-        }
+        })
         rows.append(r)
-        say(f"time {name} {shape}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        lo, hi = spread
+        say(f"time {name} {shape}: kernel {r['ms']:.4f} ms (min {lo:.4f}, max {hi:.4f}), "
+            f"plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms, bound {b_ms:.3g} ms ({b_by}), max|err| {r['max_abs_err']:.3g}")
         return r
@@ -579,12 +720,12 @@ def phase_kernels(torch, timer):
             lambda: max_err(rmsnorm(x, g), ref.rmsnorm(x, g)))
 
     # rmsnorm's backward at the training step's rows: llama2-7b's 4 x 512 tokens
-    # in bf16 (the full-width run) and 64 rows in f32. Bound: x and dy read, dx
-    # written, gamma read and dgamma written once (the f64 workspace of the
-    # two stages is the kernel's own traffic, not the function's); ~12 f32
-    # operations an element at the f32 peak. Library: F.rms_norm's forward
-    # and backward through autograd, less its forward.
-    for n, d, dtype in ((2048, 4096, "bfloat16"), (64, 4096, "float32")):
+    # in bf16 (the full-width run), the other trained widths, 8192 rows, and 64
+    # rows in f32. Bound: x and dy read, dx written, gamma read and dgamma
+    # written once (the f64 workspace is the kernel's own traffic, not the
+    # function's); ~12 f32 operations an element at the f32 peak. Library:
+    # F.rms_norm's forward and backward through autograd, less its forward.
+    for n, d, dtype in RMSNORM_BWD_TIMED:
         x, dy = randn((n, d), dtype), randn((n, d), dtype)
         g = 1.0 + 0.1 * randn((d,), dtype)
         lib = None
@@ -593,7 +734,9 @@ def phase_kernels(torch, timer):
             fwd_bwd = timer(lambda: torch.autograd.grad(rms_lib(xr, (d,), gr, 1e-5), (xr, gr), dy))
             lib = fwd_bwd - timer(lambda: rms_lib(x, (d,), g, 1e-5))
         itemsize = x.element_size()
-        row("rmsnorm_bwd", f"({n}, {d})", lambda: rmsnorm_bwd(x, g, dy),
+        say(f"rmsnorm_bwd plan ({n}, {d}) {dtype}: (threads, vectors per thread, stages, CTAs) "
+            f"= {rmsnorm_bwd_plan(n, d, itemsize, n_sm, gamma_itemsize=itemsize)}")
+        row("rmsnorm_bwd", f"({n}, {d}) {dtype}", lambda: rmsnorm_bwd(x, g, dy),
             lambda: ref.rmsnorm_bwd(x, g, dy), lib, 3 * n * d * itemsize + 2 * d * itemsize,
             12.0 * n * d, lambda: max(max_err(a, b) for a, b in zip(
                 rmsnorm_bwd(x, g, dy), ref.rmsnorm_bwd(x, g, dy))), dtype=dtype, peak="float32")
@@ -1672,6 +1815,174 @@ def rmsnorm_sweep(torch, timer):
         say(line)
 
 
+def rmsnorm_bwd_sweep(torch, timer):
+    """rmsnorm's backward by plan at RMSNORM_BWD_TIMED: the wrapper as it
+    stands (its own plan), `F.rms_norm`'s forward and backward less its
+    forward, the bytes bound, and every plan that caps of 128-1024 threads
+    and 1-8 ring stages give (threads/vectors per thread/stages/CTAs=ms),
+    each checked against the plain version before it is timed; first, each
+    backward kernel's F2F.F64 conversions per element from the SASS. Where
+    the package has no `rmsnorm_bwd_plan` (an older tree, given with --src),
+    only the wrapper and the yardstick are timed."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ref
+
+    mod = importlib.import_module("repro_torch.kernels.rmsnorm")  # the module, not the function
+    plan_fn = getattr(mod, "rmsnorm_bwd_plan", None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"timer floor: {timer(lambda: torch.cuda._sleep(0)):.4f} ms")
+    for label, c in sorted(sass_counts(_build.library_path()).items()):
+        if label.startswith("rmsnorm_bwd_"):
+            say(f"sass {label}: F2F.F64 {c['F2F.F64']} ({bwd_elems(label)} elements a pass "
+                f"body), UBLKCP {c['UBLKCP']}")
+    for n, d, dtype in RMSNORM_BWD_TIMED:
+        t = getattr(torch, dtype)
+        x = torch.randn((n, d), generator=gen, device="cuda").to(t)
+        dy = torch.randn((n, d), generator=gen, device="cuda").to(t)
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(t)
+        itemsize = x.element_size()
+        b_ms, _ = bound(3 * n * d * itemsize + 2 * d * itemsize, 12.0 * n * d, "float32")
+        ms = timer(lambda: mod.rmsnorm_bwd(x, g, dy))
+        lo, hi = timer.spread
+        xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+        lib = (timer(lambda: torch.autograd.grad(F.rms_norm(xr, (d,), gr, 1e-5), (xr, gr), dy))
+               - timer(lambda: F.rms_norm(x, (d,), g, 1e-5)))
+        line = (f"sweep rmsnorm_bwd ({n}, {d}) {dtype}: wrapper {ms:.4f} ms (min {lo:.4f}, "
+                f"max {hi:.4f})")
+        if plan_fn is not None:
+            line += f" at plan {plan_fn(n, d, itemsize, n_sm, gamma_itemsize=itemsize)}"
+        line += f", F.rms_norm backward {lib:.4f} ms, bound {b_ms:.5f} ms; plans"
+        if plan_fn is not None:
+            want = ref.rmsnorm_bwd(x, g, dy)
+            seen = set()
+            for cap in (128, 256, 512, 1024):
+                for stages in (1, 2, 3, 4, 5, 6, 8):
+                    plan = plan_fn(n, d, itemsize, n_sm, gamma_itemsize=itemsize,
+                                   max_threads=cap, max_stages=stages)
+                    if plan in seen:
+                        continue
+                    seen.add(plan)
+                    dx, dgamma = torch.empty_like(x), torch.empty_like(g)
+                    mod.launch_bwd(x, g, dy, dx, dgamma, 1e-5, plan, True)
+                    for got, ok, part in zip((dx, dgamma), want, ("dx", "dgamma")):
+                        assert_close(torch, got, ok, dtype, f"rmsnorm_bwd plan {plan} {part}")
+                    t_ms = timer(lambda: mod.launch_bwd(x, g, dy, dx, dgamma, 1e-5, plan, True))
+                    line += f" {'/'.join(str(p) for p in plan)}={t_ms:.4f}"
+        say(line)
+
+
+# --rmsnorm-bwd-profile: clock reads put into a copy of csrc/rmsnorm.cu at its
+# phase boundaries: (text in the source, code put before it). Each text must
+# occur once, so a changed source fails the profile, never the kernel.
+PROFILE_PROBES = [
+    ("  const double dd = (double)d;\n", "  long long P[12] = {gtime()}, P_c = 0;\n"),
+    ("  {\n    double ss = 0.0, sgx = 0.0;\n", "  P[1] = gtime();\n"),  # row 0 is in
+    ("    if (kVec && ring > 1 && next) {\n", "    P_c = clock64();\n"),
+    ("#pragma unroll\n      for (int j = 0; j < VPT; ++j) {\n        each(",
+     "      P[6] += clock64() - P_c; P_c = clock64();\n"),  # the ring's wait
+    ("    } else {\n#pragma unroll\n      for (int j = 0; j < VPT; ++j)\n        each(",
+     "      P[7] += clock64() - P_c;\n"),  # the fused sweep
+    ("    if (next) reduce(i + 1, ss, sgx);\n", "    P_c = clock64();\n"),
+    ("    // the reduction's barrier is the proof",
+     "    P[8] += clock64() - P_c; P_c = clock64();\n"),  # the reduction
+    ("    s = s1;\n", "    P[9] += clock64() - P_c;\n"),  # the refill
+    ("  // this CTA's partial of dgamma", "  P[2] = gtime();\n"),
+    ("  cooperative_groups::this_grid().sync();\n", "  P[3] = gtime();\n"),
+    ("  // CTA b sums its slice of columns", "  P[4] = gtime();\n"),
+]
+PROFILE_GLOBALS = (
+    "__device__ long long g_prof[4096 * 12];\n"
+    "__device__ __forceinline__ long long gtime() {\n"
+    '  long long v;\n  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));\n  return v;\n}\n'
+    'extern "C" int get_prof(void* h, long long n) {\n'
+    "  return (int)cudaMemcpyFromSymbol(h, g_prof, n);\n}\n")
+PROFILE_STORE = (  # thread 0's record, before the kernel's closing brace
+    "  if (t == 0) {\n    long long* o = g_prof + b * 12;\n"
+    "    for (int k = 0; k < 10; ++k) o[k] = P[k];\n    o[5] = gtime();\n    o[10] = cnt;\n  }\n")
+
+
+def rmsnorm_bwd_profile(torch):
+    """Where a backward call's device time goes, at llama2-7b's training
+    rows (2048, 4096) and at (8192, 4096) bf16, the wrapper's plan: a copy of
+    csrc/rmsnorm.cu with PROFILE_PROBES (globaltimer at the phase
+    boundaries of thread 0 of every CTA, clock64 around its per-row steps) is
+    built apart into build/profile/ and called once, L2 flushed, after a
+    device spin. Prints per CTA (median [min, max]): row 0 in (incl. gamma),
+    the rows, the partial's write, the wait at the grid barrier and the
+    column sums; per row thread 0's cycles waiting on the ring, in the fused
+    sweep, in the reduction (its __syncthreads included) and issuing the
+    refill; and the rows phase's achieved bandwidth (x, dy, dx bytes over
+    the first CTA's start to the last CTA's last row)."""
+    import ctypes
+    import importlib
+
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    mod = importlib.import_module("repro_torch.kernels.rmsnorm")
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    for marker, code in PROFILE_PROBES:
+        check(src.count(marker) == 1, f"profile marker not found once: {marker!r}")
+        src = src.replace(marker, code + marker)
+    src = src.replace('#include "common.cuh"\n', '#include "common.cuh"\n' + PROFILE_GLOBALS)
+    close = src.rindex("}\n", 0, src.index("int launch_bwd("))
+    src = src[:close] + PROFILE_STORE + src[close:]
+    out = ROOT / "build" / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "rmsnorm.cu").write_text(src)
+    (out / "common.cuh").write_text((_build.CSRC / "common.cuh").read_text())
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                            str(out / "libprofile.so"), str(out / "rmsnorm.cu")],
+                           capture_output=True, text=True)
+    check(built.returncode == 0,
+          f"profile build failed: {built.stdout[-3000:]}{built.stderr[-3000:]}")
+    lib = ctypes.CDLL(str(out / "libprofile.so"))
+    lib.rmsnorm_bwd.argtypes = _build._SIGNATURES["rmsnorm_bwd"]
+    lib.get_prof.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def med(a):
+        return f"{np.median(a):.2f} [{a.min():.2f}, {a.max():.2f}]"
+
+    for n, d in ((2048, 4096), (8192, 4096)):
+        x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+        dy = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).bfloat16()
+        plan = mod.rmsnorm_bwd_plan(n, d, 2, n_sm, gamma_itemsize=2)
+        dx, dgamma = torch.empty_like(x), torch.empty_like(g)
+        ws = torch.empty((plan[3], d), dtype=torch.float64, device="cuda")
+        args = (x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+                ws.data_ptr(), n, d, d, d, 1e-5, 1, 1, *plan, 1, _build.stream_of(x))
+        for _ in range(3):
+            _build.check(lib.rmsnorm_bwd(*args), "rmsnorm_bwd (profile)")
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        _build.check(lib.rmsnorm_bwd(*args), "rmsnorm_bwd (profile)")
+        torch.cuda.synchronize()
+        h = np.zeros(4096 * 12, dtype=np.int64)
+        _build.check(lib.get_prof(h.ctypes.data, h.nbytes), "get_prof")
+        h = h.reshape(4096, 12)[:plan[3]]
+        us = (h[:, :6] - h[:, 0].min()) / 1e3
+        rows = max(h[:, 10].max(), 1)
+        bw = 3 * n * d * 2 / ((h[:, 2].max() - h[:, 0].min()) * 1e-9) / 1e12
+        c = np.maximum(h[:, 10] - 1, 1)  # rows after row 0 (the per-row sums)
+        say(f"profile rmsnorm_bwd ({n}, {d}) bf16 plan {plan} ({rows} rows a CTA at most): CTA "
+            f"start {med(us[:, 0])} us, row 0 in {med(us[:, 1] - us[:, 0])}, rows "
+            f"{med(us[:, 2] - us[:, 1])} (last ends at {us[:, 2].max():.2f}), partial "
+            f"{med(us[:, 3] - us[:, 2])}, grid barrier {med(us[:, 4] - us[:, 3])}, columns "
+            f"{med(us[:, 5] - us[:, 4])}, end {us[:, 5].max():.2f} us; thread 0 cycles a row: "
+            f"ring wait {med(h[:, 6] / c)}, fused sweep {med(h[:, 7] / c)}, reduction "
+            f"{med(h[:, 8] / c)}, refill {med(h[:, 9] / c)}; rows phase {bw:.2f} TB/s of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f}")
+
+
 def decode_sweep(torch, timer):
     """decode_attention's time by head-group size, bf16, dh 128: at each
     shape (the ICC batch of 8 rows with 16-30 valid slots, one row of ~560
@@ -1726,6 +2037,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-sweep", action="store_true",
                     help="only build and time rmsnorm's CTA shapes (rmsnorm_sweep)")
+    ap.add_argument("--rmsnorm-bwd-sweep", action="store_true",
+                    help="only build and time rmsnorm_bwd's plans (rmsnorm_bwd_sweep)")
+    ap.add_argument("--rmsnorm-bwd-profile", action="store_true",
+                    help="only build an instrumented copy of rmsnorm_bwd and print where a "
+                         "call's time goes (rmsnorm_bwd_profile)")
     ap.add_argument("--decode-sweep", action="store_true",
                     help="only build and time decode_attention's head groups (decode_sweep)")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -1750,6 +2066,17 @@ def main() -> int:
         _build.library()
         rmsnorm_sweep(torch, Timer(torch))
         say(f"rmsnorm sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+    if args.rmsnorm_bwd_sweep:
+        from repro_torch.kernels import _build
+
+        _build.library()
+        rmsnorm_bwd_sweep(torch, Timer(torch))
+        say(f"rmsnorm_bwd sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+    if args.rmsnorm_bwd_profile:
+        rmsnorm_bwd_profile(torch)
+        say(f"rmsnorm_bwd profile done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
     if args.decode_sweep:
         from repro_torch.kernels import _build

@@ -89,6 +89,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Order this thread's (and, after a barrier, the block's) generic-proxy
+// accesses of shared memory before its next TMA (async-proxy) copy into it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // TMA: one tile of a 4-d tensor map into shared memory, completion reported
 // to `bar` in bytes. Coordinates are innermost first, in elements; rows
 // outside the tensor arrive as zeros.
@@ -99,6 +105,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// TMA bulk copy: `bytes` contiguous bytes global -> shared, completion
+// reported to `bar` in bytes. Both addresses and `bytes` must be multiples
+// of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -5,10 +5,13 @@ plain version is `ref.rmsnorm`. One read and one write per element:
 latency-bound at the decode step's few rows, bytes-bound at a long prompt's
 many. `rmsnorm_plan` chooses the kernel's CTA shape from the row count.
 
-`rmsnorm_bwd` is its gradient (plain version `ref.rmsnorm_bwd`): stage 1
-writes dx and a per-CTA f64 partial of dgamma into a workspace, stage 2
-sums the partials. Neither wrapper records a gradient: `ops.RMSNormFn` ties
-the two together for autograd.
+`rmsnorm_bwd` is its gradient (plain version `ref.rmsnorm_bwd`): one
+cooperative launch in which each CTA streams a contiguous block of rows
+through a ring of shared-memory stages, writes dx and keeps its f64 partial
+of dgamma in registers, and after a grid-wide barrier sums a slice of
+columns over every CTA's partial. `rmsnorm_bwd_plan` chooses the CTA's
+threads, the ring's depth and the grid. Neither wrapper records a gradient:
+`ops.RMSNormFn` ties the two together for autograd.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import torch
 
 from . import _build
 
-__all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_plan", "vector_path", "launch", "max_threads",
-           "VPTS"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_plan", "rmsnorm_bwd_plan", "vector_path", "launch",
+           "launch_bwd", "max_threads", "bwd_max_threads", "bwd_smem", "bwd_row_block",
+           "bwd_col_groups", "VPTS", "BWD_VPTS"]
 
 VEC_BYTES = 16  # one load or store per thread and vector
 VPTS = (1, 2, 4, 8, 16)  # vectors per thread the kernel is built for
@@ -32,8 +36,25 @@ FEW_ROWS_PER_SM = 4
 FEW_THREADS = 256  # most threads a row gets in the few-rows regime
 MANY_THREADS = 128  # most threads a row gets in the many-rows regime
 MANY_CTA = 256  # threads per CTA in the many-rows regime
-BWD_CTAS_PER_SM = 2  # the backward's stage-1 CTAs (256 threads each) per SM
-BWD_MAX_D = 16384  # the backward's per-CTA f64 partial of dgamma: 128 KB of shared memory
+# The backward (`csrc/rmsnorm.cu`, kept equal there). Its caps, chosen from
+# times on an H100 by `chip_smoke.py --rmsnorm-bwd-sweep` (PERF.md, section
+# 6): the most threads a CTA gets where the row allows it, the most ring
+# stages, and the most CTAs an SM holds (a third adds a partial of dgamma
+# to sum and no bandwidth).
+BWD_THREADS = 256
+BWD_STAGES = 3
+BWD_RESIDENT = 2
+BWD_MAX_D = 16384
+BWD_MAX_STAGES = 8  # the kernel's mbarriers, one a stage
+BWD_MAX_ELEMS = 32  # f64 partials of dgamma a thread holds in registers
+BWD_VPTS = {True: (1, 2, 4, 8), False: (1, 2, 4, 8, 16, 32)}  # built, by path
+# Shared memory on an H100 (sm_90): what one block may opt into, what an SM
+# holds, what each resident block reserves beside its own; the kernel's
+# static part (mbarriers, per-warp sums) is 1088 bytes, counted here with room.
+BLOCK_SMEM = 232448
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+BWD_STATIC_SMEM = 2048
 
 
 def max_threads(vpt: int, vec: bool = True) -> int:
@@ -127,6 +148,90 @@ def launch(rows: torch.Tensor, gamma: torch.Tensor, out: torch.Tensor, eps: floa
     _build.LAUNCHES["rmsnorm"] += 1
 
 
+def bwd_max_threads(elems: int) -> int:
+    """The most threads a backward CTA may have at `elems` elements per
+    thread, as the kernel's `__launch_bounds__` (`csrc/rmsnorm.cu:
+    bwd_max_threads`): 64 registers a thread at 1024, 128 at 512."""
+    return 1024 if elems <= 8 else 512
+
+
+def bwd_smem(d: int, itemsize: int, threads: int, stages: int, gamma_itemsize: int = 4) -> int:
+    """Dynamic shared memory of a backward launch, as the kernel's launch
+    computes it: the ring (x and dy rows per stage; the scalar
+    path's one stage, 0 in its plan) and gamma (as it is on the vector path,
+    as f32 on the scalar), or the column sums' buffer (8 bytes a thread) if
+    that is larger."""
+    return max(max(stages, 1) * 2 * d * itemsize + d * gamma_itemsize, 8 * threads)
+
+
+def bwd_resident(threads: int, elems: int, smem: int) -> int:
+    """Backward CTAs an SM holds at once: by threads, by registers at the
+    launch bounds' cap, and by shared memory, at most BWD_RESIDENT. It never
+    exceeds what `cudaOccupancyMaxActiveBlocksPerMultiprocessor` finds,
+    which the kernel's launch checks."""
+    by_threads = 2048 // threads
+    by_registers = bwd_max_threads(elems) // threads
+    by_smem = SM_SMEM // (smem + BWD_STATIC_SMEM + BLOCK_RESERVED_SMEM)
+    return max(0, min(by_threads, by_registers, by_smem, BWD_RESIDENT))
+
+
+@functools.lru_cache(maxsize=4096)  # one entry per (n, d, dtype) a process sees
+def rmsnorm_bwd_plan(n: int, d: int, itemsize: int, n_sm: int, *, vec: bool = True,
+                     gamma_itemsize: int = 0, max_threads: int = BWD_THREADS,
+                     max_stages: int = BWD_STAGES) -> Tuple[int, int, int, int]:
+    """(threads per CTA, vectors per thread, ring stages, CTAs) of the
+    backward for n rows of d elements of `itemsize` bytes on a card of
+    `n_sm` SMs, gamma's elements `gamma_itemsize` bytes (0: x's). A vector is
+    16 bytes on the vector path and one element on the scalar one (`vec`),
+    which has no ring (0 stages) and keeps gamma as f32.
+
+    The fewest vectors per thread under `max_threads` threads (a row too
+    wide for that takes the widest CTA its registers allow), the most
+    stages up to `max_stages` that fit a block's shared memory, and as many
+    CTAs as are resident, at most one per row."""
+    if not 1 <= d <= BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd kernel: d={d} not in [1, {BWD_MAX_D}]")
+    width = VEC_BYTES // itemsize if vec else 1
+    nvec = -(-d // width)
+
+    def threads(vpt: int) -> int:
+        return (-(-nvec // vpt) + 31) // 32 * 32
+
+    fit = [v for v in BWD_VPTS[vec]
+           if v * width <= BWD_MAX_ELEMS and threads(v) <= bwd_max_threads(v * width)]
+    vpt = next((v for v in fit if threads(v) <= max_threads), fit[-1])
+    nt = threads(vpt)
+    g_item = (gamma_itemsize or itemsize) if vec else 4
+    room = BLOCK_SMEM - BWD_STATIC_SMEM - d * g_item
+    stages = min(max_stages, BWD_MAX_STAGES, room // (2 * d * itemsize))
+    if stages < 1:
+        raise ValueError(f"rmsnorm_bwd kernel: a row of d={d} does not fit shared memory")
+    if not vec:
+        stages = 0  # one stage, filled by the threads: no ring
+    resident = bwd_resident(nt, vpt * width, bwd_smem(d, itemsize, nt, stages, g_item))
+    return nt, vpt, stages, min(n, resident * n_sm)
+
+
+def bwd_row_block(b: int, n: int, n_cta: int) -> Tuple[int, int]:
+    """(first row, rows) of CTA b: contiguous blocks in order, sizes
+    differing by at most one, as the kernel takes them."""
+    q, r = divmod(n, n_cta)
+    return b * q + min(b, r), q + (b < r)
+
+
+def bwd_col_groups(d: int, n_cta: int, threads: int) -> Tuple[int, int]:
+    """(columns a CTA sums at once, row groups) of the kernel's sum over the
+    CTAs' partials: thread t takes column t % cw of the chunk and partials
+    t // cw, t // cw + groups, ... in order; the groups' sums are then added
+    in order. cw is the power of two up to 32 that covers the widest slice
+    of columns a CTA owns."""
+    widest = -(-d // n_cta)
+    cw = 1
+    while cw < widest and cw < 32:
+        cw *= 2
+    return cw, threads // cw
+
+
 def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gradient of `rmsnorm(x, gamma, eps)` for the output's gradient dy
@@ -147,20 +252,32 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
         raise TypeError(f"rmsnorm_bwd kernel: x {x.dtype}, dy {dy.dtype}, gamma {gamma.dtype}")
     rows = x.view(-1, d)  # raises where the rows are not one stride apart
     dy_rows = dy.contiguous().view(-1, d)  # an expanded or permuted gradient is copied
-    n = rows.shape[0]
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if n == 0:
+    if rows.shape[0] == 0:
         return dx, torch.zeros_like(gamma)
     dgamma = torch.empty_like(gamma)
-    n_cta = min(n, BWD_CTAS_PER_SM * _build.sm_count(x.device.index))  # none idle
-    ws = torch.empty((n_cta, d), dtype=torch.float64, device=x.device)
     vec = vector_path(rows, gamma, dx) and dy_rows.data_ptr() % VEC_BYTES == 0
+    plan = rmsnorm_bwd_plan(rows.shape[0], d, x.element_size(), _build.sm_count(x.device.index),
+                            vec=vec, gamma_itemsize=gamma.element_size())
+    launch_bwd(rows, gamma, dy_rows, dx.view(-1, d), dgamma, eps, plan, vec)
+    return dx, dgamma
+
+
+def launch_bwd(rows: torch.Tensor, gamma: torch.Tensor, dy_rows: torch.Tensor,
+               dx_rows: torch.Tensor, dgamma: torch.Tensor, eps: float,
+               plan: Tuple[int, int, int, int], vec: bool) -> None:
+    """Launch the backward over `rows` and `dy_rows` (n, d) into `dx_rows`
+    (contiguous) and `dgamma` with an explicit plan; `rmsnorm_bwd` passes
+    `rmsnorm_bwd_plan`'s. The launch refuses a plan that does not cover d,
+    needs more shared memory than a block has or more CTAs than the card
+    holds at once: that raises, nothing falls back."""
+    n, d = rows.shape
+    ws = torch.empty((plan[3], d), dtype=torch.float64, device=rows.device)
     err = _build.library().rmsnorm_bwd(
-        rows.data_ptr(), gamma.data_ptr(), dy_rows.data_ptr(), dx.data_ptr(),
+        rows.data_ptr(), gamma.data_ptr(), dy_rows.data_ptr(), dx_rows.data_ptr(),
         dgamma.data_ptr(), ws.data_ptr(), n, d, rows.stride(0), dy_rows.stride(0), float(eps),
-        _build.dtype_code(rows, "rmsnorm_bwd"), _build.dtype_code(gamma, "rmsnorm_bwd"),
-        n_cta, int(vec), _build.stream_of(rows),
+        _build.dtype_code(rows, "rmsnorm_bwd"), _build.dtype_code(gamma, "rmsnorm_bwd"), *plan,
+        int(vec), _build.stream_of(rows),
     )
     _build.check(err, "rmsnorm_bwd")
     _build.LAUNCHES["rmsnorm_bwd"] += 1
-    return dx, dgamma

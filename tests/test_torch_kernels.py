@@ -378,12 +378,15 @@ class TestKernelsOnCard:
 
 
 # rmsnorm's backward: the CPU tests' shapes, the training step's (2048, 4096)
-# and 64-row f32 rows, rows around the stage-1 grid (2 CTAs per SM: 264 on
-# 132 SMs) and the forward plan's regime threshold (528), d = 37 (the scalar
-# path) and d = 6144
+# and 64-row f32 rows, rows around its grid (one and two CTAs per SM: 132 and
+# 264 on 132 SMs) and the forward plan's regime threshold (528), d = 37 (the
+# scalar path), d = 6144, the trained widths (5120, 8192, 12288), 8192 rows
+# and d = 16384 (one ring stage in f32)
 RMSNORM_BWD_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (64, 4096), (2048, 4096),
-                      (263, 4096), (264, 4096), (265, 4096), (528, 4096), (529, 4096),
-                      (15, 37), (8, 6144), (600, 6144)]
+                      (131, 4096), (132, 4096), (133, 4096), (263, 4096), (264, 4096),
+                      (265, 4096), (528, 4096), (529, 4096), (15, 37), (8, 6144), (600, 6144),
+                      (2048, 5120), (2048, 6144), (2048, 8192), (2048, 12288), (8192, 4096),
+                      (8, 16384), (64, 16384)]
 
 
 @pytest.mark.cuda
@@ -407,6 +410,31 @@ class TestRMSNormBackwardOnCard:
                                        atol=CARD_TOLS[dtype])
             dx2, dg2 = rmsnorm_bwd(x, gamma, dy)  # no atomics: the same bits
             assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
+
+    @pytest.mark.parametrize("case", ["shared_memory", "grid"])
+    def test_refused_plan_raises_without_fallback(self, card, case):
+        """A plan whose ring needs more shared memory than a block has, or
+        whose grid cannot be co-resident, is refused at launch: it raises,
+        counts no launch and writes nothing."""
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.rmsnorm import launch_bwd, rmsnorm_bwd_plan
+
+        n_sm = _build.sm_count(card.index or 0)
+        n, d = 64 * n_sm if case == "grid" else 64, 16384  # grid: a CTA a row, 64 an SM
+        x = torch.zeros((n, d), device=card, dtype=torch.bfloat16)  # never read
+        dy = torch.zeros_like(x)
+        g = torch.ones(d, device=card, dtype=torch.bfloat16)
+        threads, vpt, stages, n_cta = rmsnorm_bwd_plan(n, d, 2, n_sm)
+        plan = ((threads, vpt, 8, n_cta) if case == "shared_memory"  # 8 stages of 64 KB
+                else (threads, vpt, stages, n))
+        dx = torch.full_like(x, float("nan"))
+        dgamma = torch.full_like(g, float("nan"))
+        before = _build.LAUNCHES["rmsnorm_bwd"]
+        with pytest.raises(RuntimeError, match="rmsnorm_bwd"):
+            launch_bwd(x, g, dy, dx, dgamma, 1e-5, plan, True)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["rmsnorm_bwd"] == before
+        assert dx.isnan().all() and dgamma.isnan().all()
 
     @pytest.mark.parametrize("case", ["gamma_misaligned", "rows_apart", "last_token", "expanded_dy"])
     def test_scalar_path_strided_rows_and_autograd(self, card, case):

@@ -1,7 +1,12 @@
 """rmsnorm's CTA shape without a card: `rmsnorm_plan` covers every row
 exactly, stays inside the kernel's launch bounds and takes one CTA per row
 for few rows and several rows per CTA for many; `vector_path` sends
-misaligned or ragged data to the scalar instantiation.
+misaligned or ragged data to the scalar instantiation. The backward's
+`rmsnorm_bwd_plan` covers every width the port trains or serves inside a
+block's shared memory and the launch bounds, its row blocks partition the
+rows in order, and a numpy model of the kernel's summation order of dgamma
+(contiguous row blocks, then row groups of CTAs) agrees with the plain
+version.
 """
 
 import numpy as np
@@ -9,10 +14,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
-    FEW_ROWS_PER_SM, VEC_BYTES, VPTS, max_threads, rmsnorm_plan, vector_path)
+    BLOCK_SMEM, BWD_MAX_ELEMS, BWD_MAX_STAGES, BWD_STATIC_SMEM, BWD_VPTS, FEW_ROWS_PER_SM,
+    VEC_BYTES, VPTS, bwd_col_groups, bwd_max_threads, bwd_resident, bwd_row_block, bwd_smem,
+    max_threads, rmsnorm_bwd_plan, rmsnorm_plan, vector_path)
 
 N_SM = 132  # an H100 SXM
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py's
+# every d_model, head and inner width the port trains or serves
+BWD_WIDTHS = [128, 256, 1024, 2048, 3584, 4096, 5120, 6144, 7168, 8192, 12288, 16384]
 
 
 class TestPlan:
@@ -91,3 +102,112 @@ class TestVectorPath:
         narrow = torch.zeros((15, 37), dtype=torch.bfloat16)
         assert not vector_path(narrow, torch.ones(37, dtype=torch.bfloat16),
                                torch.empty_like(narrow))
+
+
+class TestBackwardPlan:
+    @pytest.mark.parametrize("n,d,itemsize,vec,want", [
+        (2048, 4096, 2, True, (256, 2, 3, 264)),  # llama2-7b's step: 2 CTAs an SM
+        (2048, 12288, 2, True, (384, 4, 3, 132)),  # mistral-large-123b: 1 an SM
+        (64, 4096, 4, True, (256, 4, 3, 64)),  # a CTA a row
+        (15, 37, 2, False, (64, 1, 0, 15)),  # the scalar path: no ring
+    ])
+    def test_main_path(self, n, d, itemsize, vec, want):
+        assert rmsnorm_bwd_plan(n, d, itemsize, N_SM, vec=vec) == want
+
+    @pytest.mark.parametrize("vec", [True, False])
+    @pytest.mark.parametrize("itemsize,gamma_itemsize", [(2, 2), (2, 4), (4, 4)])
+    @pytest.mark.parametrize("d", BWD_WIDTHS + [37])
+    @pytest.mark.parametrize("n", [1, 64, 263, 2048, 8192])
+    def test_covers_row_within_bounds(self, n, d, itemsize, gamma_itemsize, vec):
+        if vec and d == 37:  # not whole 16-byte vectors: the scalar path only
+            return
+        threads, vpt, stages, n_cta = rmsnorm_bwd_plan(n, d, itemsize, N_SM, vec=vec,
+                                                       gamma_itemsize=gamma_itemsize)
+        width = VEC_BYTES // itemsize if vec else 1
+        assert vpt in BWD_VPTS[vec] and vpt * width <= BWD_MAX_ELEMS
+        assert threads * vpt * width >= d  # every column owned
+        assert -(-d // width) > threads * (vpt - 1) or vpt == 1  # no deeper than needed
+        assert threads % 32 == 0 and threads <= bwd_max_threads(vpt * width) <= 1024
+        smem = bwd_smem(d, itemsize, threads, stages, gamma_itemsize if vec else 4)
+        assert smem + BWD_STATIC_SMEM <= BLOCK_SMEM  # 227 KB
+        if vec:
+            assert 1 <= stages <= BWD_MAX_STAGES
+        else:
+            assert stages == 0  # no ring: rows are read from device memory
+        resident = bwd_resident(threads, vpt * width, smem)
+        assert resident >= 1
+        assert 1 <= n_cta == min(n, resident * N_SM)
+
+    @pytest.mark.parametrize("d,itemsize,gamma_itemsize", [(4096, 2, 2), (12288, 2, 2),
+                                                           (12288, 2, 4), (16384, 4, 4)])
+    def test_ring_fills_shared_memory_up_to_its_cap(self, d, itemsize, gamma_itemsize):
+        """The most stages up to the cap: one more would not fit 227 KB."""
+        cap = BWD_MAX_STAGES
+        threads, _, stages, _ = rmsnorm_bwd_plan(2048, d, itemsize, N_SM, max_stages=cap,
+                                                 gamma_itemsize=gamma_itemsize)
+        assert stages == cap or (bwd_smem(d, itemsize, threads, stages + 1, gamma_itemsize)
+                                 + BWD_STATIC_SMEM > BLOCK_SMEM)
+
+    @pytest.mark.parametrize("d", [0, 16385, 32768])
+    @pytest.mark.parametrize("vec", [True, False])
+    def test_width_out_of_range_raises(self, d, vec):
+        with pytest.raises(ValueError, match="not in"):
+            rmsnorm_bwd_plan(8, d, 2, N_SM, vec=vec)
+
+    @pytest.mark.parametrize("n,n_cta", [(1, 1), (7, 7), (263, 132), (263, 64), (2048, 264),
+                                         (2048, 132), (2049, 132), (8192, 264)])
+    def test_row_blocks_partition_rows_in_order(self, n, n_cta):
+        blocks = [bwd_row_block(b, n, n_cta) for b in range(n_cta)]
+        rows = np.concatenate([np.arange(r0, r0 + c) for r0, c in blocks])
+        assert np.array_equal(rows, np.arange(n))  # every row once, CTA b before b + 1
+        sizes = [c for _, c in blocks]
+        assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+
+    @pytest.mark.parametrize("d,n_cta,threads", [(4096, 264, 256), (4096, 132, 512),
+                                                 (37, 15, 64), (128, 2048, 32),
+                                                 (12288, 132, 384)])
+    def test_column_groups_cover_the_widest_slice(self, d, n_cta, threads):
+        cw, groups = bwd_col_groups(d, n_cta, threads)
+        assert cw in (1, 2, 4, 8, 16, 32) and cw * groups == threads
+        assert cw >= min(32, -(-d // n_cta))
+
+
+def model_dgamma(x, gamma, dy, n_cta, threads, eps=1e-5):
+    """dgamma as the kernel sums it: each row's f64 terms dy xhat' (made as
+    the plain version makes them), summed in order over each CTA's row
+    block, then CTA b's partial into row group b % groups, each group in
+    order, then the groups in order; f64 -> f32 -> gamma's dtype."""
+    d = x.shape[-1]
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt((xf.double() ** 2).mean(dim=-1, keepdim=True) + eps).float()
+    terms = (dyf.double() * (xf * r).to(x.dtype).double()).numpy()
+    n = terms.shape[0]
+    parts = []
+    for b in range(n_cta):
+        r0, c = bwd_row_block(b, n, n_cta)
+        parts.append(np.cumsum(terms[r0:r0 + c], axis=0)[-1])  # sequential
+    parts = np.stack(parts)
+    _, groups = bwd_col_groups(d, n_cta, threads)
+    sums = np.stack([np.cumsum(parts[g::groups], axis=0)[-1] if g < n_cta else np.zeros(d)
+                     for g in range(groups)])
+    total = np.cumsum(sums, axis=0)[-1]
+    return torch.from_numpy(total).float().to(gamma.dtype)
+
+
+class TestBackwardSummationOrder:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n", [2048, 263])
+    @pytest.mark.parametrize("n_cta", [1, 64, 132, 264])
+    def test_model_matches_plain(self, n, n_cta, dtype):
+        d = 4096
+        n_cta = min(n, n_cta)
+        rng = np.random.default_rng(n + n_cta)
+        t = getattr(torch, dtype)
+        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(t)
+        dy = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(t)
+        gamma = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(t)
+        threads = rmsnorm_bwd_plan(n, d, x.element_size(), N_SM)[0]
+        got = model_dgamma(x, gamma, dy, n_cta, threads)
+        want = ref.rmsnorm_bwd(x, gamma, dy)[1]
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
