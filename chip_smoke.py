@@ -37,10 +37,12 @@ Phases, each of which must pass or the script exits non-zero:
      (bytes at 3.35 TB/s or flops at the dtype's dense peak); and rmsnorm's
      backward kernel (`rmsnorm_bwd`: dx and dgamma) against `ref.rmsnorm_bwd`
      in f32, bf16 and f16 at the CPU tests' shapes, the training step's
-     (2048, 4096), rows around its grid, the trained widths (d = 5120 to
-     12288), 8192 rows, d = 16384 (one ring stage in f32), d = 37 and the
-     scalar path, two launches bit-equal, one device kernel a call (the
-     profiler's count), timed at (2048, d) bf16 for d = 4096 to 12288,
+     (2048, 4096), rows around its grid, the trained widths (d = 1024 to
+     12288: 1024, 2048, 3584 and 7168 are phase 7's seamless-m4t, xlstm
+     and zamba2 widths), 8192 rows, d = 16384 (one ring stage in f32), d =
+     37 and the scalar path, two launches bit-equal, one device kernel a
+     call (the profiler's count), timed at (2048, d) bf16 for d = 1024 to
+     12288,
      (8192, 4096) bf16 and (64, 4096) f32 beside the forward plus backward
      of `F.rms_norm` through autograd less its forward. Times are medians
      of 20 calls, printed with their min and max;
@@ -59,10 +61,17 @@ Phases, each of which must pass or the script exits non-zero:
      zamba2-7b at full width cut to 7 layers (dh = 112 in the f32 kernels)
      and seamless-m4t at full width cut to 2 + 2 layers; where a pick of the
      router differs between card and CPU, the check names the token and the
-     experts; then one train step of llama2-7b at full width cut to 2
-     layers, f32, batch 2 x 64, remat on, the same weights on the card and
-     the CPU: the loss within 2e-3, every gradient leaf within 2e-4 of its
-     largest magnitude, and the losses of 3 AdamW steps within 2e-3;
+     experts; then one f32 train step, remat on, the same weights on the
+     card and the CPU, of each of llama2-7b (2 layers, batch 2 x 64),
+     zamba2-7b (7 layers: one group of 6 and a remainder layer, 256 tokens
+     in one chunk of the default mamba_chunk 256, where the decay's
+     exponent overflows above the diagonal), xlstm-1.3b (one group of 7
+     mLSTM + 1 sLSTM, 64 tokens) and seamless-m4t (2 + 2 layers, batch 2 x
+     64), all at full width: the rmsnorm and rmsnorm_bwd launches
+     `train_step_launches` derives and no attention kernel, the loss within
+     2e-3, every gradient leaf finite and within 2e-4 of its largest
+     magnitude, and the losses of the AdamW steps (3 for llama2-7b, 1 for
+     the others) within 2e-3;
   5. the main paths at full width and depth, bf16, random weights from a
      seed, each with the launch counts set to 0 just before it: llama2-7b
      and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
@@ -97,19 +106,27 @@ Phases, each of which must pass or the script exits non-zero:
      every satisfaction lies in [0, 1], every capacity is finite and no
      larger than the largest rate swept, and that the measured callable
      gives prefill + decode at 15/15. Capacities are findings, not checks;
-  7. training at full width: llama2-7b, bf16, 16 of its 32 layers (3.50 B
-     parameters, 42 GB of weights, gradients and moments), batch 4 x 512,
-     remat on, 10 steps of `train_loop` on `SyntheticLM` with the launch
-     counts set to 0 just before: wall time a step (synchronised) split
-     into forward + backward and the optimizer, tokens/s, the model-flop
+  7. training at full width, bf16, batch 4 x 512, remat on, AdamW at lr
+     3e-4 from `Model.init(seed=0)`, on `SyntheticLM` through `train_loop`
+     with the launch counts set to 0 just before each run: llama2-7b, 16 of
+     its 32 layers (3.50 B parameters, 42 GB of weights, gradients and
+     moments), 10 steps; zamba2-7b, 39 of its 81 layers (6 groups of 6
+     Mamba2 layers and the shared block, 3 remainder layers; ~3.47 B),
+     xlstm-1.3b, all 48 layers (~3.6 B), and seamless-m4t, 24 + 24 layers
+     (~2.0 B, vocab 256206), 5 steps each, each model freed before the
+     next: wall time a step (synchronised) split into forward + backward
+     and the optimizer beside its bound (model flops at 989 TFLOP/s plus
+     AdamW's 22 bytes a parameter at 3.35 TB/s), tokens/s, the model-flop
      share of 989 TFLOP/s, peak device memory, and a profiled step's
      device-busy share by kernel group. It checks every loss and gradient
-     norm finite, the last loss below the first, the launches (4L + 1
-     rmsnorm and 2L + 1 rmsnorm_bwd a step, no attention kernel: training
-     takes naive attention, neither package has a flash backward), and a
-     checkpoint round trip on the card (llama2-7b smoke, bf16, through
-     `train_loop`: the restored state bit-equal to the saved one, the
-     resumed run's losses and weights equal to a straight run's).
+     norm finite, the last loss below the first, the launches a step
+     (`train_step_launches`: 4L + 1 rmsnorm and 2L + 1 rmsnorm_bwd for
+     llama2-7b and xlstm, 2L + 2ng + 1 + 2 ng gs + 2ng and 2L + 2ng + 1 for
+     zamba2, 2 (2Le + 3L) + 2 and 2Le + 3L + 2 for seamless; no attention
+     kernel: training takes naive attention, neither package has a flash
+     backward), and a checkpoint round trip on the card (llama2-7b smoke,
+     bf16, through `train_loop`: the restored state bit-equal to the saved
+     one, the resumed run's losses and weights equal to a straight run's).
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -169,18 +186,23 @@ RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 
 # and (64, 4096), rows around its grid (one and two CTAs per SM: 132 and 264
 # on 132 SMs) and around the forward plan's regime threshold (528), d = 37,
 # nemotron-4-15b's d = 6144, the trained widths (llama4-scout's 5120,
-# qwen's 8192, mistral-large-123b's 12288), 8192 rows, and d = 16384 (one
-# ring stage in f32)
+# qwen's 8192, mistral-large-123b's 12288; phase 7's seamless-m4t 1024,
+# xlstm-1.3b 2048, zamba2-7b 3584 and its Mamba2 inner 7168), 8192 rows, and
+# d = 16384 (one ring stage in f32)
 RMSNORM_BWD_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (64, 4096), (2048, 4096),
                       (131, 4096), (132, 4096), (133, 4096), (263, 4096), (264, 4096),
                       (265, 4096), (528, 4096), (529, 4096), (15, 37), (8, 6144), (600, 6144),
                       (2048, 5120), (2048, 6144), (2048, 8192), (2048, 12288), (8192, 4096),
-                      (8, 16384), (64, 16384)]
+                      (8, 16384), (64, 16384), (2048, 1024), (2048, 2048), (2048, 3584),
+                      (2048, 7168)]
 # where the backward is timed: the trained widths at 2048 rows (bf16), 8192
-# rows, and the 64 f32 rows of phase 4's step
+# rows, and the 64 f32 rows of phase 4's step; then phase 7's hybrid, ssm and
+# enc-dec widths at 2048 rows (bf16)
 RMSNORM_BWD_TIMED = [(2048, 4096, "bfloat16"), (2048, 5120, "bfloat16"),
                      (2048, 6144, "bfloat16"), (2048, 8192, "bfloat16"),
-                     (2048, 12288, "bfloat16"), (8192, 4096, "bfloat16"), (64, 4096, "float32")]
+                     (2048, 12288, "bfloat16"), (8192, 4096, "bfloat16"), (64, 4096, "float32"),
+                     (2048, 1024, "bfloat16"), (2048, 2048, "bfloat16"),
+                     (2048, 3584, "bfloat16"), (2048, 7168, "bfloat16")]
 MODEL_TOL = 2e-3
 GRAD_TOL = 2e-4  # each gradient leaf, against its largest magnitude
 ENC_FRAMES = 10  # encoder frames of the enc-dec card-vs-CPU checks
@@ -1038,26 +1060,66 @@ def ring_card_vs_cpu(torch, W=8, T=20):
 
 
 def grads_of(torch, model, params, batch):
-    """(loss, {name: gradient}) of one batch, parameters requiring grad."""
+    """(loss, {name: gradient}) of one batch, parameters requiring grad; a
+    leaf the loss never reads (xlstm's sLSTM `ffn_norm`, also unread in the
+    reference) gets zeros, as in `make_train_step`."""
     loss, _ = model.loss(params, batch)
     names, leaves = zip(*params.named_parameters())
-    return float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, leaves)))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return float(loss.detach()), dict(zip(names, grads))
 
 
-def train_card_vs_cpu(torch, B=2, S=64, steps=3):
-    """One train step of llama2-7b at full width cut to 2 layers, f32, remat
-    on, the same weights (norm gammas seeded off 1) on the card (kernels:
-    rmsnorm and its backward) and on the CPU (plain): the loss within
-    MODEL_TOL, every gradient leaf within GRAD_TOL of its largest magnitude,
-    then `steps` AdamW steps on both with their losses within MODEL_TOL."""
+def train_step_launches(cfg):
+    """(rmsnorm, rmsnorm_bwd) launches of one train step under remat: the
+    forward's norms, again those of every checkpointed block or group as
+    the backward recomputes it, and one backward a forward norm. Dense,
+    vlm, moe and ssm run 2 norms a block (xlstm: the block's and the
+    mLSTM's or sLSTM's inner one), all checkpointed: 4L + 1 and 2L + 1.
+    zamba2 adds the shared block's 2 at each of its ng applications and
+    recomputes only the groups: 2L + 2ng + 1 + 2 ng gs + 2ng and 2L + 2ng
+    + 1. Enc-dec: 2 an encoder layer, 3 a decoder layer and 2 final norms,
+    every layer recomputed: 2 (2Le + 3L) + 2 and 2Le + 3L + 2."""
+    L = cfg.n_layers
+    if cfg.n_encoder_layers:
+        fwd = 2 * cfg.n_encoder_layers + 3 * L + 2
+        return 2 * fwd - 2, fwd
+    if cfg.family == "hybrid":
+        gs = cfg.shared_attn_every
+        ng = L // gs
+        fwd = 2 * L + 2 * ng + 1
+        return fwd + 2 * ng * gs + 2 * ng, fwd
+    return 4 * L + 1, 2 * L + 1
+
+
+# phase 4's train steps: (arch, fields replaced on the full config, batch, tokens, AdamW
+# steps). Full widths, depth cut, f32, remat on, card against CPU.
+TRAIN_CHECKS = [
+    ("llama2-7b", {"n_layers": 2}, 2, 64, 3),
+    # one group of 6 Mamba2 layers and the shared block, then a remainder layer;
+    # 256 tokens in one chunk of the default mamba_chunk = 256: the decay whose
+    # exponent overflows above the diagonal (masked before exp)
+    ("zamba2-7b", {"n_layers": 7}, 1, 256, 1),
+    ("xlstm-1.3b", {"n_layers": 8}, 1, 64, 1),  # one group: 7 mLSTM blocks + the sLSTM
+    ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2}, 2, 64, 1),
+]
+
+
+def train_card_vs_cpu(torch, arch, cut, B, S, steps):
+    """One train step of `arch` at full width, depth cut to `cut`, f32,
+    remat on, the same weights (norm gammas seeded off 1) on the card
+    (kernels: rmsnorm and its backward) and on the CPU (plain): the launches
+    `train_step_launches` derives (no attention kernel), the loss within
+    MODEL_TOL, every gradient leaf finite and within GRAD_TOL of its largest
+    magnitude, then `steps` AdamW steps on both with their losses within
+    MODEL_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import RuntimeFlags, build_model
     from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, adamw_init,
-                                      make_train_step)
+                                      make_train_step, model_batch)
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
     model = build_model(cfg, RuntimeFlags(remat=True))
     p_cpu = model.init(seed=0, device="cpu")
     perturb(torch, p_cpu, seed=8)
@@ -1065,25 +1127,28 @@ def train_card_vs_cpu(torch, B=2, S=64, steps=3):
     for p in (p_cpu, p_gpu):
         p.requires_grad_(True)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=4))
-    batches = [{k: torch.from_numpy(v) for k, v in data.batch(i).items()} for i in range(steps)]
+    batches = [model_batch(model, {k: torch.from_numpy(v) for k, v in data.batch(i).items()},
+                           torch.float32) for i in range(steps)]
     batch, gpu_batch = batches[0], {k: v.cuda() for k, v in batches[0].items()}
     ops.reset_launches()
     loss_g, grads_g = grads_of(torch, model, p_gpu, gpu_batch)
     torch.cuda.synchronize()
     launched = dict(ops.LAUNCHES)
     loss_c, grads_c = grads_of(torch, model, p_cpu, batch)
-    L = cfg.n_layers
-    check(launched["rmsnorm"] == 4 * L + 1 and launched["rmsnorm_bwd"] == 2 * L + 1
-          and launched["flash_attention"] == 0,
-          f"train step launches {launched} != {4 * L + 1} rmsnorm, {2 * L + 1} rmsnorm_bwd")
-    check(abs(loss_g - loss_c) <= MODEL_TOL, f"train step: loss card {loss_g} vs CPU {loss_c}")
+    n_fwd, n_bwd = train_step_launches(cfg)
+    want = {"rmsnorm": n_fwd, "rmsnorm_bwd": n_bwd, "flash_attention": 0, "decode_attention": 0}
+    check(launched == want, f"{arch} train step launches {launched} != {want}")
+    check(abs(loss_g - loss_c) <= MODEL_TOL, f"{arch} train step: loss card {loss_g} vs CPU "
+          f"{loss_c}")
     worst, worst_name = 0.0, ""
     for name, gc in grads_c.items():
-        err = max_err(grads_g[name].cpu(), gc) / max(float(gc.abs().max()), 1e-30)
+        gg = grads_g[name].cpu()
+        check(bool(torch.isfinite(gg).all()), f"{arch} train step: gradient {name} not finite")
+        err = max_err(gg, gc) / max(float(gc.abs().max()), 1e-30)
         if err > worst:
             worst, worst_name = err, name
-    check(worst <= GRAD_TOL, f"train step: gradient {worst_name} differs by {worst:.3g} of its "
-          f"largest magnitude > {GRAD_TOL}")
+    check(worst <= GRAD_TOL, f"{arch} train step: gradient {worst_name} differs by {worst:.3g} "
+          f"of its largest magnitude > {GRAD_TOL}")
     del grads_g, grads_c
     opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
     step = make_train_step(model, opt)
@@ -1094,8 +1159,9 @@ def train_card_vs_cpu(torch, B=2, S=64, steps=3):
         _, states[1], m_g = step(p_gpu, states[1], {k: v.cuda() for k, v in b.items()})
         losses.append((float(m_c["loss"]), float(m_g["loss"])))
     diff = max(abs(a - b) for a, b in losses)
-    check(diff <= MODEL_TOL, f"train steps: losses card vs CPU {losses}")
-    say(f"train step, llama2-7b full width, 2 layers, f32, batch {B} x {S}, remat: loss card "
+    check(diff <= MODEL_TOL, f"{arch} train steps: losses card vs CPU {losses}")
+    layers = ", ".join(f"{k}={v}" for k, v in cut.items())
+    say(f"train step, {arch} full width, {layers}, f32, batch {B} x {S}, remat: loss card "
         f"{loss_g:.6f} vs CPU {loss_c:.6f}; worst gradient leaf {worst_name} {worst:.3g} of its "
         f"largest magnitude (<= {GRAD_TOL}); launches a step {launched}; {steps} AdamW steps, "
         f"losses (CPU, card) {losses}, max diff {diff:.3g} (<= {MODEL_TOL}); "
@@ -1124,7 +1190,8 @@ def phase_smoke_model(torch):
         label = f"{arch} full width, " + ", ".join(f"{k}={n}" for k, n in cut.items())
         card_vs_cpu(torch, label, cfg, True, n_reqs=3, new=4)
         say(f"{label}: {time.perf_counter() - t0:.1f} s")
-    train_card_vs_cpu(torch)
+    for arch, cut, B, S, steps in TRAIN_CHECKS:
+        train_card_vs_cpu(torch, arch, cut, B, S, steps)
 
 
 # ---------------------------------------------------------------------------
@@ -1432,25 +1499,63 @@ def phase_capacity(cal, card):
 # phase 7: training at full width
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 512, 10  # of llama2-7b's 32 layers
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+# (arch, fields replaced on the full config, steps): full widths, bf16, remat on
+TRAIN_RUNS = [
+    ("llama2-7b", {"n_layers": 16}, 10),  # 16 of 32 layers: 3.50 B parameters, 42 GB
+    # 39 of 81 layers: 6 groups of 6 Mamba2 layers (each followed by the shared
+    # block) and 3 remainder layers, ~3.47 B parameters, ~41.6 GB; all 81 need ~81 GB
+    ("zamba2-7b", {"n_layers": 39}, 5),
+    ("xlstm-1.3b", {}, 5),  # all 48 layers (6 groups of 7 mLSTM + 1 sLSTM): ~3.6 B, ~43 GB
+    ("seamless-m4t-large-v2", {}, 5),  # 24 + 24 layers, vocab 256206: ~2.0 B, ~24.5 GB
+]
+
+
+def attention_squares(cfg, B, S):
+    """[(forward flops of QK^T and PV over the full square, causal)] for each
+    attention a forward runs at S tokens (S encoder frames for enc-dec: the
+    loop hashes the stream's tokens into them)."""
+    full = 2 * 2 * B * cfg.n_heads * S * S * cfg.head_dim
+    if cfg.n_encoder_layers:  # encoder (full), decoder self (causal), cross (full)
+        return ([(full, False)] * cfg.n_encoder_layers + [(full, True)] * cfg.n_layers
+                + [(full, False)] * cfg.n_layers)
+    if cfg.family == "hybrid":  # the shared block, once a group
+        return [(full, True)] * (cfg.n_layers // cfg.shared_attn_every)
+    if cfg.family == "ssm":
+        return []
+    return [(full, True)] * cfg.n_layers
 
 
 def train_reckoning(cfg, params, B, S):
     """The step's work from its shapes: model flops (6 N T for the matmul
-    parameters, every one but the embedding, a gather; attention over the
-    causal half), the flops issued (remat runs each block's forward again;
-    naive attention computes the full (S, S) square), and the bytes the
-    AdamW pass must move (22 a parameter: bf16 p and g read, p written, f32
-    mu and nu read and written)."""
-    T, L = B * S, cfg.n_layers
+    parameters as the forward applies them: every one but the embedding, a
+    gather, and zamba2's shared block once a group; attention's forward and
+    backward (3x) over the causal half, or the whole square where it is not
+    causal; the recurrent scans' own products, Mamba2's intra-chunk form and
+    mLSTM's, are not counted), the flops issued (remat runs the checkpointed
+    blocks' or groups' forward again: 2 N_ckpt T; naive attention computes
+    the full square, 4 times), and the bytes the AdamW pass must move (22 a
+    parameter: bf16 p and g read, p written, f32 mu and nu read and
+    written)."""
+    T = B * S
     n = sum(p.numel() for p in params.parameters())
+    count = lambda m: sum(p.numel() for p in m.parameters())  # noqa: E731
     n_mm = n - params.embed.numel()
-    n_blocks = sum(p.numel() for p in params.layers.parameters())
-    attn = 2 * 2 * B * cfg.n_heads * S * S * cfg.head_dim  # QK^T and PV, one layer's forward
+    if cfg.n_encoder_layers:
+        n_ckpt = count(params.enc_layers) + count(params.dec_layers)
+    elif cfg.family == "hybrid":
+        ng = cfg.n_layers // cfg.shared_attn_every
+        n_mm += (ng - 1) * count(params.shared)
+        n_ckpt = count(params.mamba_groups) + ng * count(params.shared)
+    elif cfg.family == "ssm":
+        n_ckpt = count(params.mlstm_groups) + count(params.slstm_blocks)
+    else:
+        n_ckpt = count(params.layers)
+    squares = attention_squares(cfg, B, S)
     return {
         "params": n,
-        "model_flops": 6 * n_mm * T + 3 * L * attn / 2,
-        "issued_flops": 6 * n_mm * T + 2 * n_blocks * T + 4 * L * attn,
+        "model_flops": 6 * n_mm * T + sum(3 * a * (0.5 if c else 1.0) for a, c in squares),
+        "issued_flops": 6 * n_mm * T + 2 * n_ckpt * T + sum(4 * a for a, _ in squares),
         "adamw_bytes": 22 * n,
     }
 
@@ -1479,35 +1584,58 @@ def timed_updates(torch, marks):
 
 
 def phase_training(torch, card):
-    """llama2-7b at full width, bf16, TRAIN_LAYERS of its 32 layers, batch
-    TRAIN_BATCH x TRAIN_SEQ, remat on: TRAIN_STEPS steps of `train_loop` on
-    `SyntheticLM` with the launch counts set to 0 just before and read just
-    after, then one profiled step and a checkpoint round trip. Returns the
-    train_loop run's launch counts."""
+    """Each config of TRAIN_RUNS at full width (`train_full_width`), then a
+    checkpoint round trip. Returns the train_loop runs' launch counts,
+    summed."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, cut, steps in TRAIN_RUNS:
+        for k, v in train_full_width(torch, card, arch, cut, steps).items():
+            launches[k] = launches.get(k, 0) + v
+    checkpoint_round_trip(torch)
+    say(f"phase 7 (training) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_full_width(torch, card, arch, cut, steps):
+    """`arch` at full width, bf16, depth cut to `cut`, batch TRAIN_BATCH x
+    TRAIN_SEQ, remat on, AdamW at lr 3e-4 from `Model.init(seed=0)`: `steps`
+    steps of `train_loop` on `SyntheticLM` with the launch counts set to 0
+    just before and read just after (`train_step_launches` a step, no
+    attention kernel), every loss and gradient norm finite and the last
+    loss below the first; then one profiled step. Returns the train_loop
+    run's launch counts."""
+    import gc
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import RuntimeFlags, build_model
     from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, adamw_init,
-                                      adamw_update, make_train_step, train_loop)
+                                      adamw_update, make_train_step, model_batch, train_loop)
 
-    t_phase = time.perf_counter()
-    full = get_config("llama2-7b")
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    t_run = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **cut)
     L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
     model = build_model(cfg, RuntimeFlags(remat=True))
     params = model.init(seed=0, device="cuda")
     work = train_reckoning(cfg, params, B, S)
     peak = PEAK_FLOPS["bfloat16"]
-    say(f"training llama2-7b full width: {L} of its {full.n_layers} layers, d={cfg.d_model} "
-        f"H={cfg.n_heads} d_ff={cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
-        f"{cfg.dtype}, {work['params'] / 1e9:.3f} B params, batch {B} x {S}, remat; reckoning: "
-        f"model {work['model_flops'] / 1e12:.2f} TFLOP, issued {work['issued_flops'] / 1e12:.2f} "
-        f"TFLOP ({work['issued_flops'] / peak * 1e3:.1f} ms at 989 TFLOP/s), AdamW "
-        f"{work['adamw_bytes'] / 1e9:.1f} GB ({work['adamw_bytes'] / HBM_BYTES_PER_S * 1e3:.1f} "
-        f"ms at 3.35 TB/s)")
+    depth = (f"{L} of its {full.n_layers} layers" if not cfg.n_encoder_layers else
+             f"{cfg.n_encoder_layers} + {L} of its {full.n_encoder_layers} + {full.n_layers} "
+             f"layers")
+    fb_bound, opt_bound = work["model_flops"] / peak * 1e3, work["adamw_bytes"] / HBM_BYTES_PER_S * 1e3
+    say(f"training {arch} full width: {depth}, d={cfg.d_model} H={cfg.n_heads} "
+        f"d_ff={cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}, "
+        f"{work['params'] / 1e9:.3f} B params, batch {B} x {S}, remat; reckoning: model "
+        f"{work['model_flops'] / 1e12:.2f} TFLOP (6 N T for the matmul parameters as applied, "
+        f"plus attention; recurrent scans not counted), issued "
+        f"{work['issued_flops'] / 1e12:.2f} TFLOP ({work['issued_flops'] / peak * 1e3:.1f} ms at "
+        f"989 TFLOP/s), AdamW {work['adamw_bytes'] / 1e9:.1f} GB; bound {fb_bound:.1f} ms (model "
+        f"flops at 989 TFLOP/s) + {opt_bound:.1f} ms (AdamW at 3.35 TB/s)")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B)
-    # 3e-4 held (the cosine runs over 1000 steps): at this width 1e-3 and 3e-3
-    # made the loss rise within 10 steps (PERF.md §6)
+    # 3e-4 held (the cosine runs over 1000 steps): at llama2-7b's width 1e-3 and
+    # 3e-3 made the loss rise within 10 steps (PERF.md §6)
     oc = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=1000)
     marks = []
     torch.cuda.synchronize()
@@ -1515,30 +1643,32 @@ def phase_training(torch, card):
     ops.reset_launches()  # this path's run starts here
     t0 = time.perf_counter()
     with timed_updates(torch, marks):
-        params, hist = train_loop(model, dc, oc, n_steps=TRAIN_STEPS, log_every=1, log_fn=say,
+        params, hist = train_loop(model, dc, oc, n_steps=steps, log_every=1, log_fn=say,
                                   params=params)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     mem = torch.cuda.max_memory_allocated()
-    say(f"launches on the training path: {launches}")
-    want = {"rmsnorm": TRAIN_STEPS * (4 * L + 1), "rmsnorm_bwd": TRAIN_STEPS * (2 * L + 1),
+    n_fwd, n_bwd = train_step_launches(cfg)
+    say(f"launches on the {arch} training path: {launches}")
+    want = {"rmsnorm": steps * n_fwd, "rmsnorm_bwd": steps * n_bwd,
             "flash_attention": 0, "decode_attention": 0}
-    check(launches == want, f"training launches {launches} != {want} ({TRAIN_STEPS} steps of "
-          f"4L + 1 rmsnorm (forward, remat) and 2L + 1 rmsnorm_bwd, no attention kernel)")
-    check(len(hist) == TRAIN_STEPS and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                                           for h in hist), f"non-finite loss or grad norm: {hist}")
+    check(launches == want, f"{arch} training launches {launches} != {want} ({steps} steps of "
+          f"{n_fwd} rmsnorm (forward, remat) and {n_bwd} rmsnorm_bwd, no attention kernel)")
+    check(len(hist) == steps and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                     for h in hist), f"{arch}: non-finite loss or grad norm: {hist}")
     check(hist[-1]["loss"] < hist[0]["loss"],
-          f"loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+          f"{arch}: loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
     ends = [t0] + [e for _, e in marks]
     step_s = [b - a for a, b in zip(ends, ends[1:])]
     opt_s = [e - b for b, e in marks]
     steady = step_s[1:]
     mean_step = sum(steady) / len(steady)
     mean_opt = sum(opt_s[1:]) / len(steady)
-    say(f"training steps (wall, synchronised): step 0 {step_s[0] * 1e3:.3f} ms (first), steps "
-        f"1-{TRAIN_STEPS - 1} mean {mean_step * 1e3:.3f} ms (min {min(steady) * 1e3:.3f}, max "
+    say(f"{arch} training steps (wall, synchronised): step 0 {step_s[0] * 1e3:.3f} ms (first), "
+        f"steps 1-{steps - 1} mean {mean_step * 1e3:.3f} ms (min {min(steady) * 1e3:.3f}, max "
         f"{max(steady) * 1e3:.3f}) = forward + backward {(mean_step - mean_opt) * 1e3:.3f} ms + "
-        f"optimizer {mean_opt * 1e3:.3f} ms; {B * S / mean_step:.1f} tokens/s; model-flop share "
+        f"optimizer {mean_opt * 1e3:.3f} ms (bound {fb_bound:.1f} + {opt_bound:.1f}); "
+        f"{B * S / mean_step:.1f} tokens/s; model-flop share "
         f"{work['model_flops'] / mean_step / peak:.4f} and issued-flop share "
         f"{work['issued_flops'] / mean_step / peak:.4f} of 989 TFLOP/s; optimizer "
         f"{work['adamw_bytes'] / mean_opt / 1e12:.3f} TB/s of 3.35; peak device memory "
@@ -1548,33 +1678,36 @@ def phase_training(torch, card):
     # one more step under the profiler, with fresh moments (train_loop's are
     # freed): the loss and gradients profiled apart from the optimizer
     state = adamw_init(params)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(dc).batch(TRAIN_STEPS).items()}
+    batch = model_batch(model, {k: torch.from_numpy(v).cuda()
+                                for k, v in SyntheticLM(dc).batch(steps).items()},
+                        params.embed.dtype)
     grads = {}
     make_train_step(model, oc)(params, state, batch)  # warm both paths
     torch.cuda.synchronize()
     ops.reset_launches()
     groups, n_fb, by_name = _device_time(
-        torch, lambda: grads.update(grads_of(torch, model, params, batch)[1]))
+        torch, lambda: grads.update(grads_of(torch, model, params, batch)[1]), ranges=False)
     one = dict(ops.LAUNCHES)
-    check(one == {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1, "flash_attention": 0,
-                  "decode_attention": 0}, f"one train step's launches {one}")
-    opt, n_opt, opt_names = _device_time(torch, lambda: adamw_update(oc, params, grads, state))
+    check(one == {"rmsnorm": n_fwd, "rmsnorm_bwd": n_bwd, "flash_attention": 0,
+                  "decode_attention": 0}, f"{arch}: one train step's launches {one}")
+    opt, n_opt, opt_names = _device_time(torch, lambda: adamw_update(oc, params, grads, state),
+                                         ranges=False)
     fb_ms, opt_ms = sum(groups.values()) / 1e3, sum(opt.values()) / 1e3
     for k, v in opt_names.items():
         by_name[k] = by_name.get(k, 0.0) + v
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    say(f"training step profile: device busy {fb_ms + opt_ms:.3f} ms "
+    say(f"{arch} training step profile: device busy {fb_ms + opt_ms:.3f} ms "
         f"({100 * (fb_ms + opt_ms) / (mean_step * 1e3):.1f}% of the {mean_step * 1e3:.3f} ms step): "
         f"forward + backward {fb_ms:.3f} ms in {n_fb} kernels ("
         + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in groups.items()
                     if k not in (ROUTING, RECURRENT, "decode_attention"))
         + f"), optimizer {opt_ms:.3f} ms in {n_opt} kernels; top kernels "
         + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
-    say(f"one train step's launches: {one} (4L + 1 = {4 * L + 1}, 2L + 1 = {2 * L + 1})")
+    say(f"{arch}: one train step's launches: {one} ({n_fwd} rmsnorm, {n_bwd} rmsnorm_bwd); "
+        f"{time.perf_counter() - t_run:.1f} s")
     del params, state, batch, grads, model
+    gc.collect()
     torch.cuda.empty_cache()
-    checkpoint_round_trip(torch)
-    say(f"phase 7 (training) took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1727,17 +1860,20 @@ def _range_kernels(e):
         yield from _range_kernels(child)
 
 
-def _device_time(torch, fn):
+def _device_time(torch, fn, ranges=True):
     """Device time (us) by kernel group, the kernel count of fn() and the
-    device time (us) by kernel name, from torch.profiler; the kernels
-    launched inside a range of RANGES form its group, taken out of the
-    groups their names fall in (for RECURRENT only those of "other": its
-    GEMMs and rmsnorm stay where they are)."""
+    device time (us) by kernel name, from torch.profiler; with `ranges`, the
+    kernels launched inside a range of RANGES form its group, taken out of
+    the groups their names fall in (for RECURRENT only those of "other": its
+    GEMMs and rmsnorm stay where they are). Without, only device activity
+    is recorded and no event tree is walked (an xlstm training step
+    launches ~10^5 kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profiler_ranges(torch), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * ranges + [ProfilerActivity.CUDA]
+    with (profiler_ranges(torch) if ranges else contextlib.nullcontext()), \
+            profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     groups = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0, "rmsnorm_bwd": 0.0,
@@ -1753,7 +1889,7 @@ def _device_time(torch, fn):
         launches += e.count
         groups[_kernel_group(e.key)] += us
         by_name[e.key] = by_name.get(e.key, 0.0) + us
-    for e in prof.events():
+    for e in prof.events() if ranges else ():
         if e.name in RANGES and e.device_type == DeviceType.CPU:
             move_all = RANGES[e.name][2]
             for k in _range_kernels(e):

@@ -3,10 +3,12 @@
 Smoke mode (default): the arch's reduced config in float32, real
 optimization on the synthetic stream, remat on. `--full-size` takes the full
 config in its own dtype (llama2-7b's 32 layers need ~81 GB of weights,
-gradients and moments: more than one 80 GB card). The dense, vlm and moe
-archs train; hybrid, ssm and enc-dec are refused until their slice.
+gradients and moments: more than one 80 GB card). Every registered arch
+trains: enc-dec archs take the hashed one-hot of the stream's tokens as
+encoder frames and the labels as decoder tokens, as the reference's loop.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b --device cpu --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
 """
 
@@ -19,7 +21,6 @@ from typing import Optional, Sequence
 from ..configs import get_config, list_configs
 from ..models import RuntimeFlags, build_model
 from ..models.common import resolve_device
-from ..models.transformer import UNIFORM
 from ..training import AdamWConfig, DataConfig, train_loop
 
 
@@ -38,9 +39,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full_size)
-    if cfg.family not in UNIFORM:
-        ap.error(f"{args.arch} ({cfg.family}): only the dense, vlm and moe families train "
-                 "in this package so far")
     if not args.full_size:
         cfg = dataclasses.replace(cfg, dtype="float32")
     device = resolve_device(args.device)

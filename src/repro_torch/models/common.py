@@ -4,8 +4,8 @@
 Parameters live in `nn.Module`s that mirror the reference's nested dicts
 leaf for leaf; the compute is plain functions on tensors. Every parameter is
 created with `requires_grad=False`, so serving builds no autograd graph;
-training turns gradients on (`training.train_loop`), and the dense, vlm and
-moe stacks are differentiable (`Model.loss`).
+training turns gradients on (`training.train_loop`), and every family's
+forward is differentiable (`Model.loss`).
 """
 
 from __future__ import annotations
@@ -43,9 +43,10 @@ class RuntimeFlags:
     (scatter or einsum, `models/moe.py`), the chunk lengths of the chunked
     scans, `mamba_chunk` (`models/mamba2.py`) and `mlstm_chunk`
     (`models/xlstm.py`), and `remat`: while a gradient is recorded, each
-    dense/vlm/moe block is recomputed in the backward
-    (`torch.utils.checkpoint`), as the reference's `jax.checkpoint`. The
-    sharding field has no effect: the port runs on one card."""
+    block (dense/vlm/moe, each encoder and decoder layer) or group (zamba2,
+    xlstm) is recomputed in the backward (`torch.utils.checkpoint`), as the
+    reference's `jax.checkpoint`. The sharding field has no effect: the port
+    runs on one card."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024

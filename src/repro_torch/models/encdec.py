@@ -19,7 +19,10 @@ slot in place and reads the cross cache only.
 
 Kernel launches per forward, L decoder and Le encoder layers: prefill 2 Le
 + 1 + 3 L + 1 rmsnorm and Le + 2 L flash; a decode step 3 L + 1 rmsnorm and
-2 L decode_attention (self and cross).
+2 L decode_attention (self and cross). `encdec_forward` is the training
+path: differentiable, with naive or chunked attention and, under remat,
+each encoder and decoder layer recomputed in the backward, so a train step
+runs 2 (2 Le + 3 L) + 2 rmsnorm and 2 Le + 3 L + 2 rmsnorm_bwd.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (
@@ -46,6 +50,7 @@ from .transformer import (
     _rope_tables,
     init_block,
     logits_from_hidden,
+    remat_on,
     write_positions,
 )
 
@@ -111,35 +116,55 @@ def init_encdec_params(cfg: ModelConfig, gen: torch.Generator, device, dtype=Non
     return p
 
 
+def _enc_layer(lp: Block, x, cfg, rt, positions, rope):
+    h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    x = x + attention_forward(lp.attn, h, cfg, rt, positions, rope, causal=False)[0]
+    h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    return x + mlp_forward(lp.mlp, h, cfg)
+
+
 def encode(params: EncDec, cfg: ModelConfig, rt: RuntimeFlags,
            enc_embeds: torch.Tensor) -> torch.Tensor:
-    """Bidirectional encoder over frame embeddings (B, S_enc, d) -> (B, S_enc, d)."""
+    """Bidirectional encoder over frame embeddings (B, S_enc, d) -> (B, S_enc, d).
+    Under remat (`transformer.remat_on`) each layer runs again in the
+    backward, as the reference's `jax.checkpoint` around its layer."""
     positions = _arange_positions(enc_embeds, None)
     rope = _rope_tables(cfg, positions)
+    remat = remat_on(rt, params.enc_layers, False)
     x = enc_embeds
     for lp in params.enc_layers:
-        h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + attention_forward(lp.attn, h, cfg, rt, positions, rope, causal=False)[0]
-        h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-        x = x + mlp_forward(lp.mlp, h, cfg)
+        args = (lp, x, cfg, rt, positions, rope)
+        x = checkpoint(_enc_layer, *args, use_reentrant=False) if remat else _enc_layer(*args)
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
+
+
+def _dec_layer(lp: DecLayer, x, cfg, rt, positions, rope, enc_out, enc_pos):
+    """-> (x, (k, v), (cross k, cross v)). The cross K/V are projected from
+    enc_out here, so their gradient reaches the encoder."""
+    h = rms_norm(x, lp.self_norm, cfg.norm_eps)
+    a, kv = attention_forward(lp.self_attn, h, cfg, rt, positions, rope, causal=True)
+    x = x + a
+    h = rms_norm(x, lp.cross_norm, cfg.norm_eps)
+    ckv = project_kv(lp.cross_attn, enc_out)
+    x = x + attention_forward(lp.cross_attn, h, cfg, rt, positions, rope,
+                              cross_kv=ckv, cross_pos=enc_pos)[0]
+    h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    return x + mlp_forward(lp.mlp, h, cfg), kv, ckv
 
 
 def _dec_stack(params: EncDec, cfg, rt, x, positions, enc_out, enc_pos, collect_cache: bool):
     """Decoder layers over (B, S, d) with cross attention on enc_out.
-    -> (x, per-layer ((k, v), (cross k, cross v)) if collect_cache)."""
+    -> (x, per-layer ((k, v), (cross k, cross v)) if collect_cache). Under
+    remat each layer runs again in the backward, as in `encode`."""
     rope = _rope_tables(cfg, positions)
+    remat = remat_on(rt, params.dec_layers, collect_cache)
     kvs = []
     for lp in params.dec_layers:
-        h = rms_norm(x, lp.self_norm, cfg.norm_eps)
-        a, kv = attention_forward(lp.self_attn, h, cfg, rt, positions, rope, causal=True)
-        x = x + a
-        h = rms_norm(x, lp.cross_norm, cfg.norm_eps)
-        ckv = project_kv(lp.cross_attn, enc_out)
-        x = x + attention_forward(lp.cross_attn, h, cfg, rt, positions, rope,
-                                  cross_kv=ckv, cross_pos=enc_pos)[0]
-        h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-        x = x + mlp_forward(lp.mlp, h, cfg)
+        args = (lp, x, cfg, rt, positions, rope, enc_out, enc_pos)
+        if remat:
+            x = checkpoint(_dec_layer, *args, use_reentrant=False)[0]
+            continue
+        x, kv, ckv = _dec_layer(*args)
         if collect_cache:
             kvs.append((kv, ckv))
     return x, kvs
@@ -154,7 +179,6 @@ def _encode_and_decode(params, cfg, rt, enc_embeds, dec_tokens, collect_cache: b
     return x, kvs, positions, enc_pos
 
 
-@torch.no_grad()
 def encdec_forward(
     params: EncDec,
     cfg: ModelConfig,
@@ -162,7 +186,9 @@ def encdec_forward(
     enc_embeds: torch.Tensor,  # (B, S_enc, d)
     dec_tokens: torch.Tensor,  # (B, S_dec)
 ) -> Tuple[torch.Tensor, dict]:
-    """Teacher-forced forward. Returns (logits (B, S_dec, V), {})."""
+    """Teacher-forced forward. Returns (logits (B, S_dec, V), {}).
+    Differentiable (the training path, `Model.loss`); prefill and decode
+    run under `torch.no_grad()`."""
     x, _, _, _ = _encode_and_decode(params, cfg, rt, enc_embeds, dec_tokens, False)
     return logits_from_hidden(params, cfg, x), {}
 

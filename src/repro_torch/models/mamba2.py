@@ -26,6 +26,7 @@ that much again every step.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -147,11 +148,15 @@ def mamba2_forward(
     a_log = -torch.exp(p.A_log.float()) * dt_p  # (B, Sp, nh) <= 0
     cum = torch.cumsum(a_log.view(B, nc, Q, nh), dim=2)  # inclusive log-decay prefix
 
-    # Intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) u_j
+    # Intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) u_j. The
+    # exponent is masked to -inf above the diagonal before exp: there it is a
+    # positive sum of dt, which overflows past ~88, and an inf there would
+    # make the product's gradient 0 * inf = NaN even with the product masked.
     sBC = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B, nc, Q, Q)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (B, nc, i, j, nh)
-    G = (sBC[..., None] * decay).masked_fill_(~causal[..., None], 0.0)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, i, j, nh)
+    decay = torch.exp(seg.masked_fill(~causal[..., None], -math.inf))
+    G = sBC[..., None] * decay
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", G.to(x.dtype), u)
 
     # Cross-chunk carry: state (B, nh, P, N) f32.

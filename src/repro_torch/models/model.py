@@ -13,9 +13,8 @@ Inputs are tokens (B, S) int, or frontend embeds (B, S, d) for vlm archs
 take dict(enc_embeds=(B, S_enc, d), dec_tokens=(B, S_dec)). `params` is a
 `transformer.Decoder` module, or an `encdec.EncDec` for enc-dec archs;
 every call runs on the device its parameters live on. `loss` is
-differentiable for the dense, vlm and moe families (`training/` trains
-them); for hybrid, ssm and enc-dec it raises until a later slice audits
-their in-place recurrences and cross caches for autograd.
+differentiable for every family (`training/` trains them); prefill and
+decode record no graph.
 """
 
 from __future__ import annotations
@@ -83,13 +82,14 @@ class Model:
     def loss(self, params: Params, batch: dict) -> Tuple[torch.Tensor, dict]:
         """Next-token LM loss (+ the moe aux terms, weighted 0.01 and 0.001),
         as the reference's `Model.loss`. batch: {"tokens" (B, S) or "embeds"
-        (B, S, d), "labels" (B, S)}. Returns (loss, aux)."""
-        if self.cfg.family not in transformer.UNIFORM:  # dense, vlm, moe
-            raise NotImplementedError(
-                f"Model.loss for the {self.cfg.family} family is not ported yet: training "
-                "the hybrid, ssm and enc-dec families is a later slice of the port")
-        inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
-        logits, aux = transformer.decoder_forward(params, self.cfg, self.rt, inputs)
+        (B, S, d), "labels" (B, S)}; enc-dec archs take {"enc_embeds" (B,
+        S_enc, d), "dec_tokens" (B, S), "labels" (B, S)}. Returns (loss, aux)."""
+        if self.is_encdec:
+            logits, aux = encdec.encdec_forward(params, self.cfg, self.rt, batch["enc_embeds"],
+                                                batch["dec_tokens"])
+        else:
+            inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
+            logits, aux = transformer.decoder_forward(params, self.cfg, self.rt, inputs)
         loss = cross_entropy_loss(logits, batch["labels"], self.cfg.padded_vocab)
         if aux:
             loss = loss + 0.01 * aux.get("moe_lb_loss", 0.0) \

@@ -8,15 +8,20 @@ per-layer blocks instead (`convert.py` splits the axes):
   * dense / vlm / moe: `layers`, one `Block` (attention + MLP, or `moe`,
     routed experts, `moe.py`) per layer; iRoPE's per-layer RoPE flag is a
     Python `if` per layer, and `decoder_forward` returns the moe router aux
-    losses summed over layers. `decoder_forward` is differentiable for
-    these families, each block checkpointed under `RuntimeFlags.remat`.
+    losses summed over layers.
   * hybrid (zamba2): `mamba_groups` (ng groups of gs `MambaBlock`s), each
     group followed by ONE weight-shared attention + MLP block (`shared`),
     then `mamba_rest` (the rem = L - ng gs remaining Mamba2 blocks).
   * ssm (xlstm): `mlstm_groups` (ng groups of slstm_every - 1 `MLSTMBlock`s),
     each followed by its `slstm_blocks` entry. The sLSTM block's `ffn_norm`
     is a leaf of the reference's tree that its stack never reads; the port
-    keeps it, unread, so that conversion stays strict both ways.
+    keeps it, unread, so that conversion stays strict both ways (its
+    gradient is zero).
+
+`decoder_forward` is differentiable for every family. Under
+`RuntimeFlags.remat` it checkpoints what the reference's `jax.checkpoint`
+wraps: each dense/vlm/moe block, each zamba2 group (its Mamba2 layers and
+the shared block; not the remainder layers) and each xlstm group.
 
 The stacks are Python loops over the blocks. Inputs are tokens (B, S) or
 frontend embeddings (B, S, d) (vlm); decode embeds the generated tokens.
@@ -279,6 +284,14 @@ def _attn_block_decode(lp: Block, x, cfg, rt, pos, rope, flat_slot, ck, cv, cach
     return x + mlp_forward(lp.mlp, h, cfg)
 
 
+def remat_on(rt: RuntimeFlags, blocks: nn.Module, collect_cache: bool) -> bool:
+    """Whether a stack checkpoints its blocks (or groups): under
+    `rt.remat`, while autograd records through them (grad mode on,
+    parameters that require grad) and no cache is collected."""
+    return (rt.remat and not collect_cache and torch.is_grad_enabled()
+            and any(p.requires_grad for p in blocks.parameters()))
+
+
 # ---------------------------------------------------------------------------
 # uniform (dense / vlm / moe) stack
 # ---------------------------------------------------------------------------
@@ -287,18 +300,16 @@ def _attn_block_decode(lp: Block, x, cfg, rt, pos, rope, flat_slot, ck, cv, cach
 def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
                    collect_cache: bool):
     """-> (x, per-layer (k, v) if collect_cache, aux losses summed over
-    layers: zeros-started for moe configs, {} otherwise). Under `rt.remat`,
-    while autograd records through the blocks (grad mode on, parameters
-    that require grad), each block keeps only its input and runs again in
-    the backward, as the reference's `jax.checkpoint` around its scanned
+    layers: zeros-started for moe configs, {} otherwise). Under remat
+    (`remat_on`) each block keeps only its input and runs again in the
+    backward, as the reference's `jax.checkpoint` around its scanned
     block."""
     window = rt.window_for(cfg.window)
     rope = _rope_tables(cfg, positions, mrope_positions)
     aux = (dict.fromkeys(("moe_lb_loss", "moe_z_loss"),
                          torch.zeros((), dtype=torch.float32, device=x.device))
            if cfg.n_experts else {})
-    remat = (rt.remat and not collect_cache and torch.is_grad_enabled()
-             and any(p.requires_grad for p in params.layers.parameters()))
+    remat = remat_on(rt, params.layers, collect_cache)
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for i, lp in enumerate(params.layers):
         args = (lp, x, cfg, rt, positions, rope if _uses_rope(cfg, i) else None, window)
@@ -376,18 +387,33 @@ def _mamba_layer_decode(blk: MambaBlock, x, cfg, state):
                                   cfg)[0]
 
 
+def _hybrid_group(grp: nn.ModuleList, shared: Block, x, cfg, rt, positions, rope, window):
+    """One group: its gs Mamba2 layers, then the shared block. -> (x, the
+    layers' states, the shared block's (k, v))."""
+    sts = []
+    for blk in grp:
+        x, st = _mamba_layer(blk, x, cfg, rt)
+        sts.append(st)
+    x, kv, _ = _attn_block_apply(shared, x, cfg, rt, positions, rope, window)
+    return x, sts, kv
+
+
 def _hybrid_stack(params: Decoder, cfg, rt, x, positions, collect_cache: bool):
     """-> (x, (mamba states (ng, gs, B, ...), rest states (rem, B, ...) or
-    None, the shared block's per-group (k, v)) if collect_cache, {})."""
+    None, the shared block's per-group (k, v)) if collect_cache, {}). Under
+    remat (`remat_on`) each group, its Mamba2 layers and the shared block,
+    runs again in the backward, as the reference's `jax.checkpoint` around
+    its group; the remainder layers are not checkpointed, as there."""
     window = rt.window_for(cfg.window)
     rope = _rope_tables(cfg, positions)
+    remat = remat_on(rt, params, collect_cache)
     groups, kvs = [], []
     for grp in params.mamba_groups:
-        sts = []
-        for blk in grp:
-            x, st = _mamba_layer(blk, x, cfg, rt)
-            sts.append(st)
-        x, kv, _ = _attn_block_apply(params.shared, x, cfg, rt, positions, rope, window)
+        args = (grp, params.shared, x, cfg, rt, positions, rope, window)
+        if remat:
+            x = checkpoint(_hybrid_group, *args, use_reentrant=False)[0]
+            continue
+        x, sts, kv = _hybrid_group(*args)
         groups.append(sts)
         kvs.append(kv)
     rest = []
@@ -419,20 +445,31 @@ def _hybrid_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
 # ---------------------------------------------------------------------------
 
 
+def _ssm_group(grp: nn.ModuleList, sblk: SLSTMBlock, x, cfg, rt):
+    """One group: its mLSTM layers, then the sLSTM block. -> (x, the mLSTM
+    states, the sLSTM state)."""
+    sts = []
+    for blk in grp:
+        y, st = mlstm_forward(blk.mlstm, rms_norm(x, blk.norm, cfg.norm_eps), cfg,
+                              chunk=rt.mlstm_chunk)
+        x = x + y
+        sts.append(st)
+    # the sLSTM block: cell + its own gated FFN, inside slstm_forward
+    y, sst = slstm_forward(sblk.slstm, rms_norm(x, sblk.norm, cfg.norm_eps), cfg)
+    return x + y, sts, sst
+
+
 def _ssm_stack(params: Decoder, cfg, rt, x, collect_cache: bool):
     """-> (x, (mLSTM states (ng, gs - 1, B, ...), sLSTM states (ng, B, ...))
-    if collect_cache, {})."""
+    if collect_cache, {}). Under remat (`remat_on`) each group runs again in
+    the backward, as the reference's `jax.checkpoint` around its group."""
+    remat = remat_on(rt, params, collect_cache)
     mstates, sstates = [], []
     for grp, sblk in zip(params.mlstm_groups, params.slstm_blocks):
-        sts = []
-        for blk in grp:
-            y, st = mlstm_forward(blk.mlstm, rms_norm(x, blk.norm, cfg.norm_eps), cfg,
-                                  chunk=rt.mlstm_chunk)
-            x = x + y
-            sts.append(st)
-        # the sLSTM block: cell + its own gated FFN, inside slstm_forward
-        y, sst = slstm_forward(sblk.slstm, rms_norm(x, sblk.norm, cfg.norm_eps), cfg)
-        x = x + y
+        if remat:
+            x = checkpoint(_ssm_group, grp, sblk, x, cfg, rt, use_reentrant=False)[0]
+            continue
+        x, sts, sst = _ssm_group(grp, sblk, x, cfg, rt)
         mstates.append(sts)
         sstates.append(sst)
     if not collect_cache:
@@ -487,10 +524,9 @@ def decoder_forward(
     """Full forward to logits. Returns (logits (B, S, V), aux): the moe
     router losses summed over layers, {} for the other families.
 
-    Differentiable for the dense, vlm and moe families (the training path,
-    `Model.loss`); prefill and decode run under `torch.no_grad()`. The
-    hybrid and ssm stacks update recurrent states in place and are run here
-    without gradients only."""
+    Differentiable for every decoder-only family (the training path,
+    `Model.loss`); prefill and decode run under `torch.no_grad()`, and only
+    decode updates recurrent states in place."""
     positions = _arange_positions(inputs, positions)
     x = embed_inputs(params, cfg, inputs)
     x, _, aux = _stack(params, cfg, rt, x, positions, mrope_positions, collect_cache=False)

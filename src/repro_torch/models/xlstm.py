@@ -268,14 +268,26 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device) -> dict:
     return {"h": z, "c": z.clone(), "n": z.clone(), "m": torch.full_like(z, NEG_INF)}
 
 
-def _slstm_cell(r_gates: torch.Tensor, carry, g_x: torch.Tensor, cfg: ModelConfig):
+def _recurrent_weights(r_gates: torch.Tensor) -> torch.Tensor:
+    """r_gates (4, nh, dh, dh) -> (nh, dh, 4 dh) f32, one copy: each head's
+    four gate matrices side by side, so that a step's recurrent product is
+    one matmul batched over heads that reads the weights in place (a
+    product broadcast over the batch would copy them B times a step, and
+    autograd would keep every copy: 34 GB over xlstm-1.3b's 512-step
+    sLSTM at batch 4)."""
+    nh, dh = r_gates.shape[1], r_gates.shape[-1]
+    return r_gates.permute(1, 2, 0, 3).to(torch.float32, memory_format=torch.contiguous_format
+                                          ).reshape(nh, dh, 4 * dh)
+
+
+def _slstm_cell(r: torch.Tensor, carry, g_x: torch.Tensor, cfg: ModelConfig):
     """One time step. carry: (h, c, n, m) each (B, d) f32; g_x: (B, 4d)
-    input-side gate preactivations; r_gates f32 (4, nh, dh, dh)."""
+    input-side gate preactivations; r: `_recurrent_weights` of r_gates."""
     h, c, n, m = carry
     B, d, nh = h.shape[0], cfg.d_model, cfg.n_heads
-    hb = h.view(B, 1, nh, 1, d // nh)
-    rec = (hb @ r_gates)[:, :, :, 0]  # (B, 4, nh, dh)
-    g = g_x.view(B, 4, d).float() + rec.reshape(B, 4, d)
+    dh = d // nh
+    rec = torch.bmm(h.view(B, nh, dh).transpose(0, 1), r)  # (nh, B, 4 dh)
+    g = g_x.view(B, 4, d).float() + rec.view(nh, B, 4, dh).permute(1, 2, 0, 3).reshape(B, 4, d)
     ipre, fpre, zpre, opre = g.unbind(1)
     logf = F.logsigmoid(fpre)
     m_new = torch.maximum(logf + m, ipre)
@@ -301,7 +313,7 @@ def slstm_forward(
     B, S, _ = x.shape
     st = state or init_slstm_state(cfg, B, x.device)
     g_x = x @ p.w_gates + p.b_gates
-    r = p.r_gates.float()
+    r = _recurrent_weights(p.r_gates)
     carry = (st["h"], st["c"], st["n"], st["m"])
     hs = []
     for t in range(S):
@@ -318,7 +330,7 @@ def slstm_decode_step(
     """One token (B, d); `state` is updated in place and returned."""
     g_x = x @ p.w_gates + p.b_gates
     carry = (state["h"], state["c"], state["n"], state["m"])
-    new = _slstm_cell(p.r_gates.float(), carry, g_x, cfg)
+    new = _slstm_cell(_recurrent_weights(p.r_gates), carry, g_x, cfg)
     for old, v in zip(carry, new):
         old.copy_(v)
     return _slstm_out(p, new[0].to(x.dtype)[:, None], cfg)[:, 0], state

@@ -3,7 +3,7 @@ data, checkpoints in the reference's format, loop."""
 
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .data import DataConfig, SyntheticLM
-from .loop import make_train_step, train_loop
+from .loop import make_train_step, model_batch, train_loop
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
 __all__ = [
@@ -14,6 +14,7 @@ __all__ = [
     "adamw_update",
     "latest_step",
     "make_train_step",
+    "model_batch",
     "restore_checkpoint",
     "save_checkpoint",
     "train_loop",

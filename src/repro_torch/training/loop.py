@@ -22,7 +22,27 @@ from .checkpoint import restore_checkpoint, save_checkpoint
 from .data import DataConfig, SyntheticLM
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["make_train_step", "train_loop"]
+__all__ = ["make_train_step", "train_loop", "model_batch"]
+
+
+def model_batch(model: Model, batch: Dict[str, torch.Tensor],
+                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The stream's {"tokens", "labels"} as `model.loss` takes them, as the
+    reference's loop builds them: frontend-stub archs (`embeds_input`) get
+    the tokens hashed into one-hot embeddings of d_model (in `dtype`, the
+    parameters': torch does not promote f32 @ bf16), which enc-dec archs
+    take as encoder frames, with the labels as decoder tokens."""
+    if not (model.cfg.embeds_input and "tokens" in batch):
+        return batch
+    batch = dict(batch)
+    emb = F.one_hot((batch.pop("tokens") % model.cfg.d_model).long(),
+                    model.cfg.d_model).to(dtype)
+    if model.is_encdec:
+        batch["enc_embeds"] = emb
+        batch["dec_tokens"] = batch["labels"]
+    else:
+        batch["embeds"] = emb
+    return batch
 
 
 def make_train_step(
@@ -102,17 +122,8 @@ def train_loop(
     hist = []
     t0 = time.perf_counter()
     for s in range(start, n_steps):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(s).items()}
-        if model.cfg.embeds_input and "tokens" in batch:
-            # frontend-stub archs consume embeddings: hash tokens into them
-            # (in the model's dtype: torch does not promote f32 @ bf16)
-            emb = F.one_hot((batch.pop("tokens") % model.cfg.d_model).long(),
-                            model.cfg.d_model).to(params.embed.dtype)
-            if model.is_encdec:
-                batch["enc_embeds"] = emb
-                batch["dec_tokens"] = batch["labels"]
-            else:
-                batch["embeds"] = emb
+        batch = model_batch(model, {k: torch.from_numpy(v).to(device)
+                                    for k, v in data.batch(s).items()}, params.embed.dtype)
         params, opt_state, m = step_fn(params, opt_state, batch)
         if s % log_every == 0 or s == n_steps - 1:
             m = {k: float(v) for k, v in m.items()}

@@ -138,6 +138,27 @@ class TestBackwardPlan:
         assert resident >= 1
         assert 1 <= n_cta == min(n, resident * N_SM)
 
+    @pytest.mark.parametrize("itemsize", [4, 2])  # f32, bf16
+    @pytest.mark.parametrize("d", [1024, 2048, 3584, 4096, 7168])
+    def test_trained_family_widths(self, d, itemsize):
+        """The hybrid, ssm and enc-dec training steps' widths at 4 x 512
+        tokens: seamless-m4t's 1024, xlstm-1.3b's 2048 and mLSTM inner 4096,
+        zamba2-7b's 3584 and Mamba2 inner 7168 (not powers of two). The plan
+        fits a block's shared memory, its CTAs are co-resident, every column
+        is owned, and the row blocks cover each of the 2048 rows once."""
+        n = 2048
+        threads, vpt, stages, n_cta = rmsnorm_bwd_plan(n, d, itemsize, N_SM,
+                                                       gamma_itemsize=itemsize)
+        width = VEC_BYTES // itemsize
+        assert threads * vpt * width >= d and threads % 32 == 0
+        assert threads <= bwd_max_threads(vpt * width)
+        smem = bwd_smem(d, itemsize, threads, stages, itemsize)
+        assert 1 <= stages <= BWD_MAX_STAGES and smem + BWD_STATIC_SMEM <= BLOCK_SMEM
+        assert 1 <= n_cta <= bwd_resident(threads, vpt * width, smem) * N_SM
+        blocks = [bwd_row_block(b, n, n_cta) for b in range(n_cta)]
+        rows = np.concatenate([np.arange(r0, r0 + c) for r0, c in blocks])
+        assert np.array_equal(rows, np.arange(n))
+
     @pytest.mark.parametrize("d,itemsize,gamma_itemsize", [(4096, 2, 2), (12288, 2, 2),
                                                            (12288, 2, 4), (16384, 4, 4)])
     def test_ring_fills_shared_memory_up_to_its_cap(self, d, itemsize, gamma_itemsize):

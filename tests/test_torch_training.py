@@ -271,15 +271,6 @@ class TestLossAndGradients:
             [GenRequest(uid=0, prompt=toks[0], max_new_tokens=3)])
         assert out[0].n_tokens == 3
 
-    @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b", "seamless-m4t-large-v2"])
-    def test_later_families_raise(self, arch):
-        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
-        model = build_model(cfg)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            model.loss(model.init(seed=0, device="cpu"),
-                       {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                        "labels": torch.zeros(1, 4, dtype=torch.int32)})
-
 
 # ---------------------------------------------------------------------------
 # optimizer, step, data
