@@ -6,6 +6,7 @@
     python3 chip_smoke.py --rmsnorm-bwd-sweep [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --rmsnorm-bwd-profile
     python3 chip_smoke.py --decode-sweep
+    python3 chip_smoke.py --decode-profile ARCH [--src OTHER_CHECKOUT/src]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -23,6 +24,8 @@ Phases, each of which must pass or the script exits non-zero:
      and bf16 (2e-2), at the CPU tests' shapes and the main paths' (for
      rmsnorm also both sides of each regime of `rmsnorm_plan`, wider rows
      up to nemotron-4-15b's d = 6144 and zamba2-7b's Mamba2 d_inner 7168,
+     phase 7's training steps at 2048 rows of d = 1024, 2048, 3584, 4096
+     and 7168,
      and the scalar instantiation: a misaligned gamma, rows d + 1 apart,
      d = 37; for decode G = 1 to 24, head groups, splits, dh = 112 and
      enc-dec cross decode over a padded cross cache; for flash G = 16,
@@ -118,12 +121,16 @@ Phases, each of which must pass or the script exits non-zero:
      and the optimizer beside its bound (model flops at 989 TFLOP/s plus
      AdamW's 22 bytes a parameter at 3.35 TB/s), tokens/s, the model-flop
      share of 989 TFLOP/s, peak device memory, and a profiled step's
-     device-busy share by kernel group. It checks every loss and gradient
-     norm finite, the last loss below the first, the launches a step
-     (`train_step_launches`: 4L + 1 rmsnorm and 2L + 1 rmsnorm_bwd for
-     llama2-7b and xlstm, 2L + 2ng + 1 + 2 ng gs + 2ng and 2L + 2ng + 1 for
-     zamba2, 2 (2Le + 3L) + 2 and 2Le + 3L + 2 for seamless; no attention
-     kernel: training takes naive attention, neither package has a flash
+     device-busy share by kernel group. Before each run the first batch's
+     bf16 loss and gradient against f32's on the same weights on the card
+     (`bf16_against_f32`: the loss within 0.05 and, for the attention
+     stacks llama2-7b and seamless-m4t, each part's cosine >= 0.99 and the
+     norm within 5%; the recurrent stacks' cosines are printed). It checks
+     every loss and gradient norm finite, the last loss below the first,
+     the launches a step (`train_step_launches`, from
+     `model.rmsnorm_calls`: the forward's norms, again those remat
+     recomputes, one rmsnorm_bwd a forward norm; no attention kernel:
+     training takes naive attention, neither package has a flash
      backward), and a checkpoint round trip on the card (llama2-7b smoke,
      bf16, through `train_loop`: the restored state bit-equal to the saved
      one, the resumed run's losses and weights equal to a straight run's).
@@ -142,7 +149,10 @@ its phase boundaries and prints where a call's time goes
 (`rmsnorm_bwd_profile`).
 With --decode-sweep it only builds the kernels and times decode_attention at
 each head-group size against SDPA (`decode_sweep`), where `head_groups`'s
-rule in `kernels/decode_attention.py` comes from.
+rule in `kernels/decode_attention.py` comes from. With --decode-profile ARCH
+it only builds the kernels and profiles ARCH's decode steps at full width and
+depth, bf16, seed 0 (`profile_decode`, as phase 5); --src profiles another
+checkout's package, for before/after rows in one call.
 
 Before the last line it prints the card line and one JSON line
 {"kernels": [...]}; the last line is
@@ -172,8 +182,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}  # f16: bf16's bound
 # rmsnorm: the CPU tests' shapes, the main path's, rows around 132 SMs and
-# around rmsnorm_plan's regime threshold (4 rows per SM), and wider rows
-# (d_model of 13B- and 70B-class models)
+# around rmsnorm_plan's regime threshold (4 rows per SM), wider rows (d_model
+# of 13B- and 70B-class models), and phase 7's training steps (2048 rows, the
+# many-rows plan) at every trained width
 RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 4096),
                   (1, 4096), (131, 4096), (132, 4096), (133, 4096), (528, 4096), (529, 4096),
                   (8192, 4096), (8, 5120), (600, 5120), (8, 8192), (600, 8192),
@@ -181,7 +192,8 @@ RMSNORM_SHAPES = [(8, 128), (3, 37, 64), (1, 256), (15, 4096), (512, 4096), (8, 
                   # zamba2-7b's blocks and Mamba2 inner norm, xlstm-1.3b's blocks and
                   # mLSTM inner norm, seamless-m4t's d_model
                   (8, 3584), (512, 3584), (8, 7168), (512, 7168), (8, 2048), (15, 4096),
-                  (8, 1024), (512, 1024)]
+                  (8, 1024), (512, 1024),
+                  (2048, 1024), (2048, 2048), (2048, 3584), (2048, 4096), (2048, 7168)]
 # rmsnorm's backward: the CPU tests' shapes, the training step's (2048, 4096)
 # and (64, 4096), rows around its grid (one and two CTAs per SM: 132 and 264
 # on 132 SMs) and around the forward plan's regime threshold (528), d = 37,
@@ -1070,25 +1082,13 @@ def grads_of(torch, model, params, batch):
 
 
 def train_step_launches(cfg):
-    """(rmsnorm, rmsnorm_bwd) launches of one train step under remat: the
-    forward's norms, again those of every checkpointed block or group as
-    the backward recomputes it, and one backward a forward norm. Dense,
-    vlm, moe and ssm run 2 norms a block (xlstm: the block's and the
-    mLSTM's or sLSTM's inner one), all checkpointed: 4L + 1 and 2L + 1.
-    zamba2 adds the shared block's 2 at each of its ng applications and
-    recomputes only the groups: 2L + 2ng + 1 + 2 ng gs + 2ng and 2L + 2ng
-    + 1. Enc-dec: 2 an encoder layer, 3 a decoder layer and 2 final norms,
-    every layer recomputed: 2 (2Le + 3L) + 2 and 2Le + 3L + 2."""
-    L = cfg.n_layers
-    if cfg.n_encoder_layers:
-        fwd = 2 * cfg.n_encoder_layers + 3 * L + 2
-        return 2 * fwd - 2, fwd
-    if cfg.family == "hybrid":
-        gs = cfg.shared_attn_every
-        ng = L // gs
-        fwd = 2 * L + 2 * ng + 1
-        return fwd + 2 * ng * gs + 2 * ng, fwd
-    return 4 * L + 1, 2 * L + 1
+    """(rmsnorm, rmsnorm_bwd) launches of one train step under remat, from
+    `model.rmsnorm_calls`: the forward's norms and again those of every
+    checkpointed block, group or layer, and one backward a forward norm."""
+    from repro_torch.models.model import rmsnorm_calls
+
+    n, again = rmsnorm_calls(cfg)
+    return n + again, n
 
 
 # phase 4's train steps: (arch, fields replaced on the full config, batch, tokens, AdamW
@@ -1251,20 +1251,17 @@ def phase_full_width(torch):
 def per_forward(cfg):
     """Kernel launches of one prefill and of one decode step, from the
     reference's code: ((rmsnorm, flash_attention), (rmsnorm, decode_attention))."""
+    from repro_torch.models.model import rmsnorm_calls
     from repro_torch.models.transformer import group_shape
 
-    L = cfg.n_layers
-    if cfg.n_encoder_layers:  # encoder 2 per layer + its final norm; decoder 3 per layer
-        Le = cfg.n_encoder_layers  # + the final norm; self, cross (and encoder) attention
-        return (2 * Le + 1 + 3 * L + 1, Le + 2 * L), (3 * L + 1, 2 * L)
-    ng = group_shape(cfg)[0]
-    if cfg.family == "hybrid":  # 2 per Mamba2 block (block + inner), 2 per shared application
-        per = (2 * L + 2 * ng + 1, ng)
-    elif cfg.family == "ssm":  # 2 per mLSTM and per sLSTM block (block + inner), no attention
-        per = (2 * L + 1, 0)
-    else:
-        per = (2 * L + 1, L)
-    return per, per
+    L, norms = cfg.n_layers, rmsnorm_calls(cfg)[0]  # a prefill runs the forward's norms
+    if cfg.n_encoder_layers:  # decode: 3 norms a decoder layer + the final norm;
+        # encoder, self and cross attention at prefill, self and cross at decode
+        return (norms, cfg.n_encoder_layers + 2 * L), (3 * L + 1, 2 * L)
+    # attention: every layer of dense and moe, each shared-block application of
+    # zamba2's ng, none in xlstm
+    attn = {"hybrid": group_shape(cfg)[0], "ssm": 0}.get(cfg.family, L)
+    return (norms, attn), (norms, attn)
 
 
 @contextlib.contextmanager
@@ -1500,14 +1497,21 @@ def phase_capacity(cal, card):
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
-# (arch, fields replaced on the full config, steps): full widths, bf16, remat on
+# (arch, fields replaced on the full config, steps, whether the first batch's bf16
+# gradient is held to f32's (`bf16_against_f32`) or only printed): full widths,
+# bf16, remat on. The recurrent stacks amplify bf16's rounding at random init, so
+# there a correct bf16 gradient points away from f32's, further with depth: the
+# reference's own zamba2-7b at smoke width, 13 layers, has cosines of 0.98 between
+# the two, and the port's drift is held to the reference's on the CPU
+# (tests/test_torch_training_families.py::TestBf16Drift)
 TRAIN_RUNS = [
-    ("llama2-7b", {"n_layers": 16}, 10),  # 16 of 32 layers: 3.50 B parameters, 42 GB
+    ("llama2-7b", {"n_layers": 16}, 10, True),  # 16 of 32 layers: 3.50 B parameters, 42 GB
     # 39 of 81 layers: 6 groups of 6 Mamba2 layers (each followed by the shared
     # block) and 3 remainder layers, ~3.47 B parameters, ~41.6 GB; all 81 need ~81 GB
-    ("zamba2-7b", {"n_layers": 39}, 5),
-    ("xlstm-1.3b", {}, 5),  # all 48 layers (6 groups of 7 mLSTM + 1 sLSTM): ~3.6 B, ~43 GB
-    ("seamless-m4t-large-v2", {}, 5),  # 24 + 24 layers, vocab 256206: ~2.0 B, ~24.5 GB
+    ("zamba2-7b", {"n_layers": 39}, 5, False),
+    # all 48 layers (6 groups of 7 mLSTM + 1 sLSTM): ~3.6 B, ~43 GB
+    ("xlstm-1.3b", {}, 5, False),
+    ("seamless-m4t-large-v2", {}, 5, True),  # 24 + 24 layers, vocab 256206: ~2.0 B, ~24.5 GB
 ]
 
 
@@ -1589,22 +1593,81 @@ def phase_training(torch, card):
     summed."""
     t_phase = time.perf_counter()
     launches = {}
-    for arch, cut, steps in TRAIN_RUNS:
-        for k, v in train_full_width(torch, card, arch, cut, steps).items():
+    for arch, cut, steps, hold in TRAIN_RUNS:
+        for k, v in train_full_width(torch, card, arch, cut, steps, hold).items():
             launches[k] = launches.get(k, 0) + v
     checkpoint_round_trip(torch)
     say(f"phase 7 (training) took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
-def train_full_width(torch, card, arch, cut, steps):
+# the bf16 gradient of phase 7's first batch against the f32 gradient of the same
+# weights and batch: each part of the tree (a stack, the embedding, a final norm)
+# and the whole, and the loss. bf16 rounds each activation to 2^-9, so through
+# the attention stacks the gradient misses f32's by well under a percent; a
+# wrong gradient (a sign, a dropped term, another layer's input) points elsewhere.
+BF16_GRAD_COS = 0.99  # cosine of each part's gradient with f32's, at least
+BF16_GRAD_NORM = 0.05  # |the global norm's ratio to f32's - 1|, at most
+BF16_LOSS = 0.05  # |loss - f32's loss|, at most
+
+
+def bf16_against_f32(torch, cfg, rt, model, params, batch, hold):
+    """The loss and gradient of `batch` under the bf16 `params` on the card
+    against the same weights widened to f32 (an f32 model of `cfg`, the
+    same RuntimeFlags): the loss within BF16_LOSS and, with `hold`, each
+    part's cosine at least BF16_GRAD_COS (a part whose f32 gradient is
+    zero, as xlstm's unread sLSTM ffn_norm, must be zero in bf16 too) and
+    the global norm within BF16_GRAD_NORM of f32's. Returns the line of
+    numbers it compared."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.training import model_batch
+
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), rt)
+    params32 = model32.init(seed=0, device="cuda")
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p)
+    params32.requires_grad_(True)
+    loss32, g32 = grads_of(torch, model32, params32, model_batch(model32, batch, torch.float32))
+    del params32
+    gc.collect()
+    params.requires_grad_(True)
+    loss16, g16 = grads_of(torch, model, params, model_batch(model, batch, params.embed.dtype))
+    parts = {}  # part: [<g16, g32>, |g16|^2, |g32|^2]
+    for name, a in g16.items():
+        b, acc = g32[name], parts.setdefault(name.split(".")[0], [0.0, 0.0, 0.0])
+        a = a.float()
+        acc[0] += float((a * b).sum())
+        acc[1] += float(a.square().sum())
+        acc[2] += float(b.square().sum())
+    del g16, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+    cos = {k: (dot / math.sqrt(n16 * n32) if n32 else float(n16 == 0))
+           for k, (dot, n16, n32) in parts.items()}
+    ratio = math.sqrt(sum(v[1] for v in parts.values()) / sum(v[2] for v in parts.values()))
+    line = (f"loss bf16 {loss16:.5f} vs f32 {loss32:.5f}; gradient norm ratio {ratio:.5f}; "
+            "cosine by part " + ", ".join(f"{k} {v:.5f}" for k, v in cos.items()))
+    check(abs(loss16 - loss32) <= BF16_LOSS, f"{cfg.name}: the bf16 loss is not f32's "
+          f"(within {BF16_LOSS}): {line}")
+    check(not hold or (abs(ratio - 1) <= BF16_GRAD_NORM and min(cos.values()) >= BF16_GRAD_COS),
+          f"{cfg.name}: the bf16 gradient is not f32's (norm within {BF16_GRAD_NORM}, each "
+          f"part's cosine >= {BF16_GRAD_COS}): {line}")
+    return line + ("" if hold else " (gradient printed, not held: a recurrent stack)")
+
+
+def train_full_width(torch, card, arch, cut, steps, hold):
     """`arch` at full width, bf16, depth cut to `cut`, batch TRAIN_BATCH x
     TRAIN_SEQ, remat on, AdamW at lr 3e-4 from `Model.init(seed=0)`: `steps`
     steps of `train_loop` on `SyntheticLM` with the launch counts set to 0
     just before and read just after (`train_step_launches` a step, no
     attention kernel), every loss and gradient norm finite and the last
-    loss below the first; then one profiled step. Returns the train_loop
-    run's launch counts."""
+    loss below the first; before it the first batch's bf16 loss and, with
+    `hold`, gradient held against f32's (`bf16_against_f32`), after it one
+    profiled step.
+    Returns the train_loop run's launch counts."""
     import gc
 
     from repro_torch.configs import get_config
@@ -1617,7 +1680,8 @@ def train_full_width(torch, card, arch, cut, steps):
     full = get_config(arch)
     cfg = dataclasses.replace(full, **cut)
     L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
-    model = build_model(cfg, RuntimeFlags(remat=True))
+    rt = RuntimeFlags(remat=True)
+    model = build_model(cfg, rt)
     params = model.init(seed=0, device="cuda")
     work = train_reckoning(cfg, params, B, S)
     peak = PEAK_FLOPS["bfloat16"]
@@ -1637,6 +1701,12 @@ def train_full_width(torch, card, arch, cut, steps):
     # 3e-4 held (the cosine runs over 1000 steps): at llama2-7b's width 1e-3 and
     # 3e-3 made the loss rise within 10 steps (PERF.md §6)
     oc = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=1000)
+    first = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(dc).batch(0).items()}
+    t_check = time.perf_counter()
+    say(f"{arch} first batch, bf16 against f32 on the card: "
+        f"{bf16_against_f32(torch, cfg, rt, model, params, first, hold)}; "
+        f"{time.perf_counter() - t_check:.1f} s")
+    del first
     marks = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2180,6 +2250,9 @@ def main() -> int:
                          "call's time goes (rmsnorm_bwd_profile)")
     ap.add_argument("--decode-sweep", action="store_true",
                     help="only build and time decode_attention's head groups (decode_sweep)")
+    ap.add_argument("--decode-profile", metavar="ARCH",
+                    help="only build and profile ARCH's decode steps at full width "
+                         "(profile_decode)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive (default: beside "
                          "this script)")
@@ -2220,6 +2293,18 @@ def main() -> int:
         _build.library()
         decode_sweep(torch, Timer(torch))
         say(f"decode sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+    if args.decode_profile:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.models import build_model
+
+        _build.library()
+        cfg = get_config(args.decode_profile)
+        model = build_model(cfg)
+        say(f"{cfg.name} full width, {cfg.n_layers} layers, {cfg.dtype}, package {src}")
+        profile_decode(torch, model, model.init(seed=0, device="cuda"), cfg, 8, 576)
+        say(f"decode profile done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
     phase_build()
     rows = phase_kernels(torch, Timer(torch))

@@ -21,8 +21,8 @@ Kernel launches per forward, L decoder and Le encoder layers: prefill 2 Le
 + 1 + 3 L + 1 rmsnorm and Le + 2 L flash; a decode step 3 L + 1 rmsnorm and
 2 L decode_attention (self and cross). `encdec_forward` is the training
 path: differentiable, with naive or chunked attention and, under remat,
-each encoder and decoder layer recomputed in the backward, so a train step
-runs 2 (2 Le + 3 L) + 2 rmsnorm and 2 Le + 3 L + 2 rmsnorm_bwd.
+each encoder and decoder layer recomputed in the backward
+(`model.rmsnorm_calls` counts a train step's norms).
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ from ..configs.base import ModelConfig
 from . import encdec, transformer
 from .common import RuntimeFlags, resolve_device
 
-__all__ = ["Model", "build_model", "Params", "cross_entropy_loss"]
+__all__ = ["Model", "build_model", "Params", "cross_entropy_loss", "rmsnorm_calls"]
 
 Params = Union[transformer.Decoder, encdec.EncDec]
 
@@ -46,6 +46,25 @@ def cross_entropy_loss(
     lse = torch.logsumexp(logits.float(), dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - picked.to(torch.bfloat16).float())
+
+
+def rmsnorm_calls(cfg: ModelConfig) -> Tuple[int, int]:
+    """(rmsnorm calls of one forward, those a remat backward runs again).
+    A forward runs 2 a block (an mLSTM, sLSTM or Mamba2 block: its own and
+    its inner norm) and the final norm; zamba2 adds the shared block's 2 at
+    each of its ng applications; enc-dec runs 2 an encoder layer, 3 a
+    decoder layer and 2 final norms. Remat recomputes every block, each
+    zamba2 group (not the remainder layers) and every encoder and decoder
+    layer. So a train step calls the forward kernel n + again times under
+    remat (n without) and the backward kernel n times."""
+    L = cfg.n_layers
+    if cfg.n_encoder_layers:
+        n = 2 * cfg.n_encoder_layers + 3 * L + 2
+        return n, n - 2
+    if cfg.family == "hybrid":
+        ng, gs, _ = transformer.group_shape(cfg)
+        return 2 * L + 2 * ng + 1, 2 * ng * gs + 2 * ng
+    return 2 * L + 1, 2 * L
 
 
 @dataclasses.dataclass(frozen=True)

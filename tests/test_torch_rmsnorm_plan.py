@@ -62,6 +62,15 @@ class TestPlan:
         else:  # many rows: several per CTA, unless one row fills the CTA's registers
             assert rows > 1 or 2 * tpr > max_threads(vpt, vec)
 
+    @pytest.mark.parametrize("itemsize", [4, 2])  # f32, bf16
+    @pytest.mark.parametrize("d", [1024, 2048, 3584, 4096, 7168])
+    def test_trained_family_widths(self, d, itemsize):
+        """The training steps' 2048 rows take the many-rows plan at every
+        trained width, and its threads and vectors cover each row within
+        the launch bounds."""
+        assert 2048 > FEW_ROWS_PER_SM * N_SM
+        self.test_covers_row_within_bounds(2048, d, itemsize, vec=True)
+
     def test_regime_changes_at_the_threshold(self):
         edge = FEW_ROWS_PER_SM * N_SM
         assert rmsnorm_plan(edge, 4096, 2, N_SM)[0] == 1
