@@ -108,7 +108,16 @@ Phases, each of which must pass or the script exits non-zero:
      beside the card line, and checks that every sweep point scored a job,
      every satisfaction lies in [0, 1], every capacity is finite and no
      larger than the largest rate swept, and that the measured callable
-     gives prefill + decode at 15/15. Capacities are findings, not checks;
+     gives prefill + decode at 15/15. Capacities are findings, not checks.
+     Then ICC on the measured service at the scaled budget, at the whole-UE
+     rate nearest its capacity there, 3 seeds (`faults_and_controllers`):
+     fault-free, an empty `FaultSpec()`, three one-second node outages and
+     a brownout with the lost jobs redispatched and dropped, and each
+     controller preset (static, reactive, slack_aware_joint), printing
+     satisfaction and drops by reason; it checks that the static preset
+     and the empty spec leave every field of the result as the plain run's,
+     every satisfaction in [0, 1], and that with redispatch off the crashes
+     drop at least one job with reason node_failure;
   7. training at full width, bf16, batch 4 x 512, remat on, AdamW at lr
      3e-4 from `Model.init(seed=0)`, on `SyntheticLM` through `train_loop`
      with the launch counts set to 0 just before each run: llama2-7b, 16 of
@@ -133,7 +142,19 @@ Phases, each of which must pass or the script exits non-zero:
      training takes naive attention, neither package has a flash
      backward), and a checkpoint round trip on the card (llama2-7b smoke,
      bf16, through `train_loop`: the restored state bit-equal to the saved
-     one, the resumed run's losses and weights equal to a straight run's).
+     one, the resumed run's losses and weights equal to a straight run's);
+  8. the dry run (`launch.dryrun`, host only: meta tensors, nothing
+     computed, nothing on the card) of every assigned arch and llama2-7b x
+     train_4k, prefill_32k, decode_32k and long_500k in a spawned pool, one
+     line a case (peak memory and its parts, whether it fits one card, dot
+     flops, the roofline terms under `launch.roofline.H100`): every case
+     ok but seamless-m4t x long_500k, the documented skip. Then it holds
+     the dry run against the card: each of phase 7's four configs counted
+     the same way, its peak within 10% of the run's measured
+     `max_memory_allocated` and, for llama2-7b and seamless-m4t, its dot
+     flops within 2% of `train_reckoning`'s issued flops (zamba2 and xlstm
+     printed: the counter also sees the recurrences' own products), and
+     `H100.hbm_bytes` within 1% of the card's `total_memory`.
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -178,8 +199,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
+# the card's peaks: `repro_torch.launch.roofline.H100`, read in main() once the
+# package is importable (3.35 TB/s; dense tensor-core bf16, f32 FMA)
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = {}
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}  # f16: bf16's bound
 # rmsnorm: the CPU tests' shapes, the main path's, rows around 132 SMs and
 # around rmsnorm_plan's regime threshold (4 rows per SM), wider rows (d_model
@@ -1455,7 +1478,8 @@ def phase_capacity(cal, card):
     """Fig. 6 on the port's simulator: the analytic H100 service time at the
     paper's 80 ms budget, then llama2-7b's measured one (phase 5's 15/15
     calibration) at 80 ms and at the scaled budget (`launch.capacity.run`,
-    serial sweeps)."""
+    serial sweeps); then faults and controllers near the scaled budget's ICC
+    capacity (`faults_and_controllers`)."""
     from repro_torch.core.latency_model import H100, LLAMA2_7B, ModelService
     from repro_torch.core.scheduler import Job
     from repro_torch.launch.capacity import run
@@ -1473,6 +1497,7 @@ def phase_capacity(cal, card):
                                ("measured", measured, "paper"),
                                ("measured", measured, "scaled")):
         r = run(svc, budget=budget, sim_time=CAPACITY_SIM_TIME, n_seeds=CAPACITY_SEEDS, log=say)
+        scaled_icc = r["schemes"]["icc"]["capacity"]
         name = f"{label}, budget {budget}"
         for scheme, s in r["schemes"].items():
             check(all(n >= 1 for n in s["n_jobs"]),
@@ -1488,8 +1513,69 @@ def phase_capacity(cal, card):
             f"{r['k']:.4f}, b_total {r['b_total_ms']:.2f} ms, rates {r['rates']}; ICC "
             f"{caps['icc']:.3f}, disjoint_ran {caps['disjoint_ran']:.3f}, disjoint_mec "
             f"{mec:.3f} prompts/s; ICC/MEC {ratio}; {calib}; card {card}")
+    faults_and_controllers(measured, scaled_icc, calib, card)
     say(f"phase 6 (capacity, {CAPACITY_SEEDS} seeds, sim_time {CAPACITY_SIM_TIME:g} s at 80 ms) took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+# phase 6's fault runs: three one-second outages of the node and a brownout
+# (service twice as long) inside the scored span of Fig. 6's 30 s
+FAULT_OUTAGES = ((8.0, 9.0), (15.0, 16.0), (22.0, 23.0))
+FAULT_BROWNOUT = (11.0, 14.0, 2.0)  # start, end, slow factor
+
+
+def faults_and_controllers(measured, capacity, calib, card):
+    """ICC on llama2-7b's measured service at the scaled budget, at the
+    whole-UE rate nearest ICC's capacity there, CAPACITY_SEEDS seeds (those
+    of the sweep): fault-free; an empty FaultSpec; FAULT_OUTAGES and
+    FAULT_BROWNOUT with the lost jobs redispatched and dropped; each
+    controller preset. Checks that the static preset and the empty spec
+    leave every field of every result as the plain run's, that every
+    satisfaction lies in [0, 1] and that with redispatch off the crashes
+    drop at least one job with reason node_failure."""
+    from repro_torch.core.simulator import simulate
+    from repro_torch.faults import Brownout, FaultSpec, NodeOutage
+    from repro_torch.launch.capacity import budgeted
+
+    t0 = time.perf_counter()
+    service_s, k, schemes, base = budgeted(measured, "scaled", CAPACITY_SIM_TIME)
+    n_ues = max(1, int(round(capacity)))
+    spec = FaultSpec(node_outages=tuple(NodeOutage("node", a, b) for a, b in FAULT_OUTAGES),
+                     brownouts=(Brownout("node", *FAULT_BROWNOUT),))
+    runs = {"no faults, no controller": {}, "FaultSpec()": {"faults": FaultSpec()},
+            "faults, redispatch": {"faults": spec},
+            "faults, no redispatch": {"faults": dataclasses.replace(spec, redispatch=False)},
+            "controller static": {"controller": "static"},
+            "controller reactive": {"controller": "reactive"},
+            "controller slack_aware_joint": {"controller": "slack_aware_joint"}}
+    res = {name: [simulate(schemes["icc"], dataclasses.replace(base, n_ues=n_ues,
+                                                               seed=base.seed + 1000 * i),
+                           measured, **kw) for i in range(CAPACITY_SEEDS)]
+           for name, kw in runs.items()}
+
+    def fields(r):
+        return repr({f: v for f, v in dataclasses.asdict(r).items() if f != "profile"})
+
+    plain = [fields(r) for r in res["no faults, no controller"]]
+    for name in ("FaultSpec()", "controller static"):
+        check([fields(r) for r in res[name]] == plain,
+              f"{name}: a result differs from the plain run's")
+    for name, rs in res.items():
+        sats = [r.satisfaction for r in rs]
+        check(all(0.0 <= x <= 1.0 for x in sats), f"{name}: satisfaction outside [0, 1]: {sats}")
+        drops = {}
+        for r in rs:
+            for why, n in (r.drop_reasons or {}).items():
+                drops[why] = drops.get(why, 0) + n
+        say(f"faults/controllers ({name}): ICC at {n_ues} UEs, scaled budget (k {k:.4f}, "
+            f"b_total {base.b_total * 1e3:.2f} ms, service {service_s * 1e3:.3f} ms), "
+            f"satisfaction {statistics.mean(sats):.4f} (seeds {[round(x, 4) for x in sats]}), "
+            f"jobs {sum(r.n_jobs for r in rs)}, drops by reason {drops}")
+    lost = sum((r.drop_reasons or {}).get("node_failure", 0) for r in res["faults, no redispatch"])
+    check(lost >= 1, "with redispatch off the crashes dropped no job with reason node_failure")
+    say(f"faults/controllers: outages {FAULT_OUTAGES} s, brownout {FAULT_BROWNOUT} (start, end, "
+        f"factor); static preset and FaultSpec() equal the plain run field for field; {calib}; "
+        f"card {card}; {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1537,24 +1623,30 @@ def train_reckoning(cfg, params, B, S):
     backward (3x) over the causal half, or the whole square where it is not
     causal; the recurrent scans' own products, Mamba2's intra-chunk form and
     mLSTM's, are not counted), the flops issued (remat runs the checkpointed
-    blocks' or groups' forward again: 2 N_ckpt T; naive attention computes
-    the full square, 4 times), and the bytes the AdamW pass must move (22 a
-    parameter: bf16 p and g read, p written, f32 mu and nu read and
-    written)."""
+    blocks' or groups' forward again, 2 N_ckpt T, less each one's last
+    product: PyTorch's non-reentrant checkpoint stops recomputing once the
+    tensors the backward needs are back, and the final MLP projection's
+    output, w2 or the sLSTM's ffn_w2, is not among them; naive attention
+    computes the full square, 4 times), and the bytes the AdamW pass must
+    move (22 a parameter: bf16 p and g read, p written, f32 mu and nu read
+    and written)."""
     T = B * S
     n = sum(p.numel() for p in params.parameters())
     count = lambda m: sum(p.numel() for p in m.parameters())  # noqa: E731
     n_mm = n - params.embed.numel()
     if cfg.n_encoder_layers:
-        n_ckpt = count(params.enc_layers) + count(params.dec_layers)
+        n_ckpt = count(params.enc_layers) + count(params.dec_layers) - sum(
+            lp.mlp.w2.numel() for lp in (*params.enc_layers, *params.dec_layers))
     elif cfg.family == "hybrid":
         ng = cfg.n_layers // cfg.shared_attn_every
         n_mm += (ng - 1) * count(params.shared)
-        n_ckpt = count(params.mamba_groups) + ng * count(params.shared)
+        n_ckpt = count(params.mamba_groups) + ng * (count(params.shared)
+                                                    - params.shared.mlp.w2.numel())
     elif cfg.family == "ssm":
-        n_ckpt = count(params.mlstm_groups) + count(params.slstm_blocks)
+        n_ckpt = count(params.mlstm_groups) + count(params.slstm_blocks) - sum(
+            b.slstm.ffn_w2.numel() for b in params.slstm_blocks)
     else:
-        n_ckpt = count(params.layers)
+        n_ckpt = count(params.layers) - sum(lp.mlp.w2.numel() for lp in params.layers)
     squares = attention_squares(cfg, B, S)
     return {
         "params": n,
@@ -1590,15 +1682,16 @@ def timed_updates(torch, marks):
 def phase_training(torch, card):
     """Each config of TRAIN_RUNS at full width (`train_full_width`), then a
     checkpoint round trip. Returns the train_loop runs' launch counts,
-    summed."""
+    summed, and each run's peak device memory (bytes) by arch."""
     t_phase = time.perf_counter()
-    launches = {}
+    launches, peaks = {}, {}
     for arch, cut, steps, hold in TRAIN_RUNS:
-        for k, v in train_full_width(torch, card, arch, cut, steps, hold).items():
+        counts, peaks[arch] = train_full_width(torch, card, arch, cut, steps, hold)
+        for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     checkpoint_round_trip(torch)
     say(f"phase 7 (training) took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, peaks
 
 
 # the bf16 gradient of phase 7's first batch against the f32 gradient of the same
@@ -1667,7 +1760,8 @@ def train_full_width(torch, card, arch, cut, steps, hold):
     loss below the first; before it the first batch's bf16 loss and, with
     `hold`, gradient held against f32's (`bf16_against_f32`), after it one
     profiled step.
-    Returns the train_loop run's launch counts."""
+    Returns the train_loop run's launch counts and its peak device memory
+    (`max_memory_allocated`, bytes)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -1695,8 +1789,9 @@ def train_full_width(torch, card, arch, cut, steps, hold):
         f"{work['model_flops'] / 1e12:.2f} TFLOP (6 N T for the matmul parameters as applied, "
         f"plus attention; recurrent scans not counted), issued "
         f"{work['issued_flops'] / 1e12:.2f} TFLOP ({work['issued_flops'] / peak * 1e3:.1f} ms at "
-        f"989 TFLOP/s), AdamW {work['adamw_bytes'] / 1e9:.1f} GB; bound {fb_bound:.1f} ms (model "
-        f"flops at 989 TFLOP/s) + {opt_bound:.1f} ms (AdamW at 3.35 TB/s)")
+        f"{peak / 1e12:g} TFLOP/s), AdamW {work['adamw_bytes'] / 1e9:.1f} GB; bound "
+        f"{fb_bound:.1f} ms (model flops at {peak / 1e12:g} TFLOP/s) + {opt_bound:.1f} ms (AdamW "
+        f"at {HBM_BYTES_PER_S / 1e12:g} TB/s)")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B)
     # 3e-4 held (the cosine runs over 1000 steps): at llama2-7b's width 1e-3 and
     # 3e-3 made the loss rise within 10 steps (PERF.md §6)
@@ -1740,8 +1835,9 @@ def train_full_width(torch, card, arch, cut, steps, hold):
         f"optimizer {mean_opt * 1e3:.3f} ms (bound {fb_bound:.1f} + {opt_bound:.1f}); "
         f"{B * S / mean_step:.1f} tokens/s; model-flop share "
         f"{work['model_flops'] / mean_step / peak:.4f} and issued-flop share "
-        f"{work['issued_flops'] / mean_step / peak:.4f} of 989 TFLOP/s; optimizer "
-        f"{work['adamw_bytes'] / mean_opt / 1e12:.3f} TB/s of 3.35; peak device memory "
+        f"{work['issued_flops'] / mean_step / peak:.4f} of {peak / 1e12:g} TFLOP/s; optimizer "
+        f"{work['adamw_bytes'] / mean_opt / 1e12:.3f} TB/s of {HBM_BYTES_PER_S / 1e12:g}; peak "
+        f"device memory "
         f"{mem / 2**30:.2f} GiB; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} (ln V "
         f"{math.log(cfg.vocab_size):.4f}, stream floor {dc.loss_floor:.4f}); card {card}")
 
@@ -1778,7 +1874,7 @@ def train_full_width(torch, card, arch, cut, steps, hold):
     del params, state, batch, grads, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, mem
 
 
 def checkpoint_round_trip(torch):
@@ -1833,6 +1929,78 @@ def checkpoint_round_trip(torch):
     say(f"checkpoint round trip on the card (llama2-7b smoke, bf16): {n_entries} entries "
         f"restored bit-equal and written again byte-equal; steps 4-7 resumed equal the "
         f"straight run's losses {straight} and weights, bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the dry run (meta device, host only) held against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_MEMORY_TOL = 0.10  # |dry-run peak / max_memory_allocated - 1|, at most
+DRYRUN_FLOPS_TOL = 0.02  # |counted flops / train_reckoning's issued - 1|, at most
+DRYRUN_HBM_TOL = 0.01  # |H100.hbm_bytes / total_memory - 1|, at most
+DRYRUN_FLOPS_HELD = ("llama2-7b", "seamless-m4t-large-v2")  # no recurrent products
+
+
+def phase_dryrun(torch, peaks, card):
+    """`launch.dryrun` on every assigned arch and llama2-7b x the four
+    shapes (a spawned pool, one process a core: nothing computed, nothing
+    on the card), one line a case: every case ok but seamless-m4t x
+    long_500k, the documented skip. Then the same counting of each TRAIN_RUNS
+    config's phase-7 step (4 x 512, bf16, remat, AdamW) held against the
+    card: its peak within DRYRUN_MEMORY_TOL of phase 7's measured
+    `max_memory_allocated` (`peaks`, bytes by arch), its dot flops within
+    DRYRUN_FLOPS_TOL of `train_reckoning`'s issued flops for the attention
+    stacks (zamba2 and xlstm printed: the reckoning leaves out the
+    recurrences' own products, which the counter sees), and `H100.hbm_bytes`
+    within DRYRUN_HBM_TOL of the card's `total_memory`."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import H100
+    from repro_torch.launch.specs import SHAPES, ShapeSpec, build_case
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    say(f"H100.hbm_bytes {H100.hbm_bytes:.0f} against the card's total_memory {total} "
+        f"(ratio {H100.hbm_bytes / total:.5f}); card {card}")
+    check(abs(H100.hbm_bytes / total - 1) <= DRYRUN_HBM_TOL,
+          f"H100.hbm_bytes {H100.hbm_bytes} is not the card's {total} (within {DRYRUN_HBM_TOL})")
+    train = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
+    grid = [(a, s) for a in dryrun.ASSIGNED + ["llama2-7b"] for s in SHAPES]
+    held = [(arch, train, cut) for arch, cut, _, _ in TRAIN_RUNS]
+    recs = dryrun.run_cases(grid + held, str(ROOT / dryrun.OUT))
+    for r in recs:
+        say(f"dryrun {dryrun.case_line(r)}")
+    status = {st: [r["case"] for r in recs[:len(grid)] if r["status"] == st]
+              for st in ("ok", "skipped", "error")}
+    check(not status["error"] and all(r["status"] == "ok" for r in recs[len(grid):]),
+          f"dry-run cases failed: {[r['case'] for r in recs if r['status'] == 'error']}")
+    check(status["skipped"] == ["seamless-m4t-large-v2__long_500k__h100"],
+          f"skipped: {status['skipped']} (only seamless-m4t x long_500k may be)")
+    fits = [r["case"] for r in recs[:len(grid)] if r["status"] == "ok"
+            and r["memory"]["fits_h100"]]
+    say(f"dry run: {len(status['ok'])} ok, {len(status['skipped'])} skipped, 0 errors; "
+        f"{len(fits)} fit one card: {fits}")
+    for (arch, _, cut), r in zip(held, recs[len(grid):]):
+        peak = r["memory"]["peak_gb"] * 1e9
+        ratio = peak / peaks[arch]
+        case = build_case(arch, train, cfg_kwargs=cut)
+        issued = train_reckoning(case.cfg, case.args[0], TRAIN_BATCH, TRAIN_SEQ)["issued_flops"]
+        f_ratio = r["cost"]["flops"] / issued
+        say(f"dry run against phase 7, {arch} {cut or 'all layers'} at {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}: peak {peak / 2**30:.2f} GiB against max_memory_allocated "
+            f"{peaks[arch] / 2**30:.2f} GiB (ratio {ratio:.4f}; parts GiB "
+            + ", ".join(f"{k} {r['memory'][k + '_gb'] * 1e9 / 2**30:.2f}"
+                        for k in ("params", "grads", "moments", "inputs", "other"))
+            + f"); dot flops {r['cost']['flops']:.6g} against train_reckoning's issued "
+            f"{issued:.6g} (ratio {f_ratio:.5f}"
+            + ("" if arch in DRYRUN_FLOPS_HELD else ", printed: the counter also sees the "
+               "recurrences' own products") + f"); card {card}")
+        check(abs(ratio - 1) <= DRYRUN_MEMORY_TOL, f"{arch}: dry-run peak {peak:.0f} B is not "
+              f"phase 7's {peaks[arch]} B (within {DRYRUN_MEMORY_TOL})")
+        check(arch not in DRYRUN_FLOPS_HELD or abs(f_ratio - 1) <= DRYRUN_FLOPS_TOL,
+              f"{arch}: dry-run flops {r['cost']['flops']} are not train_reckoning's {issued} "
+              f"(within {DRYRUN_FLOPS_TOL})")
+    say(f"phase 8 (dry run, {len(recs)} cases in a pool of {len(os.sched_getaffinity(0))}) "
+        f"took {time.perf_counter() - t0:.1f} s")
 
 
 def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
@@ -2264,6 +2432,12 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import torch
 
+    from repro_torch.launch.roofline import H100
+
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = H100.hbm_bw
+    PEAK_FLOPS.update(bfloat16=H100.flops, float32=H100.flops_f32)
+
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -2311,8 +2485,10 @@ def main() -> int:
     phase_smoke_model(torch)
     launches, cal = phase_full_width(torch)
     phase_capacity(cal["llama2-7b"], card)
-    for k, v in phase_training(torch, card).items():
+    trained, peaks = phase_training(torch, card)
+    for k, v in trained.items():
         launches[k] = launches.get(k, 0) + v
+    phase_dryrun(torch, peaks, card)
 
     seen = set()
     kernels = []

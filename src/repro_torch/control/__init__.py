@@ -1,8 +1,16 @@
-"""repro_torch.control — arrival processes for the slot simulator.
+"""repro_torch.control — joint bandwidth-compute control (the port's copy of
+`repro/control`).
 
-The port's `control` holds only `arrivals.py` (stationary Poisson,
-piecewise, diurnal, flash-crowd and MMPP rates), which `core.simulator`
-imports. Mobility, the controllers and their presets are not ported yet.
+  arrivals.py     non-stationary arrival processes (piecewise / diurnal /
+                  MMPP / flash crowd) behind an abstraction whose
+                  stationary case is the plain Poisson engine
+  mobility.py     UE roaming between cells with Xn-handover re-homing of
+                  in-flight uplink state (its simulator, `network/`, is not
+                  ported yet)
+  controllers.py  the online control loop: epoch observations -> actions
+                  on bandwidth partition, admission, and routing retargets
+  policy.py       controller presets (static / reactive /
+                  slack_aware_joint) + the shared ControlState
 """
 
 from .arrivals import (
@@ -15,6 +23,26 @@ from .arrivals import (
     PoissonProcess,
     bind_arrivals,
 )
+from .controllers import (
+    Actions,
+    CellObs,
+    Controller,
+    NodeObs,
+    Observation,
+    ReactiveController,
+    SlackAwareJointController,
+    StaticController,
+    control_epoch,
+)
+from .mobility import HandoverEvent, MobilityConfig, MobilityModel
+from .policy import (
+    CONTROLLERS,
+    ControlState,
+    ControllerLike,
+    get_controller,
+    list_controllers,
+    validate_controller,
+)
 
 __all__ = [
     "MMPP",
@@ -25,4 +53,22 @@ __all__ = [
     "PiecewiseRate",
     "PoissonProcess",
     "bind_arrivals",
+    "Actions",
+    "CellObs",
+    "Controller",
+    "NodeObs",
+    "Observation",
+    "ReactiveController",
+    "SlackAwareJointController",
+    "StaticController",
+    "control_epoch",
+    "HandoverEvent",
+    "MobilityConfig",
+    "MobilityModel",
+    "CONTROLLERS",
+    "ControlState",
+    "ControllerLike",
+    "get_controller",
+    "list_controllers",
+    "validate_controller",
 ]

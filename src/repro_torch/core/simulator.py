@@ -26,11 +26,9 @@ Satisfaction (Def. 1): joint   -> T_E2E <= b_total;
                                   AND T_comp <= b_comp.
 
 This is the port's copy of `repro/core/simulator.py`, draw for draw: fixed
-seeds give the same `SimResult`s. The control loop (`controller=`) and
-fault injection (`faults=`) need `control/controllers.py`,
-`control/policy.py` and `faults/`, which the port does not have yet;
-`simulate` raises `NotImplementedError` for either rather than run
-without it.
+seeds give the same `SimResult`s, with the control loop (`controller=`) and
+fault injection (`faults=`). Link faults need the multi-cell simulator
+(`network/`), which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -700,7 +698,7 @@ def simulate(
     service_time: Optional[Callable[[Job], float]] = None,
     node_factory: Optional[Callable[[], "ComputeNodeProtocol"]] = None,
     fast: bool = True,
-    controller=None,
+    controller: "Optional[ControllerLike]" = None,
     recorder=None,
     faults=None,
     profiler=None,
@@ -714,8 +712,11 @@ def simulate(
     supplies any `ComputeNodeProtocol` implementation (e.g. a configured
     `repro.batching.BatchedComputeNode`); exactly one must be given.
 
-    `controller` (the reference's joint bandwidth-compute control loop)
-    raises `NotImplementedError` in the port until `control/` is ported.
+    `controller` (a `repro_torch.control` preset name or Controller instance)
+    runs the joint bandwidth-compute control loop on its epoch: admission
+    gating at generation and urgent-class uplink weights (single-cell runs
+    have no routing to retarget). The idle-slot fast-forward is clamped at
+    controller epochs so the loop observes on schedule even in idle spans.
 
     `recorder` (a `repro.telemetry` TraceRecorder) captures per-job
     lifecycle events, stage-latency breakdowns, and sampled probe series;
@@ -723,9 +724,13 @@ def simulate(
     ``result.telemetry``. The default (None / NullRecorder) is free: traced
     and untraced runs are bit-identical apart from the attachment.
 
-    `faults` (the reference's `repro.faults.FaultSpec`): None or an empty
-    spec is free; a non-empty one raises `NotImplementedError` in the
-    port until `faults/` is ported.
+    `faults` (a `repro_torch.faults.FaultSpec`) injects node crashes and
+    brownouts on a seeded, slot-snapped timeline: a crash loses the
+    queue and the in-flight work, and the affected jobs are re-submitted
+    (served from scratch after recovery) or dropped with reason
+    ``node_failure`` per the spec's ``redispatch`` knob. Link faults
+    need the multi-cell simulator. None / an empty spec is free —
+    fixed-seed results stay bit-identical to the fault-free engine.
 
     `profiler` (a `repro.telemetry.profile.PhaseProfiler`) attributes the
     run's host wall-clock to engine phases and attaches the rollup as
@@ -741,12 +746,9 @@ def simulate(
     if (service_time is None) == (node_factory is None):
         raise ValueError("pass exactly one of service_time / node_factory")
     if controller is not None:
-        raise NotImplementedError(
-            "controller= needs repro_torch/control/controllers.py and "
-            "control/policy.py, which are not ported yet")
-    if faults is not None and not faults.empty:
-        raise NotImplementedError(
-            "faults= needs repro_torch/faults/, which is not ported yet")
+        from ..control import validate_controller
+
+        validate_controller(controller)  # unknown presets fail before setup
     rec = _active_recorder(recorder)
     rng = np.random.default_rng(sim.seed)
     if node_factory is not None:
@@ -758,6 +760,12 @@ def simulate(
             drop_infeasible=scheme.drop_infeasible,
             comp_budget=scheme.b_comp if scheme.management == "disjoint" else None,
         )
+    ctl = state = None
+    if controller is not None:
+        from ..control import ControlState, control_epoch, get_controller
+
+        ctl = get_controller(controller)
+        state = ControlState(n_cells=1)
     engine = SlotEngine(
         sim,
         rng,
@@ -765,24 +773,107 @@ def simulate(
         wireline=lambda job, t: scheme.t_wireline,
         deliver=node.submit,
         fast=fast,
-        gate=None,
+        gate=state.gate if state is not None else None,
         recorder=rec,
         profiler=prof,
     )
     if prof is not None and hasattr(node, "profiler"):
         node.profiler = prof  # batched nodes time their admission path
     s, n_slots = 0, engine.n_slots
+    # ---------------------------------------------------- fault injection
+    # Opt-in (sched stays None otherwise — the loop below is untouched).
+    sched = None
+    fevents: collections.deque = collections.deque()
+    if faults is not None and not faults.empty:
+        if faults.link_outages:
+            raise ValueError(
+                "link faults need the multi-cell simulator "
+                "(network/, which the port does not have yet)")
+        from ..faults import bind_faults
+        from ..faults.schedule import NODE_FAIL
+
+        sched = bind_faults(faults, engine.slot, sim.sim_time, sim.seed)
+        if sched.has_brownouts():
+            node.speed_scale = lambda t: sched.slow_factor(None, t)
+        # (slot, t, kind, name): slot-snapped instants, time-sorted
+        fevents = collections.deque(
+            (int(round(t / engine.slot)), t, kind, name)
+            for t, kind, name in sched.node_events()
+        )
+
+        def fault_event(t_ev: float, kind: str, name: str) -> None:
+            if kind == NODE_FAIL:
+                node.run_until(t_ev)
+                until = sched.down_until(None, t_ev) or t_ev
+                affected = node.crash(t_ev, until)
+                fe = getattr(rec, "fault_event", None)
+                if fe is not None:
+                    fe(t_ev, kind, name, n_affected=len(affected))
+                for job in affected:
+                    if sched.redispatch:
+                        # single node: re-queue here; service restarts
+                        # from scratch once the node recovers
+                        if rec is not None:
+                            rec.job_event("redispatch", job.uid, t_ev,
+                                          route="node")
+                        node.submit(job)
+                    else:
+                        job.dropped = True
+                        job.drop_reason = "node_failure"
+                        if rec is not None:
+                            rec.job_event("drop", job.uid, t_ev,
+                                          stage="node",
+                                          reason="node_failure")
+            else:
+                fe = getattr(rec, "fault_event", None)
+                if fe is not None:
+                    fe(t_ev, kind, name)
     sample_stride = next_sample = 0
     if rec is not None:
         node.recorder = rec
         sample_stride = max(
             1, int(round(getattr(rec, "sample_every_s", 0.01) / engine.slot))
         )
+    if ctl is not None:
+        epoch_slots = max(1, int(round(ctl.epoch_s / engine.slot)))
+        next_epoch = epoch_slots
+        # effective per-job service for the controller's throughput math;
+        # a protocol-conforming node without a latency model falls back to
+        # the scheme's compute sub-budget as a coarse estimate
+        proto = Job(-1, -1, 0.0, sim.n_input, sim.n_output, sim.b_total)
+        if service_time is not None:
+            svc = service_time(proto)
+        else:
+            lm = getattr(node, "lm", None)
+            svc = (
+                lm.job_latency(sim.n_input, sim.n_output)
+                if lm is not None else scheme.b_comp
+            )
+        svc_s = {"node": svc / max(getattr(node, "max_batch", 1), 1)}
     # phase attribution: laps chain through one carried mark (`tm`), so
     # consecutive phases tile the loop's timeline with no gaps — loop
     # bookkeeping lands in the adjacent phase and coverage stays ~100%
     tm = prof.lap("setup", t_enter) if prof is not None else 0.0
     while s < n_slots:
+        if fevents and fevents[0][0] <= s:
+            while fevents and fevents[0][0] <= s:
+                _, t_ev, kind, name = fevents.popleft()
+                fault_event(t_ev, kind, name)
+            if prof is not None:
+                tm = prof.lap("faults", tm)
+        if ctl is not None and s >= next_epoch:
+            now_ep = s * engine.slot
+            control_epoch(
+                ctl, state, now_ep, sim.b_total, [engine],
+                [("node", node, 0)], svc_s, recorder=rec,
+                down_nodes=(
+                    {"node"} if sched is not None
+                    and sched.node_down(None, now_ep) else None
+                ),
+            )
+            next_epoch += epoch_slots
+            if prof is not None:
+                tm = prof.lap("controller", tm)
         if engine.can_skip():
             # idle-slot fast-forward: jump to the next arrival-process
             # event, clamped at the next controller epoch — and, when
@@ -792,6 +883,12 @@ def simulate(
             # queue-depth series to cover those spans). Results are
             # unaffected: skipping is a pure performance path.
             nxt = engine.next_event_at_or_after(s)
+            if fevents:
+                # never skip over a crash/recover instant: the crash must
+                # execute at its scheduled slot, not late
+                nxt = min(nxt, fevents[0][0])
+            if ctl is not None:
+                nxt = min(nxt, next_epoch)
             if rec is not None:
                 nxt = min(nxt, next_sample)
             if nxt > s:
@@ -823,9 +920,12 @@ def simulate(
             if prof is not None:
                 tm = prof.lap("probes", tm)
         s += 1
+    while fevents:  # recoveries snapped past the last slot (telemetry)
+        _, t_ev, kind, name = fevents.popleft()
+        fault_event(t_ev, kind, name)
     node.run_until(float("inf"))
     if prof is not None:
-        tm = prof.lap("compute", tm)  # final drain
+        tm = prof.lap("compute", tm)  # final drain (+ post-loop recoveries)
     result = score_jobs(
         engine.jobs,
         sim,

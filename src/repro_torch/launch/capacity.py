@@ -32,7 +32,7 @@ import json
 import math
 import os
 import subprocess
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,7 +41,8 @@ from ..core.latency_model import GH200_NVL2, H100, LLAMA2_7B, ModelService
 from ..core.scheduler import Job
 from ..core.simulator import SCHEMES, SchemeConfig, SimConfig
 
-__all__ = ["PAPER_SERVICE", "card_line", "default_rates", "main", "measured_service", "run"]
+__all__ = ["PAPER_SERVICE", "budgeted", "card_line", "default_rates", "main", "measured_service",
+           "run"]
 
 PAPER_SERVICE = ModelService(GH200_NVL2.scaled(2), LLAMA2_7B)  # paper: 2x GH200
 SERVICES = ("paper", "h100", "measured")
@@ -93,6 +94,26 @@ def measured_service(arch: str, device: str, n_input: int, n_output: int):
     return svc, table
 
 
+def budgeted(
+    service_time: Callable[[Job], float], budget: str = "paper", sim_time: float = 30.0,
+) -> Tuple[float, float, Dict[str, SchemeConfig], SimConfig]:
+    """(service of a 15/15 job in s, k, the schemes, the base SimConfig) at
+    `budget`: "scaled" multiplies b_total, b_comm and b_comp by k = service
+    / the paper's, and lengthens sim_time by 2 (k - 1) b_total so that the
+    scored span stays what it is at the paper's budget."""
+    if budget not in BUDGETS:
+        raise ValueError(f"budget {budget!r} not in {BUDGETS}")
+    base = SimConfig(sim_time=sim_time)
+    job = Job(-1, -1, 0.0, base.n_input, base.n_output, base.b_total)
+    service_s = service_time(job)
+    k = service_s / PAPER_SERVICE(job) if budget == "scaled" else 1.0
+    schemes = {name: dataclasses.replace(s, b_comm=s.b_comm * k, b_comp=s.b_comp * k)
+               for name, s in SCHEMES.items()}
+    base = dataclasses.replace(base, b_total=base.b_total * k,
+                               sim_time=sim_time + 2 * (k - 1) * base.b_total)
+    return service_s, k, schemes, base
+
+
 def run(
     service_time: Callable[[Job], float],
     rates: Optional[Sequence[float]] = None,
@@ -113,17 +134,7 @@ def run(
     from the warmup to sim_time - 2 b_total (`score_jobs`), so the scaled
     budget lengthens sim_time by 2 (k - 1) x 80 ms: the scored span stays
     what it is at the paper's budget."""
-    if budget not in BUDGETS:
-        raise ValueError(f"budget {budget!r} not in {BUDGETS}")
-    base = SimConfig(sim_time=sim_time)
-    job = Job(-1, -1, 0.0, base.n_input, base.n_output, base.b_total)
-    service_s = service_time(job)
-    k = service_s / PAPER_SERVICE(job) if budget == "scaled" else 1.0
-    schemes: Dict[str, SchemeConfig] = {
-        name: dataclasses.replace(s, b_comm=s.b_comm * k, b_comp=s.b_comp * k)
-        for name, s in SCHEMES.items()}
-    base = dataclasses.replace(base, b_total=base.b_total * k,
-                               sim_time=sim_time + 2 * (k - 1) * base.b_total)
+    service_s, k, schemes, base = budgeted(service_time, budget, sim_time)
     rates = list(rates or default_rates(service_s))
     out = {"service_ms": service_s * 1e3, "budget": budget, "k": k,
            "b_total_ms": base.b_total * 1e3, "sim_time": base.sim_time, "n_seeds": n_seeds,

@@ -100,9 +100,13 @@ def param(shape: Sequence[int], device, dtype) -> nn.Parameter:
 
 
 @torch.no_grad()
-def init_normal_(p: torch.Tensor, gen: torch.Generator, scale: Optional[float] = None) -> None:
+def init_normal_(p: torch.Tensor, gen: Optional[torch.Generator],
+                 scale: Optional[float] = None) -> None:
     """N(0, scale^2) drawn in f32 on p's device, then cast: the reference's
-    `Initializer.param` (fan-in scale on the leading dim by default)."""
+    `Initializer.param` (fan-in scale on the leading dim by default). A meta
+    tensor holds no values, so nothing is drawn for it (`gen` is None)."""
+    if p.device.type == "meta":
+        return
     if scale is None:
         scale = 1.0 / math.sqrt(p.shape[0])
     z = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)

@@ -78,9 +78,11 @@ class Model:
 
     # ------------------------------------------------------------- params
     def init(self, seed: int = 0, device="cuda", dtype=None) -> Params:
-        """Random weights drawn on `device` from a generator seeded `seed`."""
+        """Random weights drawn on `device` from a generator seeded `seed`.
+        On the meta device (shapes and dtypes only, for `launch.dryrun`)
+        nothing is drawn."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         if self.is_encdec:
             return encdec.init_encdec_params(self.cfg, gen, dev, dtype)
         return transformer.init_decoder_params(self.cfg, gen, dev, dtype)

@@ -340,7 +340,7 @@ def write_positions(cache: dict, pos: torch.Tensor, window: int) -> torch.Tensor
     step. There `InferenceEngine.submit` keeps every position below Sc
     (prompt + new tokens <= max_seq), checked on the host at admission."""
     Sc = cache["pos"].shape[1]
-    if window and Sc < window and not pos.is_cuda and int(pos.max()) >= Sc:
+    if window and Sc < window and pos.device.type == "cpu" and int(pos.max()) >= Sc:
         raise ValueError(f"position {int(pos.max())} would wrap a cache of {Sc} slots, "
                          f"smaller than the window {window}")
     slot = (pos % Sc).long()  # ring-buffer slot (full cache: pos < Sc)

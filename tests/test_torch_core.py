@@ -33,7 +33,6 @@ from repro.core import latency_model as ref_lm  # noqa: E402
 from repro.core import queueing as ref_q  # noqa: E402
 from repro.core import scheduler as ref_sched  # noqa: E402
 from repro.core import simulator as ref_sim  # noqa: E402
-from repro.faults import FaultSpec, NodeOutage  # noqa: E402
 from repro.telemetry import EventRecorder as RefRecorder  # noqa: E402
 from repro.telemetry import PhaseProfiler as RefProfiler  # noqa: E402
 from repro_torch.control import MMPP, FlashCrowd  # noqa: E402
@@ -113,17 +112,6 @@ class TestSimulate:
         assert_same(ours, theirs)
         assert ours.profile["counters"] == theirs.profile["counters"]
         assert set(ours.profile["phases"]) == set(theirs.profile["phases"])
-
-    def test_controller_and_faults_raise(self):
-        sim = simulator.SimConfig(**BASE)
-        with pytest.raises(NotImplementedError, match="control"):
-            simulator.simulate(simulator.SCHEMES["icc"], sim, SVC, controller="reactive")
-        with pytest.raises(NotImplementedError, match="faults"):
-            simulator.simulate(simulator.SCHEMES["icc"], sim, SVC,
-                               faults=FaultSpec(node_outages=(NodeOutage("node", 0.5, 1.0),)))
-        # an empty spec is free, as in the reference
-        assert_same(simulator.simulate(simulator.SCHEMES["icc"], sim, SVC, faults=FaultSpec()),
-                    simulator.simulate(simulator.SCHEMES["icc"], sim, SVC))
 
 
 def job_list(mod, n=60, seed=4):

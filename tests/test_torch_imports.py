@@ -55,7 +55,12 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.training",
                 "repro_torch.training.optimizer", "repro_torch.training.data",
                 "repro_torch.training.checkpoint", "repro_torch.training.loop",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.launch.roofline",
+                "repro_torch.launch.specs", "repro_torch.launch.cost_analysis",
+                "repro_torch.launch.dryrun", "repro_torch.faults",
+                "repro_torch.faults.spec", "repro_torch.faults.schedule",
+                "repro_torch.control.controllers", "repro_torch.control.mobility",
+                "repro_torch.control.policy"):
         assert mod in res["imported"]
 
 
