@@ -154,7 +154,31 @@ Phases, each of which must pass or the script exits non-zero:
      `max_memory_allocated` and, for llama2-7b and seamless-m4t, its dot
      flops within 2% of `train_reckoning`'s issued flops (zamba2 and xlstm
      printed: the counter also sees the recurrences' own products), and
-     `H100.hbm_bytes` within 1% of the card's `total_memory`.
+     `H100.hbm_bytes` within 1% of the card's `total_memory`;
+  9. the multi-cell network and the batched fleet (`network/`, `batching/`,
+     `core.capacity.network_point`; host code, numpy) at the tracked
+     studies' own sizes, every simulation in one spawned pool of one
+     process a core but one, which runs after phase 5 while phase 6 runs
+     in the script's own process (no phase on the card runs meanwhile): the whole
+     grid of BENCH_network.json (4 policies x 17 rates x 3 seeds,
+     three_cell_hetero, ar_translation, 6 s), BENCH_batching.json's
+     h100/mb1 and h100/mb8 (10 rates x 3 seeds of rag_doc_qa, 30 s, on
+     `BatchedComputeNode`, with each point's avg_batch, peak_batch and
+     kv_peak_frac) and BENCH_control.json's ten arms (flash_crowd under
+     five policies and presets, the diurnal and mobility arms), each arm
+     built from the file's own spec as the reference's experiments runner
+     builds it; every seed-averaged satisfaction and every capacity must
+     equal the file's within 1e-12, each mobility run must hand a UE over.
+     Then faults and controllers on the network at 148 jobs/s (slack_aware's
+     capacity): fast=False, an empty `FaultSpec()` and the static preset
+     must equal the plain run field for field, a MEC backhaul outage plus a
+     RAN node crash must drop or redispatch a job, and route shares,
+     epochs, rejections and drops by reason are printed for each preset.
+     Last, the network's analytic H100 tier (`LatencyModel(H100,
+     LLAMA2_7B, "extended")`) against phase 5's llama2-7b on the card: its
+     decode step at batch 1 and 8 and its 15-token prefill, and the KV
+     budget for rag_doc_qa jobs against what the card has free once the
+     bf16 weights are on it (printed; finite and positive are the checks).
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -1260,15 +1284,16 @@ ENC_LEN = 15  # seamless-m4t's encoder frames: Table I's N_input
 
 def phase_full_width(torch):
     """Each full-width path with the launch counts set to 0 just before it
-    and read just after; returns their sum over the paths and each arch's
-    15/15 calibration (None for enc-dec)."""
-    total, cal = {}, {}
+    and read just after; returns their sum over the paths, each arch's
+    15/15 calibration (None for enc-dec) and each arch's card memory and
+    decode-step walls (`full_width`'s `mem`)."""
+    total, cal, mem = {}, {}, {}
     for arch, mode, layers in FULL_WIDTH:
-        n, cal[arch] = full_width(torch, arch, mode, layers)
+        n, cal[arch], mem[arch] = full_width(torch, arch, mode, layers)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
     say(f"launches on the main paths, summed: {total}")
-    return total, cal
+    return total, cal, mem
 
 
 def per_forward(cfg):
@@ -1336,8 +1361,10 @@ def full_width(torch, arch, mode, layers=None):
     weights from seed 0, driven as `mode` says (FULL_WIDTH): the launch
     counts are set to 0 just before and read just after, and must be what
     the prefills and decode steps run predict (`per_forward`). The model is
-    freed before the next one loads. Returns the launch counts and the 15/15
-    calibration (None for enc-dec)."""
+    freed before the next one loads. Returns the launch counts, the 15/15
+    calibration (None for enc-dec) and `mem`: the bytes allocated and free
+    on the card once the weights are on it, its total, and the profiled
+    decode steps' walls (`profile_decode`; empty for "calibrate")."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1353,10 +1380,13 @@ def full_width(torch, arch, mode, layers=None):
         depth = f"{layers} of its {cfg.n_layers} layers"
         cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg)
-    t0 = time.perf_counter()
+    t0 = t_path = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
+    free, total = torch.cuda.mem_get_info()
+    mem = {"weights_bytes": torch.cuda.memory_allocated(), "free_bytes": free,
+           "total_bytes": total, "step_s": {}}
     moe = (f" experts={cfg.n_experts} top_k={cfg.top_k} capacity_factor={cfg.capacity_factor}"
            if cfg.n_experts else "")
     rec = (f" d_inner={cfg.d_inner} ssm_state={cfg.ssm_state} ssm_head_dim={cfg.ssm_head_dim}"
@@ -1421,10 +1451,11 @@ def full_width(torch, arch, mode, layers=None):
     say(f"launches on the {arch} path: {n}")
     check_launch_identity(arch, cfg, n, fwd)
     if mode != "calibrate":
-        profile_decode(torch, model, params, cfg, M, Sc)
+        mem["step_s"] = profile_decode(torch, model, params, cfg, M, Sc)
     del params, model
     torch.cuda.empty_cache()
-    return n, cal15
+    say(f"{arch} path: {time.perf_counter() - t_path:.1f} s")
+    return n, cal15, mem
 
 
 def prompt_maker(torch, cfg, gen):
@@ -2003,6 +2034,317 @@ def phase_dryrun(torch, peaks, card):
         f"took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the network and the batched fleet (host only) against the
+# reference's tracked studies
+# ---------------------------------------------------------------------------
+
+BENCH_TOL = 1e-12  # |port - BENCH_*.json| of each seed-averaged satisfaction and capacity
+# the tracked studies phase 9 reruns and the arms of each (None: every arm)
+BENCH_STUDIES = {"network": None, "batching": ("h100/mb1", "h100/mb8"), "control": None}
+NET_LOAD = 148.0  # jobs/s: slack_aware's capacity on three_cell_hetero (BENCH_network.json)
+NET_SIM = dict(sim_time=6.0, warmup=1.0, seed=0)  # BENCH_network.json's sweep
+# (d)'s faults: the MEC's backhaul down for a second and cell0's RAN node
+# crashed for a second, both inside the scored span
+NET_LINK_OUTAGE = (2.0, 3.0)
+NET_NODE_OUTAGE = ("ran:cell0", 3.5, 4.5)
+ITER_CTX = 22  # mean context of a 15/15 job's decode steps: 15 prompt tokens + 7
+RAG_JOB = (2048, 32)  # rag_doc_qa's (n_input, n_output): BENCH_batching.json's scenario
+
+
+def bench_arms(doc, names=None):
+    """The arms of a tracked BENCH_*.json, resolved as the reference's
+    `ExperimentSpec.resolve_arms` resolves them: a variant's workload,
+    system, control and faults replace the spec's, and its rates, n_seeds
+    and sim_time the sweep's; `names` keeps those arms only."""
+    spec = doc["result"]["spec"]
+    arms = []
+    for v in spec["variants"]:
+        if names is not None and v["name"] not in names:
+            continue
+        sweep = dict(spec["sweep"], **{k: v[k] for k in ("rates", "n_seeds", "sim_time")
+                                       if v[k] is not None})
+        arm = {"name": v["name"], "sweep": sweep}
+        for k in ("workload", "system", "control", "faults"):
+            arm[k] = v[k] if v[k] is not None else spec[k]
+        arms.append(arm)
+    return arms
+
+
+def bench_task(arm, lam, seed_idx):
+    """(function, arguments) of one (rate, seed) point of `arm`, with the
+    port's objects, built as the reference's experiments runner builds it:
+    multi-cell arms through `core.capacity.network_point`, single-cell
+    batched arms through `batched_point`."""
+    from repro_torch.control import MobilityConfig
+    from repro_torch.core.capacity import network_point
+    from repro_torch.core.latency_model import LLAMA2_7B
+    from repro_torch.core.simulator import SchemeConfig
+    from repro_torch.network import SCENARIOS, three_cell_hetero
+
+    sw, sysm, wl = arm["sweep"], arm["system"], arm["workload"]
+    if (arm["faults"] is not None or wl["arrival"] is not None or sysm["model"] != LLAMA2_7B.name
+            or sysm["fidelity"] is not None or sysm["topology"] != "three_cell_hetero"):
+        raise ValueError(f"{arm['name']}: phase 9 builds no faults, arrival override, model "
+                         "other than llama2-7b, fidelity or topology other than "
+                         "three_cell_hetero")
+    sc = SCENARIOS[wl["scenario"]]
+    if sysm["kind"] == "single_cell":
+        if sysm["node_kind"] != "batched":
+            raise ValueError(f"{arm['name']}: phase 9 runs single-cell arms on batched nodes only")
+        scheme = SchemeConfig(**{k: v for k, v in sysm["scheme"].items() if k != "__type__"})
+        return batched_point, (scheme, sysm["gpu"], sysm["gpu_count"], sysm["max_batch"], sc,
+                               sw["sim_time"], sw["warmup"], sw["base_seed"], lam, seed_idx)
+    mob = wl["mobility"]
+    extra = dict(node_kind=sysm["node_kind"], max_batch=sysm["max_batch"],
+                 controller=(arm["control"] or {}).get("controller"), window_s=sw["window_s"],
+                 mobility=MobilityConfig(**{k: v for k, v in mob.items() if k != "__type__"})
+                 if mob else None)
+    return network_point, (three_cell_hetero(), sc, sysm["policy"], sw["sim_time"], sw["warmup"],
+                           sw["base_seed"], sw["fast"], lam, seed_idx, extra)
+
+
+def batched_point(scheme, gpu, gpu_count, max_batch, sc, sim_time, warmup, base_seed, lam,
+                  seed_idx):
+    """One single-cell point on a `BatchedComputeNode` (module level: a
+    spawned worker calls it): (SimResult, the node's batch statistics as the
+    reference's runner reports them)."""
+    from repro_torch.batching import BatchedComputeNode
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.latency_model import LLAMA2_7B, LatencyModel
+    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.network import GPU_SPECS
+
+    hw = GPU_SPECS[gpu].scaled(gpu_count) if gpu_count > 1 else GPU_SPECS[gpu]
+    lm = LatencyModel(hw, LLAMA2_7B, fidelity="extended")
+    cfg = SimConfig(n_ues=max(1, int(round(lam / sc.lam_per_ue))), lam_per_ue=sc.lam_per_ue,
+                    n_input=sc.n_input, n_output=sc.n_output, b_total=sc.b_total,
+                    sim_time=sim_time, warmup=warmup, seed=base_seed + 1000 * seed_idx,
+                    channel=ChannelConfig(bytes_per_token=sc.bytes_per_token),
+                    arrivals=sc.arrival)
+    nodes = []
+
+    def factory():
+        nodes.append(BatchedComputeNode(lm, max_batch=max_batch, policy=scheme.compute_policy,
+                                        drop_infeasible=scheme.drop_infeasible))
+        return nodes[-1]
+
+    res = simulate(scheme, cfg, node_factory=factory, fast=True)
+    st, node = nodes[-1].stats, nodes[-1]
+    return res, {"avg_batch": round(st.avg_batch(), 2), "peak_batch": st.peak_batch,
+                 "kv_peak_frac": round(st.peak_kv_bytes / node.kv.capacity_bytes, 3)}
+
+
+def pool_run(tasks, workers=None, meanwhile=None):
+    """[fn(*args) for fn, args in tasks] in a spawned pool of `workers`
+    processes (default: one a core this process may run on), order kept;
+    `meanwhile()` runs in this process while the pool works."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = min(workers or len(os.sched_getaffinity(0)), len(tasks))
+    ctx = multiprocessing.get_context("spawn")
+    # the longest first (simulated time x rate: the work a point generates)
+    order = sorted(range(len(tasks)), key=lambda i: -task_work(*tasks[i]))
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        futs = {i: pool.submit(tasks[i][0], *tasks[i][1]) for i in order}
+        if meanwhile is not None:
+            meanwhile()
+        return [futs[i].result() for i in range(len(tasks))]
+
+
+def task_work(fn, args):
+    """Simulated seconds x jobs/s of a bench_task point: its sort key."""
+    if fn is batched_point:
+        return 4 * args[5] * args[8]  # a batched node iterates a token at a time
+    return args[3] * args[7]
+
+
+def phase_network(card, cal, card_mem, workers=None, meanwhile=None):
+    """The port's `network/` and `batching/` (host code, numpy) at the
+    tracked studies' own sizes, every point in one spawned pool:
+    (a) BENCH_network.json's whole grid and (c) BENCH_control.json's ten
+    arms through `network_point`, (b) BENCH_batching.json's h100/mb1 and
+    h100/mb8 on `BatchedComputeNode`; each seed-averaged satisfaction and
+    each capacity held to the file's within BENCH_TOL. (d) faults and
+    controllers on the network at NET_LOAD. (e) the network's analytic H100
+    tier against phase 5's llama2-7b on the card (`cal`: its 15/15
+    calibration; `card_mem`: its decode-step walls and the card's free
+    memory once its weights were on it), printed. `meanwhile()` runs in
+    this process while the pool works."""
+    from repro_torch.core.capacity import capacity_from_sweep, mean_over_seeds
+
+    t0 = time.perf_counter()
+    docs = {k: json.loads((ROOT / f"BENCH_{k}.json").read_text()) for k in BENCH_STUDIES}
+    arms = [(study, arm) for study, names in BENCH_STUDIES.items()
+            for arm in bench_arms(docs[study], names)]
+    points = [(i, lam, s) for i, (_, arm) in enumerate(arms) for lam in arm["sweep"]["rates"]
+              for s in range(arm["sweep"]["n_seeds"])]
+    net_cases = network_cases()
+    tasks = [bench_task(arms[i][1], lam, s) for i, lam, s in points] + [c for _, c in net_cases]
+    res = pool_run(tasks, workers, meanwhile)
+    by_point = dict(zip(points, res))
+    arm_runs = {}  # (study, arm name) -> [[seed results] a rate]
+    for i, (study, arm) in enumerate(arms):
+        sw = arm["sweep"]
+        arm_runs[study, arm["name"]] = [[by_point[(i, lam, s)] for s in range(sw["n_seeds"])]
+                                 for lam in sw["rates"]]
+    for study, doc in docs.items():
+        curves = {a["name"]: a["curve"] for a in doc["result"]["arms"]}
+        caps = {}
+        for st, arm in arms:
+            if st != study:
+                continue
+            name, sw = arm["name"], arm["sweep"]
+            runs = arm_runs[study, name]
+            totals = [[r[0] if study == "batching" else r.total for r in rs] for rs in runs]
+            sats = [mean_over_seeds(t, name).satisfaction for t in totals]
+            caps[name] = capacity_from_sweep(sw["rates"], sats, alpha=sw["alpha"])
+            want = curves[name]
+            err = max(abs(a - b) for a, b in zip(sats, want["satisfaction"]))
+            cap_err = abs(caps[name] - want["capacity"])
+            extra = ""
+            if study == "batching":
+                extra = "; batch stats by rate (avg_batch, peak_batch, kv_peak_frac; seeds): " + \
+                    "; ".join(f"{lam:g}: " + " ".join(
+                        f"({x['avg_batch']}, {x['peak_batch']}, {x['kv_peak_frac']})"
+                        for _, x in rs) for lam, rs in zip(sw["rates"], runs))
+            elif study == "control":
+                flat = [r for rs in runs for r in rs]
+                extra = (f"; rejected {[r.n_rejected for r in flat]}, epochs "
+                         f"{[r.n_epochs for r in flat]}, handovers "
+                         f"{[r.n_handovers for r in flat]}, rehomed {[r.n_rehomed for r in flat]}")
+            say(f"BENCH_{study}.json {name}: {len(sw['rates'])} rates x {sw['n_seeds']} seeds, "
+                f"sim_time {sw['sim_time']:g} s; satisfaction {[round(x, 6) for x in sats]}; "
+                f"capacity {caps[name]!r} (file {want['capacity']!r}); largest |port - file| "
+                f"{err:.3g} (capacity {cap_err:.3g}){extra}")
+            check(err <= BENCH_TOL and cap_err <= BENCH_TOL,
+                  f"BENCH_{study}.json {name}: the port misses the reference's tracked curve "
+                  f"by {err:.3g} (capacity by {cap_err:.3g}; held within {BENCH_TOL})")
+        head = doc["headline"]
+        if study == "network":
+            for pol, c in head["capacity_per_policy"].items():
+                check(abs(caps[pol] - c) <= BENCH_TOL,
+                      f"{pol}: capacity {caps[pol]!r} != the headline's {c!r}")
+        elif study == "batching":
+            for name, c in caps.items():
+                gpu, mb = name.split("/mb")
+                check(abs(c - head["capacity"][gpu][mb]) <= BENCH_TOL,
+                      f"{name}: capacity {c!r} != the headline's {head['capacity'][gpu][mb]!r}")
+    mobile = [r for (_, name), runs in arm_runs.items() if name.startswith("mobility/")
+              for rs in runs for r in rs]
+    check(mobile and all(r.n_handovers >= 1 for r in mobile), "a mobility run handed no UE over")
+    say(f"tracked studies: {len(points)} points, every satisfaction and capacity equal to the "
+        f"reference's BENCH_*.json (simulation results of the reference, no chip involved) "
+        f"within {BENCH_TOL}; card {card}")
+    network_faults(dict(zip([n for n, _ in net_cases], res[len(points):])), card)
+    analytic_against_card(cal, card_mem, docs["batching"], card)
+    say(f"phase 9 (network and batched fleet, {len(res)} simulations in a pool of "
+        f"{min(workers or len(os.sched_getaffinity(0)), len(res))}"
+        f"{', phase 6 meanwhile' if meanwhile else ''}) took {time.perf_counter() - t0:.1f} s; "
+        f"card {card}")
+
+
+def network_cases():
+    """(d)'s runs at NET_LOAD on three_cell_hetero with ar_translation: the
+    plain run (fast and slow engines), an empty FaultSpec, the link and
+    node outages, and each controller preset (static under slack_aware, as
+    the plain run; each preset again under the `controlled` policy, whose
+    routing reads the controller's retargets)."""
+    from repro_torch.core.capacity import network_point
+    from repro_torch.faults import FaultSpec, LinkOutage, NodeOutage
+    from repro_torch.network import SCENARIOS, three_cell_hetero
+
+    faults = FaultSpec(link_outages=(LinkOutage(*NET_LINK_OUTAGE, node="mec"),),
+                       node_outages=(NodeOutage(*NET_NODE_OUTAGE),))
+    runs = {"plain": ("slack_aware", True, {}), "plain, fast=False": ("slack_aware", False, {}),
+            "FaultSpec()": ("slack_aware", True, {"faults": FaultSpec()}),
+            "link + node outage": ("slack_aware", True, {"faults": faults}),
+            "static": ("slack_aware", True, {"controller": "static"})}
+    for preset in ("static", "reactive", "slack_aware_joint"):
+        runs[f"controlled + {preset}"] = ("controlled", True, {"controller": preset})
+    return [(name, (network_point, (three_cell_hetero(), SCENARIOS["ar_translation"], pol,
+                                    NET_SIM["sim_time"], NET_SIM["warmup"], NET_SIM["seed"],
+                                    fast, NET_LOAD, 0, extra)))
+            for name, (pol, fast, extra) in runs.items()]
+
+
+def net_fields(r, skip=()):
+    """A NetResult's fields but the host wall-clock profiles and `skip`, as
+    a repr."""
+    d = {k: v for k, v in dataclasses.asdict(r).items() if k not in skip}
+    d["total"].pop("profile")
+    for c in d["per_cell"].values():
+        c.pop("profile")
+    return repr(d)
+
+
+def network_faults(res, card):
+    for name in ("plain, fast=False", "FaultSpec()", "static"):
+        skip = ("controller", "n_epochs") if name == "static" else ()  # the preset's name and
+        # its epochs: what a control loop that never acts still reports
+        check(net_fields(res[name], skip) == net_fields(res["plain"], skip),
+              f"network {name}: a field differs from the plain run's")
+    check(res["static"].n_epochs > 0 and res["static"].n_rejected == 0,
+          "the static preset ran no epoch or rejected a job")
+    hit = res["link + node outage"]
+    check(hit.n_redispatched + hit.n_fault_drops >= 1,
+          "the link and node outages neither dropped nor redispatched a job")
+    for name, r in res.items():
+        share = {k: round(v, 4) for k, v in sorted(r.route_share.items())}
+        say(f"network ({name}) at {NET_LOAD:g} jobs/s, ar_translation, seed {NET_SIM['seed']}: "
+            f"satisfaction {r.satisfaction:.6f}, jobs {r.n_jobs}, route_share {share}, "
+            f"controller {r.controller}, epochs {r.n_epochs}, rejected {r.n_rejected}, "
+            f"node failures {r.n_node_failures}, redispatched {r.n_redispatched}, fault drops "
+            f"{r.n_fault_drops}, drops by reason {r.total.drop_reasons}")
+    say(f"network faults/controllers: fast=False, FaultSpec() and the static preset equal the "
+        f"plain run field for field (the preset's name and epochs aside); link outage "
+        f"{NET_LINK_OUTAGE} s at the MEC, node outage {NET_NODE_OUTAGE}; card {card}")
+
+
+def analytic_against_card(cal, card_mem, batching, card):
+    """The network's analytic H100 tier (a batched fleet node's extended
+    LatencyModel) against phase 5's llama2-7b in bf16 on the card: decode
+    steps at batch 1 and 8, the 15-token prefill, and the KV budget a
+    rag_doc_qa job meets, printed; the checks are finite positive numbers
+    and the tier's job capacity equal to BENCH_batching.json's."""
+    from repro_torch.batching import KVCache
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import Job
+    from repro_torch.launch.roofline import H100 as ROOF_H100
+    from repro_torch.network import build_fleet_node
+
+    lm = build_fleet_node("ran:h100", "ran", "h100", node_kind="batched").lm
+    pairs = [("decode step, batch 1", lm.iteration_latency(0, 1, ITER_CTX),
+              cal["decode_s"] / 14),
+             ("decode step, batch 8", lm.iteration_latency(0, 8, 8 * ITER_CTX),
+              card_mem["step_s"]["ICC batch"]),
+             ("prefill, 15 tokens", lm.iteration_latency(15, 0, 0), cal["prefill_s"])]
+    for what, model_s, card_s in pairs:
+        check(all(math.isfinite(x) and x > 0 for x in (model_s, card_s)),
+              f"{what}: analytic {model_s} or card {card_s} is not finite and positive")
+        say(f"analytic H100 tier vs card, llama2-7b {what}: model {model_s * 1e3:.4f} ms, card "
+            f"{card_s * 1e3:.4f} ms, card / model {card_s / model_s:.3f}; card {card}")
+    kv = KVCache(lm.hw, lm.model)
+    job = Job(0, 0, 0.0, *RAG_JOB, 4.0)
+    cap = kv.jobs_capacity(job)
+    want = batching["headline"]["cache_job_cap"]["h100"]
+    check(cap == want, f"the H100 tier holds {cap} rag_doc_qa jobs, BENCH_batching.json {want}")
+    cfg = get_config("llama2-7b")
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2  # bf16 k and v
+    free, total = card_mem["free_bytes"], card_mem["total_bytes"]
+    job_bytes = sum(RAG_JOB) * kv_token
+    check(free > 0 and kv_token == lm.model.kv_bytes_per_token,
+          f"free {free} B, KV {kv_token} B a token (model {lm.model.kv_bytes_per_token})")
+    say(f"KV budget: the H100 tier's KVCache {kv.capacity_bytes / 1e9:.3f} GB (hbm_bytes "
+        f"{lm.hw.hbm_bytes / 1e9:.1f} GB - weights {lm.model.model_bytes / 1e9:.1f} GB) holds "
+        f"{cap} rag_doc_qa jobs of {kv.job_bytes(job) / 1e9:.4f} GB; the card, llama2-7b bf16 "
+        f"weights on it ({card_mem['weights_bytes'] / 1e9:.3f} GB allocated), has "
+        f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB (launch.roofline.H100.hbm_bytes "
+        f"{ROOF_H100.hbm_bytes / 1e9:.3f} GB): {free // job_bytes} such jobs at "
+        f"{kv_token} B of KV a token; card {card}")
+
+
 def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
     """Where a decode step's time goes, for the ICC batch (M slots, 15-token
     prompts) and for one sequence over a nearly full cache (a 552-token
@@ -2010,12 +2352,14 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
     enc-dec prompt adds ENC_LEN encoder frames: wall per step without the
     profiler, then device busy time per step by kernel group under it (for
     moe, its routing apart from the expert GEMMs; for hybrid and ssm, the
-    recurrent blocks' elementwise work apart from their GEMMs and rmsnorm)."""
+    recurrent blocks' elementwise work apart from their GEMMs and rmsnorm).
+    Returns the unprofiled wall (s) a step by label."""
     from repro_torch.serving import GenRequest, InferenceEngine
 
     prompt = prompt_maker(torch, cfg, torch.Generator().manual_seed(7))
     shown = {ROUTING: bool(cfg.n_experts), RECURRENT: cfg.family in ("hybrid", "ssm"),
              "rmsnorm_bwd": False}
+    walls = {}
     for batch, plen, label in ((M, 15, "ICC batch"), (1, 552, "one long sequence")):
         eng = InferenceEngine(model, params, max_batch=batch, max_seq=Sc, device="cuda",
                               enc_len=ENC_LEN if cfg.n_encoder_layers else 0)
@@ -2027,6 +2371,7 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
         for _ in range(steps):
             eng.step()
         wall = (time.perf_counter() - t0) / steps * 1e3
+        walls[label] = wall / 1e3
         groups, launches, _ = _device_time(torch, lambda: [eng.step() for _ in range(steps)])
         for rng, want in shown.items():
             check(not want or groups[rng] > 0, f"{cfg.name}: the profile holds no {rng} kernels")
@@ -2038,6 +2383,7 @@ def profile_decode(torch, model, params, cfg, M, Sc, steps=5):
             + ", ".join(f"{k} {v / steps / 1e3:.3f} ms" for k, v in groups.items()
                         if shown.get(k, True))
             + f"; {launches / steps:.0f} kernel launches/step")
+    return walls
 
 
 ROUTING = "moe routing"  # the profiler range around moe's _route, _dispatch and _combine
@@ -2480,11 +2826,26 @@ def main() -> int:
         profile_decode(torch, model, model.init(seed=0, device="cuda"), cfg, 8, 576)
         say(f"decode profile done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
+    lap = [time.perf_counter()]
+
+    def took(phase):  # phases 6-9 print their own time
+        now = time.perf_counter()
+        say(f"phase {phase} took {now - lap[0]:.1f} s")
+        lap[0] = now
+
     phase_build()
+    took(2)
     rows = phase_kernels(torch, Timer(torch))
+    took(3)
     phase_smoke_model(torch)
-    launches, cal = phase_full_width(torch)
-    phase_capacity(cal["llama2-7b"], card)
+    took(4)
+    launches, cal, mem = phase_full_width(torch)
+    took(5)
+    # phase 9 is host code in a pool of processes; phase 6, one host process,
+    # runs beside it, and no phase on the card runs while they do
+    phase_network(card, cal["llama2-7b"], mem["llama2-7b"],
+                  workers=max(1, len(os.sched_getaffinity(0)) - 1),
+                  meanwhile=lambda: phase_capacity(cal["llama2-7b"], card))
     trained, peaks = phase_training(torch, card)
     for k, v in trained.items():
         launches[k] = launches.get(k, 0) + v

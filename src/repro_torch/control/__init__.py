@@ -5,8 +5,8 @@
                   MMPP / flash crowd) behind an abstraction whose
                   stationary case is the plain Poisson engine
   mobility.py     UE roaming between cells with Xn-handover re-homing of
-                  in-flight uplink state (its simulator, `network/`, is not
-                  ported yet)
+                  in-flight uplink state (moved by the multi-cell
+                  simulator, `repro_torch.network`)
   controllers.py  the online control loop: epoch observations -> actions
                   on bandwidth partition, admission, and routing retargets
   policy.py       controller presets (static / reactive /

@@ -1,6 +1,6 @@
 """UE mobility across cells with Xn-handover re-homing (the port's copy of
-`repro/control/mobility.py`, draw for draw; the multi-cell simulator that
-moves the roamers, `network/`, is not ported yet).
+`repro/control/mobility.py`, draw for draw; the multi-cell simulator,
+`repro_torch.network`, moves the roamers).
 
 A `MobilityConfig` adds `n_roamers` mobile UEs to *every* cell's UE
 population (roamer k is UE index ``site.n_ues + k`` in each cell, so a

@@ -4,9 +4,9 @@ Queueing analysis (§III), LLM latency model (§IV-A), 5G uplink SLS (§IV-A),
 priority scheduling (§IV-B), system simulator (Fig. 5) and service-capacity
 estimation (Def. 2). The port's copy of `repro/core`: plain numpy, no torch
 (the card enters only through a measured service time,
-`serving.calibrate.measured_service_fn`). Left out until `network` and
-`experiments` are ported: `capacity.network_point` and
-`capacity.network_sweep`.
+`serving.calibrate.measured_service_fn`). Left out until `experiments` is
+ported: `capacity.network_sweep` (`capacity.network_point` drives
+`repro_torch.network`).
 """
 
 from .capacity import capacity_from_sweep, sweep

@@ -10,9 +10,10 @@ the points out over a process pool (`workers=`, opt-in): every point is an
 independent simulation with its own derived seed, so parallel and serial
 runs aggregate the exact same numbers in the exact same order.
 
-Copy of `repro/core/capacity.py` without `network_point` and
-`network_sweep`: they need the multi-cell `network` and `experiments`
-packages, which the port does not have yet. `sweep`/`sweep_generic` take
+Copy of `repro/core/capacity.py` without `network_sweep`, which needs the
+`experiments` package that the port does not have yet; `network_point`
+runs one (rate, seed) point of the multi-cell `network` simulator.
+`sweep`/`sweep_generic` take
 any service-time callable (`ModelService` for the analytic case, the
 port's `serving.calibrate.MeasuredService` for measured compute).
 """
@@ -35,6 +36,7 @@ __all__ = [
     "sweep",
     "sweep_generic",
     "capacity_from_sweep",
+    "network_point",
 ]
 
 # optional SimResult fields: None when no job in the scoring window produced
@@ -211,3 +213,29 @@ def capacity_from_sweep(
                 cap = lam_prev + frac * (lam - lam_prev)
             break
     return cap
+
+
+def network_point(
+    topology,
+    scenario,
+    policy,
+    sim_time: float,
+    warmup: float,
+    base_seed: int,
+    fast: bool,
+    lam: float,
+    seed_idx: int,
+    extra: Optional[dict] = None,
+):
+    """One (rate, seed) point of a network sweep (module-level: picklable).
+
+    `extra` passes additional NetSimConfig fields through `config_for_load`
+    (controller=, mobility=, window_s=, ...) for control-subsystem sweeps.
+    """
+    from ..network.simulator import config_for_load, simulate_network
+
+    cfg = config_for_load(
+        topology, scenario, lam, sim_time=sim_time, warmup=warmup,
+        seed=base_seed + 1000 * seed_idx, **(extra or {}),
+    )
+    return simulate_network(cfg, policy, fast=fast)

@@ -70,7 +70,7 @@ TPU_V5E = HardwareSpec("tpu-v5e", flops=197e12, hbm_bw=819e9, hbm_bytes=16e9, ic
 A100 = HardwareSpec("a100", flops=312e12, hbm_bw=2039e9, hbm_bytes=80e9)
 # GH200-NVL2: two Grace-Hopper superchips (2 x ~989 TF fp16, 2 x 4.9 TB/s HBM3e).
 GH200_NVL2 = HardwareSpec("gh200-nvl2", flops=2 * 989e12, hbm_bw=2 * 4.9e12, hbm_bytes=2 * 144e9)
-# Heterogeneous-fleet tiers for multi-cell RAN sites (repro.network): H100 SXM
+# Heterogeneous-fleet tiers for multi-cell RAN sites (repro_torch.network): H100 SXM
 # fp16 dense, and L4 as the power-constrained far-edge cell-site accelerator.
 H100 = HardwareSpec("h100", flops=989e12, hbm_bw=3352e9, hbm_bytes=80e9)
 L4 = HardwareSpec("l4", flops=121e12, hbm_bw=300e9, hbm_bytes=24e9)

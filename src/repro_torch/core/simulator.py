@@ -10,7 +10,7 @@ Pipeline per job (real-time translation on AR glasses, Table I):
 The per-slot pipeline (arrivals -> uplink -> wireline hand-off) lives in
 `SlotEngine`, one instance per cell. The single-cell `simulate()` below is
 a thin wrapper: one SlotEngine feeding one ComputeNode. The multi-cell
-deployment (`repro.network`) instantiates one SlotEngine per gNB site and
+deployment (`repro_torch.network`) instantiates one SlotEngine per gNB site and
 routes wireline deliveries across a heterogeneous compute fleet.
 
 Schemes (paper §III-B / §IV-C):
@@ -27,8 +27,8 @@ Satisfaction (Def. 1): joint   -> T_E2E <= b_total;
 
 This is the port's copy of `repro/core/simulator.py`, draw for draw: fixed
 seeds give the same `SimResult`s, with the control loop (`controller=`) and
-fault injection (`faults=`). Link faults need the multi-cell simulator
-(`network/`), which the port does not have yet.
+fault injection (`faults=`). Link faults need the multi-cell simulator,
+`repro_torch.network.simulate_network`.
 """
 
 from __future__ import annotations
@@ -788,7 +788,7 @@ def simulate(
         if faults.link_outages:
             raise ValueError(
                 "link faults need the multi-cell simulator "
-                "(network/, which the port does not have yet)")
+                "(repro_torch.network.simulate_network)")
         from ..faults import bind_faults
         from ..faults.schedule import NODE_FAIL
 

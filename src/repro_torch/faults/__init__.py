@@ -6,8 +6,8 @@ outages/degradation, brownouts plus recovery-policy knobs); `schedule`
 binds a spec to a seeded, slot-snapped timeline that the simulator
 queries. Faults are strictly opt-in — without a FaultSpec every
 fixed-seed result is bit-identical to the fault-free simulator. Link
-faults need the multi-cell simulator (`network/`), which the port does
-not have yet: `core.simulate` refuses them, as the reference's does.
+faults need the multi-cell simulator (`repro_torch.network`):
+`core.simulate` refuses them, as the reference's does.
 """
 from .spec import (Brownout, FaultSpec, LinkOutage, NodeCrashProcess,
                    NodeOutage)

@@ -1,12 +1,23 @@
-"""repro_torch.telemetry — the simulator's trace recorder and phase profiler.
+"""repro_torch.telemetry — trace recorder, phase profiler, derived metrics
+and Chrome traces (the port's copy of `repro/telemetry`).
 
 Pass an `EventRecorder` as ``recorder=`` or a `PhaseProfiler` as
-``profiler=`` to `repro_torch.core.simulate`. Both are free when off and
-leave fixed-seed results bit-identical when on. The derived metrics,
-reports and Chrome traces of the reference's telemetry are not ported yet
-(`EventRecorder.to_metrics` raises until `telemetry/metrics.py` is).
+``profiler=`` to `repro_torch.core.simulate` or
+`repro_torch.network.simulate_network`. Both are free when off and leave
+fixed-seed results bit-identical when on. Read-only consumers of the
+recorder's columnar export: `metrics` (`summarize`, stage percentiles,
+Little's-law checks, the `mm1_conformance` validator) and `chrome`
+(Perfetto-loadable traces). The reference's md/html capacity reports
+(`report.py`) are not ported yet.
 """
 
+from .chrome import chrome_trace, write_chrome_trace
+from .metrics import (
+    littles_law_check,
+    mm1_conformance,
+    stage_percentiles,
+    summarize,
+)
 from .profile import (
     PROFILE_SCHEMA,
     PhaseProfiler,
@@ -35,4 +46,10 @@ __all__ = [
     "NULL_RECORDER",
     "EventRecorder",
     "active",
+    "chrome_trace",
+    "write_chrome_trace",
+    "summarize",
+    "stage_percentiles",
+    "littles_law_check",
+    "mm1_conformance",
 ]

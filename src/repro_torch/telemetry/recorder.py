@@ -319,12 +319,10 @@ class EventRecorder:
 
     def to_metrics(self, **kwargs) -> dict:
         """Derived-metric rollup of everything captured so far — a
-        convenience front-end for `telemetry/metrics.py`'s `summarize`,
-        which the port does not have yet: it raises until that module is
-        ported."""
-        raise NotImplementedError(
-            "to_metrics needs repro_torch/telemetry/metrics.py, which is not "
-            "ported yet")
+        convenience front-end for `repro_torch.telemetry.metrics.summarize`."""
+        from .metrics import summarize
+
+        return summarize(self.to_telemetry(), **kwargs)
 
     def to_telemetry(self, meta: Optional[dict] = None) -> dict:
         """Compact columnar export: plain lists keyed by column, aligned

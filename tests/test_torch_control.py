@@ -3,8 +3,8 @@
 reference's `repro.control` on fixed seeds: the single-cell part of
 tests/test_control.py. The copies are plain numpy, so the bar is equality:
 the same Actions, the same draws, and `SimResult`s field by field. The
-multi-cell cases (routing retargets, handovers moving uplink state) need
-`network/`, which the port does not have yet.
+multi-cell cases (routing retargets, handovers moving uplink state) are in
+tests/test_torch_network.py.
 """
 
 import dataclasses

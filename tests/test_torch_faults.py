@@ -2,8 +2,8 @@
 against the reference's `repro.faults` on fixed seeds: the single-cell part
 of tests/test_faults.py. The copies are plain numpy and keep the reference's
 draw order, so the bar is equality: the same schedules, and `SimResult`s
-field by field. Link faults and the network-level cases need `network/`,
-which the port does not have yet.
+field by field. Link faults and the network-level cases are in
+tests/test_torch_network.py.
 """
 
 import dataclasses

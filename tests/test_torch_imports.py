@@ -60,7 +60,12 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.launch.dryrun", "repro_torch.faults",
                 "repro_torch.faults.spec", "repro_torch.faults.schedule",
                 "repro_torch.control.controllers", "repro_torch.control.mobility",
-                "repro_torch.control.policy"):
+                "repro_torch.control.policy", "repro_torch.telemetry.chrome",
+                "repro_torch.telemetry.metrics", "repro_torch.batching",
+                "repro_torch.batching.kv_cache", "repro_torch.batching.node",
+                "repro_torch.network", "repro_torch.network.scenarios",
+                "repro_torch.network.fleet", "repro_torch.network.topology",
+                "repro_torch.network.routing", "repro_torch.network.simulator"):
         assert mod in res["imported"]
 
 
