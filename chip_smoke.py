@@ -155,26 +155,35 @@ Phases, each of which must pass or the script exits non-zero:
      flops within 2% of `train_reckoning`'s issued flops (zamba2 and xlstm
      printed: the counter also sees the recurrences' own products), and
      `H100.hbm_bytes` within 1% of the card's `total_memory`;
-  9. the multi-cell network and the batched fleet (`network/`, `batching/`,
-     `core.capacity.network_point`; host code, numpy) at the tracked
-     studies' own sizes, every simulation in one spawned pool of one
-     process a core but one, which runs after phase 5 while phase 6 runs
-     in the script's own process (no phase on the card runs meanwhile): the whole
-     grid of BENCH_network.json (4 policies x 17 rates x 3 seeds,
-     three_cell_hetero, ar_translation, 6 s), BENCH_batching.json's
-     h100/mb1 and h100/mb8 (10 rates x 3 seeds of rag_doc_qa, 30 s, on
-     `BatchedComputeNode`, with each point's avg_batch, peak_batch and
-     kv_peak_frac) and BENCH_control.json's ten arms (flash_crowd under
-     five policies and presets, the diurnal and mobility arms), each arm
-     built from the file's own spec as the reference's experiments runner
-     builds it; every seed-averaged satisfaction and every capacity must
-     equal the file's within 1e-12, each mobility run must hand a UE over.
-     Then faults and controllers on the network at 148 jobs/s (slack_aware's
-     capacity): fast=False, an empty `FaultSpec()` and the static preset
-     must equal the plain run field for field, a MEC backhaul outage plus a
-     RAN node crash must drop or redispatch a job, and route shares,
-     epochs, rejections and drops by reason are printed for each preset.
-     Last, the network's analytic H100 tier (`LatencyModel(H100,
+  9. the experiments layer (`experiments/`, `telemetry/report.py`; host
+     code, numpy) over the multi-cell network and the batched fleet
+     (`network/`, `batching/`), run after phase 5 while phase 6 runs in the
+     script's own process (no phase on the card runs meanwhile). In one
+     spawned child, so that no forked worker inherits a CUDA context,
+     `run_suite("bench_all")` (what `python -m repro_torch.experiments
+     suite run bench_all` runs) regenerates the four tracked studies at
+     their own sizes into a temporary root with a fresh result cache, in a
+     pool of one process a core but one and one shard a point: 652 points,
+     BENCH_network.json (4 policies x 17 rates x 3 seeds, 6 s),
+     BENCH_batching.json (a100, h100 and l4 x max_batch 1/4/8/16 on
+     `BatchedComputeNode`, 30 s), BENCH_control.json (ten arms) and
+     BENCH_resilience.json (6 arms x 9 rates x 2 seeds, 8 s). Its runlog
+     must show every shard end in a pool worker, never in the child (a pool
+     that cannot start runs serially there, which fails the phase). Each
+     document must equal the tracked file in every key but the headline's
+     wall clocks and the result's timing fields (`to_canonical_dict`)
+     within 1e-12; each mobility run must hand a UE over. The suite again
+     from the same cache: every point a hit, the same bytes. Then
+     `validate_bench` on the regenerated files (no problem) and
+     `generate_report` of each against its tracked file (every capacity
+     delta +0.00, every satisfaction delta +0.000); the points, pool and
+     seconds of each study are printed. Then faults and controllers on the
+     network at 148 jobs/s, run in a second spawned child while the suite
+     runs (fast=False, an empty `FaultSpec()` and the
+     static preset must equal the plain run field for field, a MEC
+     backhaul outage plus a RAN node crash must drop or redispatch a job;
+     route shares, epochs, rejections and drops by reason printed for each
+     preset). Last, the network's analytic H100 tier (`LatencyModel(H100,
      LLAMA2_7B, "extended")`) against phase 5's llama2-7b on the card: its
      decode step at batch 1 and 8 and its 15-token prefill, and the KV
      budget for rag_doc_qa jobs against what the card has free once the
@@ -2035,16 +2044,21 @@ def phase_dryrun(torch, peaks, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the network and the batched fleet (host only) against the
-# reference's tracked studies
+# phase 9: the experiments layer (host only) regenerates the reference's
+# tracked studies
 # ---------------------------------------------------------------------------
 
-BENCH_TOL = 1e-12  # |port - BENCH_*.json| of each seed-averaged satisfaction and capacity
-# the tracked studies phase 9 reruns and the arms of each (None: every arm)
-BENCH_STUDIES = {"network": None, "batching": ("h100/mb1", "h100/mb8"), "control": None}
+BENCH_TOL = 1e-12  # |port - BENCH_*.json| of each number of a regenerated document
+# a BENCH document's timing keys: the headline's wall clocks (the result's are
+# zeroed by `ExperimentResult.to_canonical_dict`); nothing else is left out
+BENCH_TIMING = ("wall_clock_s", "sweep_wall_clock_s")
+# `run_suite`'s shards an experiment (it clamps them to the points): one a
+# point, so the pool hands out work as workers free up and a study's tail is
+# one point, where a shard a worker leaves the pool idle behind its slowest
+SUITE_SHARDS = 10_000
 NET_LOAD = 148.0  # jobs/s: slack_aware's capacity on three_cell_hetero (BENCH_network.json)
 NET_SIM = dict(sim_time=6.0, warmup=1.0, seed=0)  # BENCH_network.json's sweep
-# (d)'s faults: the MEC's backhaul down for a second and cell0's RAN node
+# (e)'s faults: the MEC's backhaul down for a second and cell0's RAN node
 # crashed for a second, both inside the scored span
 NET_LINK_OUTAGE = (2.0, 3.0)
 NET_NODE_OUTAGE = ("ran:cell0", 3.5, 4.5)
@@ -2052,201 +2066,198 @@ ITER_CTX = 22  # mean context of a 15/15 job's decode steps: 15 prompt tokens + 
 RAG_JOB = (2048, 32)  # rag_doc_qa's (n_input, n_output): BENCH_batching.json's scenario
 
 
-def bench_arms(doc, names=None):
-    """The arms of a tracked BENCH_*.json, resolved as the reference's
-    `ExperimentSpec.resolve_arms` resolves them: a variant's workload,
-    system, control and faults replace the spec's, and its rates, n_seeds
-    and sim_time the sweep's; `names` keeps those arms only."""
-    spec = doc["result"]["spec"]
-    arms = []
-    for v in spec["variants"]:
-        if names is not None and v["name"] not in names:
-            continue
-        sweep = dict(spec["sweep"], **{k: v[k] for k in ("rates", "n_seeds", "sim_time")
-                                       if v[k] is not None})
-        arm = {"name": v["name"], "sweep": sweep}
-        for k in ("workload", "system", "control", "faults"):
-            arm[k] = v[k] if v[k] is not None else spec[k]
-        arms.append(arm)
-    return arms
-
-
-def bench_task(arm, lam, seed_idx):
-    """(function, arguments) of one (rate, seed) point of `arm`, with the
-    port's objects, built as the reference's experiments runner builds it:
-    multi-cell arms through `core.capacity.network_point`, single-cell
-    batched arms through `batched_point`."""
-    from repro_torch.control import MobilityConfig
-    from repro_torch.core.capacity import network_point
-    from repro_torch.core.latency_model import LLAMA2_7B
-    from repro_torch.core.simulator import SchemeConfig
-    from repro_torch.network import SCENARIOS, three_cell_hetero
-
-    sw, sysm, wl = arm["sweep"], arm["system"], arm["workload"]
-    if (arm["faults"] is not None or wl["arrival"] is not None or sysm["model"] != LLAMA2_7B.name
-            or sysm["fidelity"] is not None or sysm["topology"] != "three_cell_hetero"):
-        raise ValueError(f"{arm['name']}: phase 9 builds no faults, arrival override, model "
-                         "other than llama2-7b, fidelity or topology other than "
-                         "three_cell_hetero")
-    sc = SCENARIOS[wl["scenario"]]
-    if sysm["kind"] == "single_cell":
-        if sysm["node_kind"] != "batched":
-            raise ValueError(f"{arm['name']}: phase 9 runs single-cell arms on batched nodes only")
-        scheme = SchemeConfig(**{k: v for k, v in sysm["scheme"].items() if k != "__type__"})
-        return batched_point, (scheme, sysm["gpu"], sysm["gpu_count"], sysm["max_batch"], sc,
-                               sw["sim_time"], sw["warmup"], sw["base_seed"], lam, seed_idx)
-    mob = wl["mobility"]
-    extra = dict(node_kind=sysm["node_kind"], max_batch=sysm["max_batch"],
-                 controller=(arm["control"] or {}).get("controller"), window_s=sw["window_s"],
-                 mobility=MobilityConfig(**{k: v for k, v in mob.items() if k != "__type__"})
-                 if mob else None)
-    return network_point, (three_cell_hetero(), sc, sysm["policy"], sw["sim_time"], sw["warmup"],
-                           sw["base_seed"], sw["fast"], lam, seed_idx, extra)
-
-
-def batched_point(scheme, gpu, gpu_count, max_batch, sc, sim_time, warmup, base_seed, lam,
-                  seed_idx):
-    """One single-cell point on a `BatchedComputeNode` (module level: a
-    spawned worker calls it): (SimResult, the node's batch statistics as the
-    reference's runner reports them)."""
-    from repro_torch.batching import BatchedComputeNode
-    from repro_torch.core.channel import ChannelConfig
-    from repro_torch.core.latency_model import LLAMA2_7B, LatencyModel
-    from repro_torch.core.simulator import SimConfig, simulate
-    from repro_torch.network import GPU_SPECS
-
-    hw = GPU_SPECS[gpu].scaled(gpu_count) if gpu_count > 1 else GPU_SPECS[gpu]
-    lm = LatencyModel(hw, LLAMA2_7B, fidelity="extended")
-    cfg = SimConfig(n_ues=max(1, int(round(lam / sc.lam_per_ue))), lam_per_ue=sc.lam_per_ue,
-                    n_input=sc.n_input, n_output=sc.n_output, b_total=sc.b_total,
-                    sim_time=sim_time, warmup=warmup, seed=base_seed + 1000 * seed_idx,
-                    channel=ChannelConfig(bytes_per_token=sc.bytes_per_token),
-                    arrivals=sc.arrival)
-    nodes = []
-
-    def factory():
-        nodes.append(BatchedComputeNode(lm, max_batch=max_batch, policy=scheme.compute_policy,
-                                        drop_infeasible=scheme.drop_infeasible))
-        return nodes[-1]
-
-    res = simulate(scheme, cfg, node_factory=factory, fast=True)
-    st, node = nodes[-1].stats, nodes[-1]
-    return res, {"avg_batch": round(st.avg_batch(), 2), "peak_batch": st.peak_batch,
-                 "kv_peak_frac": round(st.peak_kv_bytes / node.kv.capacity_bytes, 3)}
-
-
-def pool_run(tasks, workers=None, meanwhile=None):
-    """[fn(*args) for fn, args in tasks] in a spawned pool of `workers`
-    processes (default: one a core this process may run on), order kept;
-    `meanwhile()` runs in this process while the pool works."""
-    import concurrent.futures
+def suite_run(tmp, workers):
+    """In a spawned child (no CUDA context for its forked pool to inherit):
+    `run_suite("bench_all")` cold into `tmp`/cold and again from the same
+    cache into `tmp`/warm, each with a runlog. Returns what the parent
+    checks: each run's summary rows, cache totals, seconds and runlog
+    events, this process's pid and the mobility arms' handovers."""
     import multiprocessing
 
-    workers = min(workers or len(os.sched_getaffinity(0)), len(tasks))
-    ctx = multiprocessing.get_context("spawn")
-    # the longest first (simulated time x rate: the work a point generates)
-    order = sorted(range(len(tasks)), key=lambda i: -task_work(*tasks[i]))
-    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        futs = {i: pool.submit(tasks[i][0], *tasks[i][1]) for i in order}
-        if meanwhile is not None:
-            meanwhile()
-        return [futs[i].result() for i in range(len(tasks))]
+    from repro_torch.experiments import run_suite
+    from repro_torch.experiments.runlog import read_runlog
+
+    # a spawned process starts its own pools by spawn too (the method rides
+    # in spawn's start-up data), and each spawned worker imports torch again:
+    # seconds for every study's pool. This process has no CUDA context, so
+    # its pools fork, as under `python -m repro_torch.experiments suite run`
+    multiprocessing.set_start_method("fork", force=True)
+    out = {"pid": os.getpid()}
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        summary = run_suite("bench_all", cache=os.path.join(tmp, "cache"),
+                            shards=SUITE_SHARDS, root=os.path.join(tmp, run), workers=workers,
+                            runlog=os.path.join(tmp, f"{run}.jsonl"))
+        out[run] = {"seconds": time.perf_counter() - t0, "entries": summary["entries"],
+                    "cache": summary["cache"],
+                    "events": read_runlog(os.path.join(tmp, f"{run}.jsonl"))}
+        if run == "cold":
+            control = summary["results"]["control_capacity"]
+            out["handovers"] = {a.name: [s.extras["n_handovers"] for p in a.points
+                                         for s in p.seeds]
+                                for a in control.arms if a.name.startswith("mobility/")}
+    return out
 
 
-def task_work(fn, args):
-    """Simulated seconds x jobs/s of a bench_task point: its sort key."""
-    if fn is batched_point:
-        return 4 * args[5] * args[8]  # a batched node iterates a token at a time
-    return args[3] * args[7]
+def cases_run():
+    """(e)'s network runs, one after another, by name (a spawned child's
+    work while the suite's pool runs)."""
+    return {name: fn(*args) for name, (fn, args) in network_cases()}
+
+
+def doc_diff(got, want, path=""):
+    """(largest |got - want| over the numbers, [paths where anything else
+    differs]) of two JSON trees."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        worst, bad = 0.0, [f"{path}/{k}" for k in sorted(set(got) ^ set(want))]
+        for k in sorted(set(got) & set(want)):
+            w, b = doc_diff(got[k], want[k], f"{path}/{k}")
+            worst, bad = max(worst, w), bad + b
+        return worst, bad
+    if isinstance(want, list) and isinstance(got, list) and len(got) == len(want):
+        worst, bad = 0.0, []
+        for i, (g, w) in enumerate(zip(got, want)):
+            w_, b = doc_diff(g, w, f"{path}[{i}]")
+            worst, bad = max(worst, w_), bad + b
+        return worst, bad
+    num = (int, float)
+    if (isinstance(got, num) and isinstance(want, num) and not isinstance(got, bool)
+            and not isinstance(want, bool)):
+        if math.isnan(got) and math.isnan(want):
+            return 0.0, []
+        return abs(got - want), []
+    return 0.0, ([] if got == want else [path])
+
+
+def bench_physics(doc):
+    """A BENCH document less its timing keys: the headline without
+    BENCH_TIMING, the result in `to_canonical_dict` form."""
+    from repro_torch.experiments import ExperimentResult
+
+    return dict(doc, headline={k: v for k, v in doc["headline"].items()
+                               if k not in BENCH_TIMING},
+                result=ExperimentResult.from_dict(doc["result"]).to_canonical_dict(
+                    points="none"))
+
+
+def report_deltas(md):
+    """The cells of the md report's "Delta vs reference" tables: the
+    capacity deltas and the per-rate satisfaction deltas."""
+    sec = md.split("## Delta vs reference", 1)[1].split("\n## ", 1)[0]
+    cap_part, _, sat_part = sec.partition("### Satisfaction delta per rate")
+    rows = lambda part: [[c.strip() for c in ln.strip("|").split("|")]
+                         for ln in part.splitlines()
+                         if ln.startswith("| ") and "---" not in ln][1:]
+    return [r[-1] for r in rows(cap_part)], [c for r in rows(sat_part) for c in r[1:]]
 
 
 def phase_network(card, cal, card_mem, workers=None, meanwhile=None):
-    """The port's `network/` and `batching/` (host code, numpy) at the
-    tracked studies' own sizes, every point in one spawned pool:
-    (a) BENCH_network.json's whole grid and (c) BENCH_control.json's ten
-    arms through `network_point`, (b) BENCH_batching.json's h100/mb1 and
-    h100/mb8 on `BatchedComputeNode`; each seed-averaged satisfaction and
-    each capacity held to the file's within BENCH_TOL. (d) faults and
-    controllers on the network at NET_LOAD. (e) the network's analytic H100
+    """The port's experiments layer (host code, numpy) at the tracked
+    studies' own sizes. In one spawned child: (a) `run_suite("bench_all")`
+    with a fresh cache into a temporary root, in a pool of `workers`
+    processes (default: one a core this process may run on), whose runlog
+    must show every shard run in a pool worker, never in the child itself;
+    each of the four documents held to the tracked BENCH_*.json in every
+    key but the timing ones within BENCH_TOL; (b) the suite again from the
+    cache: all hits, the same bytes. In a second spawned child meanwhile,
+    the network cases of (e). Here:
+    (c) `validate_bench` on the regenerated files, (d) `generate_report`
+    of each against the tracked file, every delta 0, (e) faults and
+    controllers on the network at NET_LOAD, (f) the network's analytic H100
     tier against phase 5's llama2-7b on the card (`cal`: its 15/15
     calibration; `card_mem`: its decode-step walls and the card's free
     memory once its weights were on it), printed. `meanwhile()` runs in
-    this process while the pool works."""
-    from repro_torch.core.capacity import capacity_from_sweep, mean_over_seeds
+    this process while the child works."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.experiments import get_experiment, get_suite, validate_bench
+    from repro_torch.telemetry.report import generate_report
 
     t0 = time.perf_counter()
-    docs = {k: json.loads((ROOT / f"BENCH_{k}.json").read_text()) for k in BENCH_STUDIES}
-    arms = [(study, arm) for study, names in BENCH_STUDIES.items()
-            for arm in bench_arms(docs[study], names)]
-    points = [(i, lam, s) for i, (_, arm) in enumerate(arms) for lam in arm["sweep"]["rates"]
-              for s in range(arm["sweep"]["n_seeds"])]
-    net_cases = network_cases()
-    tasks = [bench_task(arms[i][1], lam, s) for i, lam, s in points] + [c for _, c in net_cases]
-    res = pool_run(tasks, workers, meanwhile)
-    by_point = dict(zip(points, res))
-    arm_runs = {}  # (study, arm name) -> [[seed results] a rate]
-    for i, (study, arm) in enumerate(arms):
-        sw = arm["sweep"]
-        arm_runs[study, arm["name"]] = [[by_point[(i, lam, s)] for s in range(sw["n_seeds"])]
-                                 for lam in sw["rates"]]
-    for study, doc in docs.items():
-        curves = {a["name"]: a["curve"] for a in doc["result"]["arms"]}
-        caps = {}
-        for st, arm in arms:
-            if st != study:
-                continue
-            name, sw = arm["name"], arm["sweep"]
-            runs = arm_runs[study, name]
-            totals = [[r[0] if study == "batching" else r.total for r in rs] for rs in runs]
-            sats = [mean_over_seeds(t, name).satisfaction for t in totals]
-            caps[name] = capacity_from_sweep(sw["rates"], sats, alpha=sw["alpha"])
-            want = curves[name]
-            err = max(abs(a - b) for a, b in zip(sats, want["satisfaction"]))
-            cap_err = abs(caps[name] - want["capacity"])
-            extra = ""
-            if study == "batching":
-                extra = "; batch stats by rate (avg_batch, peak_batch, kv_peak_frac; seeds): " + \
-                    "; ".join(f"{lam:g}: " + " ".join(
-                        f"({x['avg_batch']}, {x['peak_batch']}, {x['kv_peak_frac']})"
-                        for _, x in rs) for lam, rs in zip(sw["rates"], runs))
-            elif study == "control":
-                flat = [r for rs in runs for r in rs]
-                extra = (f"; rejected {[r.n_rejected for r in flat]}, epochs "
-                         f"{[r.n_epochs for r in flat]}, handovers "
-                         f"{[r.n_handovers for r in flat]}, rehomed {[r.n_rehomed for r in flat]}")
-            say(f"BENCH_{study}.json {name}: {len(sw['rates'])} rates x {sw['n_seeds']} seeds, "
-                f"sim_time {sw['sim_time']:g} s; satisfaction {[round(x, 6) for x in sats]}; "
-                f"capacity {caps[name]!r} (file {want['capacity']!r}); largest |port - file| "
-                f"{err:.3g} (capacity {cap_err:.3g}){extra}")
-            check(err <= BENCH_TOL and cap_err <= BENCH_TOL,
-                  f"BENCH_{study}.json {name}: the port misses the reference's tracked curve "
-                  f"by {err:.3g} (capacity by {cap_err:.3g}; held within {BENCH_TOL})")
-        head = doc["headline"]
-        if study == "network":
-            for pol, c in head["capacity_per_policy"].items():
-                check(abs(caps[pol] - c) <= BENCH_TOL,
-                      f"{pol}: capacity {caps[pol]!r} != the headline's {c!r}")
-        elif study == "batching":
-            for name, c in caps.items():
-                gpu, mb = name.split("/mb")
-                check(abs(c - head["capacity"][gpu][mb]) <= BENCH_TOL,
-                      f"{name}: capacity {c!r} != the headline's {head['capacity'][gpu][mb]!r}")
-    mobile = [r for (_, name), runs in arm_runs.items() if name.startswith("mobility/")
-              for rs in runs for r in rs]
-    check(mobile and all(r.n_handovers >= 1 for r in mobile), "a mobility run handed no UE over")
-    say(f"tracked studies: {len(points)} points, every satisfaction and capacity equal to the "
-        f"reference's BENCH_*.json (simulation results of the reference, no chip involved) "
-        f"within {BENCH_TOL}; card {card}")
-    network_faults(dict(zip([n for n, _ in net_cases], res[len(points):])), card)
-    analytic_against_card(cal, card_mem, docs["batching"], card)
-    say(f"phase 9 (network and batched fleet, {len(res)} simulations in a pool of "
-        f"{min(workers or len(os.sched_getaffinity(0)), len(res))}"
+    workers = workers or len(os.sched_getaffinity(0))
+    suite = get_suite("bench_all")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_suite_") as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as child:
+            fut, fut_net = child.submit(suite_run, tmp, workers), child.submit(cases_run)
+            if meanwhile is not None:
+                meanwhile()
+            out, net = fut.result(), fut_net.result()
+        cold, warm = out["cold"], out["warm"]
+        # (a) the pool's workers ran every shard: a pool that could not start
+        # falls back to a serial run in the child itself, which fails here
+        ends = [e for e in cold["events"] if e["event"] == "task_end"]
+        pids = {e["pid"] for e in ends}
+        n_shards = sum(e.get("n_shards") or 0 for e in cold["events"]
+                       if e["event"] == "run_start")
+        check(len(ends) == n_shards and n_shards > 0 and out["pid"] not in pids
+              and len(pids) >= min(2, workers),
+              f"bench_all's pool: {len(ends)} of {n_shards} shards ended in worker processes "
+              f"{sorted(pids)} (the suite's own process {out['pid']}); it went serial")
+        starts = {e["experiment"]: e["ts"] for e in cold["events"] if e["event"] == "run_start"}
+        stops = {e["experiment"]: e["ts"] for e in cold["events"] if e["event"] == "run_end"}
+        n_points = 0
+        for entry, row, wrow in zip(suite.entries, cold["entries"], warm["entries"]):
+            name = entry.experiment
+            got = json.loads(Path(tmp, "cold", entry.bench_path).read_text())
+            want = json.loads((ROOT / entry.bench_path).read_text())
+            err, bad = doc_diff(bench_physics(got), bench_physics(want))
+            n_points += row["n_points"]
+            arms = get_experiment(name).resolve_arms()
+            say(f"{entry.bench_path} ({name}) through run_suite: {len(arms)} arms, "
+                f"{row['n_points']} points in a pool of {workers}, "
+                f"{stops[name] - starts[name]:.1f} s ({row['task_seconds']:.1f} task-s); "
+                f"cache {row['cache']}; largest |port - file| {err:.3g}, other keys that "
+                f"differ {bad}; capacities {[a['curve']['capacity'] for a in got['result']['arms']]}")
+            check(err <= BENCH_TOL and not bad,
+                  f"{entry.bench_path}: the port's document misses the tracked file by {err:.3g} "
+                  f"(held within {BENCH_TOL}); keys that differ {bad}")
+            check(row["cache"]["misses"] == row["n_points"] and row["cache"]["hits"] == 0,
+                  f"{name}: the cold run read {row['cache']} from a fresh cache")
+            # (b) warm: every point a hit and the same bytes
+            check(wrow["cache"]["hits"] == row["n_points"] and wrow["cache"]["misses"] == 0
+                  and wrow["cache"]["stale"] == 0,
+                  f"{name}: the warm run read {wrow['cache']}, not {row['n_points']} hits")
+            check(Path(tmp, "warm", entry.bench_path).read_bytes()
+                  == Path(tmp, "cold", entry.bench_path).read_bytes(),
+                  f"{entry.bench_path}: the warm run wrote other bytes than the cold run")
+        handovers = [n for ns in out["handovers"].values() for n in ns]
+        check(handovers and min(handovers) >= 1, f"a mobility run handed no UE over: "
+              f"{out['handovers']}")
+        say(f"bench_all cold: {n_points} points, {len(ends)} shards in {len(pids)} pool worker "
+            f"processes, {cold['seconds']:.1f} s; warm: every point a hit "
+            f"({warm['cache']}), {warm['seconds']:.1f} s, the same bytes; mobility handovers "
+            f"{out['handovers']}; every number equal to the reference's tracked BENCH_*.json "
+            f"(simulation results of the reference, no chip involved) within {BENCH_TOL}; "
+            f"card {card}")
+        # (c) the regenerated files parse against the result schema
+        problems = validate_bench(root=os.path.join(tmp, "cold"))
+        check(not problems, f"validate_bench on the regenerated files: {problems}")
+        # (d) a report of each against the tracked file
+        for entry in suite.entries:
+            md = generate_report(os.path.join(tmp, "cold", entry.bench_path),
+                                 ref_path=str(ROOT / entry.bench_path))
+            caps, sats = report_deltas(md)
+            check(caps and all(c == "+0.00" for c in caps)
+                  and all(c in ("+0.000", "-") for c in sats),
+                  f"{entry.bench_path}: report deltas {caps} {sorted(set(sats))}")
+            say(f"report {entry.bench_path} against the tracked file: {len(md)} characters of "
+                f"md, {len(caps)} capacity deltas all +0.00, {len(sats)} satisfaction deltas "
+                f"{sorted(set(sats))}")
+        say("validate_bench on the regenerated files: no problem")
+    network_faults(net, card)
+    analytic_against_card(cal, card_mem, json.loads((ROOT / "BENCH_batching.json").read_text()),
+                          card)
+    say(f"phase 9 (experiments layer, bench_all {n_points} points twice in a spawned child "
+        f"with a pool of {workers}, {len(net)} network cases in another"
         f"{', phase 6 meanwhile' if meanwhile else ''}) took {time.perf_counter() - t0:.1f} s; "
         f"card {card}")
 
 
 def network_cases():
-    """(d)'s runs at NET_LOAD on three_cell_hetero with ar_translation: the
+    """(e)'s runs at NET_LOAD on three_cell_hetero with ar_translation: the
     plain run (fast and slow engines), an empty FaultSpec, the link and
     node outages, and each controller preset (static under slack_aware, as
     the plain run; each preset again under the `controlled` policy, whose
@@ -2828,7 +2839,7 @@ def main() -> int:
         return 0
     lap = [time.perf_counter()]
 
-    def took(phase):  # phases 6-9 print their own time
+    def took(phase):  # phases 6-9 print their own time too
         now = time.perf_counter()
         say(f"phase {phase} took {now - lap[0]:.1f} s")
         lap[0] = now
@@ -2846,6 +2857,7 @@ def main() -> int:
     phase_network(card, cal["llama2-7b"], mem["llama2-7b"],
                   workers=max(1, len(os.sched_getaffinity(0)) - 1),
                   meanwhile=lambda: phase_capacity(cal["llama2-7b"], card))
+    took("6 + 9")
     trained, peaks = phase_training(torch, card)
     for k, v in trained.items():
         launches[k] = launches.get(k, 0) + v

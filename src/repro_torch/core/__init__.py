@@ -4,12 +4,12 @@ Queueing analysis (§III), LLM latency model (§IV-A), 5G uplink SLS (§IV-A),
 priority scheduling (§IV-B), system simulator (Fig. 5) and service-capacity
 estimation (Def. 2). The port's copy of `repro/core`: plain numpy, no torch
 (the card enters only through a measured service time,
-`serving.calibrate.measured_service_fn`). Left out until `experiments` is
-ported: `capacity.network_sweep` (`capacity.network_point` drives
-`repro_torch.network`).
+`serving.calibrate.measured_service_fn`). `capacity.network_sweep` and
+`capacity.network_point` drive `repro_torch.network`; the sweep goes
+through `repro_torch.experiments`.
 """
 
-from .capacity import capacity_from_sweep, sweep
+from .capacity import capacity_from_sweep, network_sweep, sweep
 from .channel import ChannelConfig, UplinkChannel
 from .latency_model import (
     A100,
@@ -52,6 +52,7 @@ __all__ = [
     "disjoint_satisfaction",
     "exp_sum_cdf",
     "joint_satisfaction",
+    "network_sweep",
     "service_capacity",
     "simulate",
     "sweep",

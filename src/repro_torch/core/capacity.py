@@ -10,12 +10,14 @@ the points out over a process pool (`workers=`, opt-in): every point is an
 independent simulation with its own derived seed, so parallel and serial
 runs aggregate the exact same numbers in the exact same order.
 
-Copy of `repro/core/capacity.py` without `network_sweep`, which needs the
-`experiments` package that the port does not have yet; `network_point`
-runs one (rate, seed) point of the multi-cell `network` simulator.
-`sweep`/`sweep_generic` take
-any service-time callable (`ModelService` for the analytic case, the
-port's `serving.calibrate.MeasuredService` for measured compute).
+The port's copy of `repro/core/capacity.py`. The canonical sweep surface
+is `repro_torch.experiments` (a declarative `ExperimentSpec` through one
+`run()`); `network_sweep` below is a compatibility wrapper over it, and
+`network_point` runs one (rate, seed) point of the multi-cell `network`
+simulator. `sweep`/`sweep_generic` take any service-time callable
+(`ModelService` for the analytic case, the port's
+`serving.calibrate.MeasuredService` for measured compute), which a spec
+cannot carry.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ __all__ = [
     "run_grid",
     "sweep",
     "sweep_generic",
+    "network_sweep",
     "capacity_from_sweep",
     "network_point",
 ]
@@ -239,3 +242,76 @@ def network_point(
         seed=base_seed + 1000 * seed_idx, **(extra or {}),
     )
     return simulate_network(cfg, policy, fast=fast)
+
+
+def network_sweep(
+    topology,
+    policy: str,
+    arrival_rates: Sequence[float],
+    scenario=None,
+    sim_time: float = 10.0,
+    warmup: float = 2.0,
+    n_seeds: int = 2,
+    base_seed: int = 0,
+    workers: Union[int, str, None] = 0,
+    fast: bool = True,
+    chunk: Union[int, str, None] = None,
+    extra: Optional[dict] = None,
+) -> List[float]:
+    """Network-level satisfaction curve for one routing policy.
+
+    Compatibility wrapper over `repro_torch.experiments.run`: the arguments are
+    translated into a one-arm `ExperimentSpec` (same seed derivation, same
+    `config_for_load` construction — results are bit-identical to the
+    historical sweep loop). `arrival_rates` are aggregate jobs/s across
+    the whole deployment; returns the seed-averaged satisfaction per rate
+    (feed to `capacity_from_sweep`). `extra` forwards NetSimConfig fields
+    (controller=, mobility=, arrival=, node_kind=, max_batch=, model=,
+    window_s=).
+    """
+    from ..experiments import (
+        ControlSpec,
+        ExperimentSpec,
+        SweepSpec,
+        SystemSpec,
+        WorkloadSpec,
+    )
+    from ..experiments.runner import run as run_experiment
+
+    kw = dict(extra or {})
+    system = SystemSpec(
+        kind="multi_cell",
+        topology=topology,
+        policy=policy,
+        node_kind=kw.pop("node_kind", "classic"),
+        max_batch=kw.pop("max_batch", 8),
+        model=kw.pop("model", "llama2-7b"),
+    )
+    workload = WorkloadSpec(
+        scenario=scenario if scenario is not None else "ar_translation",
+        arrival=kw.pop("arrival", None),
+        mobility=kw.pop("mobility", None),
+    )
+    control = ControlSpec(controller=kw.pop("controller", None))
+    sweep_spec = SweepSpec(
+        rates=tuple(float(r) for r in arrival_rates),
+        n_seeds=n_seeds,
+        base_seed=base_seed,
+        sim_time=sim_time,
+        warmup=warmup,
+        window_s=kw.pop("window_s", None),
+        fast=fast,
+    )
+    if kw:
+        raise TypeError(
+            f"unsupported extra fields for network_sweep: {sorted(kw)}"
+        )
+    spec = ExperimentSpec(
+        name="network_sweep",
+        workload=workload,
+        system=system,
+        sweep=sweep_spec,
+        control=control,
+    )
+    result = run_experiment(spec, workers=workers, chunk=chunk)
+    return list(result.arms[0].curve.satisfaction)

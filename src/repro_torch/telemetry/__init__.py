@@ -6,9 +6,10 @@ Pass an `EventRecorder` as ``recorder=`` or a `PhaseProfiler` as
 `repro_torch.network.simulate_network`. Both are free when off and leave
 fixed-seed results bit-identical when on. Read-only consumers of the
 recorder's columnar export: `metrics` (`summarize`, stage percentiles,
-Little's-law checks, the `mm1_conformance` validator) and `chrome`
-(Perfetto-loadable traces). The reference's md/html capacity reports
-(`report.py`) are not ported yet.
+Little's-law checks, the `mm1_conformance` validator), `chrome`
+(Perfetto-loadable traces) and `report` (deterministic offline md/html
+capacity reports from stored `ExperimentResult` / ``BENCH_*.json``
+files, ``python -m repro_torch.experiments report``).
 """
 
 from .chrome import chrome_trace, write_chrome_trace
@@ -33,6 +34,7 @@ from .recorder import (
     TraceRecorder,
     active,
 )
+from .report import generate_report, render_report
 
 __all__ = [
     "PROFILE_SCHEMA",
@@ -52,4 +54,6 @@ __all__ = [
     "stage_percentiles",
     "littles_law_check",
     "mm1_conformance",
+    "generate_report",
+    "render_report",
 ]

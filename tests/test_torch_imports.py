@@ -65,7 +65,14 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.batching.kv_cache", "repro_torch.batching.node",
                 "repro_torch.network", "repro_torch.network.scenarios",
                 "repro_torch.network.fleet", "repro_torch.network.topology",
-                "repro_torch.network.routing", "repro_torch.network.simulator"):
+                "repro_torch.network.routing", "repro_torch.network.simulator",
+                "repro_torch.telemetry.report", "repro_torch.experiments",
+                "repro_torch.experiments.__main__", "repro_torch.experiments.bench_docs",
+                "repro_torch.experiments.cache", "repro_torch.experiments.dispatch",
+                "repro_torch.experiments.progress", "repro_torch.experiments.registry",
+                "repro_torch.experiments.result", "repro_torch.experiments.runlog",
+                "repro_torch.experiments.runner", "repro_torch.experiments.spec",
+                "repro_torch.experiments.suites", "repro_torch.experiments.validate"):
         assert mod in res["imported"]
 
 

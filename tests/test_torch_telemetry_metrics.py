@@ -199,5 +199,4 @@ class TestPureHelpers:
                 fn({"schema": 99})
 
     def test_exports_equal_reference(self):
-        assert set(telemetry.__all__) == set(ref_tel.__all__) - {"generate_report",
-                                                                 "render_report"}
+        assert set(telemetry.__all__) == set(ref_tel.__all__)
