@@ -7,6 +7,7 @@
     python3 chip_smoke.py --rmsnorm-bwd-profile
     python3 chip_smoke.py --decode-sweep
     python3 chip_smoke.py --decode-profile ARCH [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --sharded
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -148,7 +149,12 @@ Phases, each of which must pass or the script exits non-zero:
      train_4k, prefill_32k, decode_32k and long_500k in a spawned pool, one
      line a case (peak memory and its parts, whether it fits one card, dot
      flops, the roofline terms under `launch.roofline.H100`): every case
-     ok but seamless-m4t x long_500k, the documented skip. Then it holds
+     ok but seamless-m4t x long_500k, the documented skip; and in the same
+     pool `--mesh both`'s argument count of every assigned arch x shape on
+     the production meshes (16 x 16 and 2 x 16 x 16 over a fake process
+     group): per device, the argument bytes by part and `fits_h100`
+     (counted, not measured), no number for the peak or the collectives,
+     one line a case, the same skip only. Then it holds
      the dry run against the card: each of phase 7's four configs counted
      the same way, its peak within 10% of the run's measured
      `max_memory_allocated` and, for llama2-7b and seamless-m4t, its dot
@@ -187,7 +193,19 @@ Phases, each of which must pass or the script exits non-zero:
      LLAMA2_7B, "extended")`) against phase 5's llama2-7b on the card: its
      decode step at batch 1 and 8 and its 15-token prefill, and the KV
      budget for rag_doc_qa jobs against what the card has free once the
-     bf16 weights are on it (printed; finite and positive are the checks).
+     bf16 weights are on it (printed; finite and positive are the checks);
+ 10. sharded serving, run after phase 5 (`phase_sharded`): llama2-7b at full
+     width and depth, bf16, seed 0, unsharded and then under
+     `sharding.use_mesh` on a (1, 1) ("data", "model") mesh over an NCCL
+     process group of one rank on a local HashStore: the parameters
+     distributed once as DTensors, prefill of a 15-token prompt at batch 8
+     (twice: cold, then warm) under PREFILL_RULES, 15 greedy decode steps under DECODE_RULES, each
+     kernel on its local shards through `local_map`. Greedy tokens must
+     equal the unsharded run's on the same weights and so must every logit
+     (SHARDED_LOGIT_TOL = 0: on one rank each shard is the whole tensor),
+     rmsnorm, flash and decode must launch what the run predicts under the
+     mesh (counts set to 0 just before it); the largest logit difference
+     and the sharded and unsharded prefill and decode-step walls are printed.
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -201,6 +219,7 @@ times another checkout's wrapper with the same timer. With
 --rmsnorm-bwd-profile it builds a copy of the backward with clock reads at
 its phase boundaries and prints where a call's time goes
 (`rmsnorm_bwd_profile`).
+With --sharded it only builds the kernels and runs phase 10.
 With --decode-sweep it only builds the kernels and times decode_attention at
 each head-group size against SDPA (`decode_sweep`), where `head_groups`'s
 rule in `kernels/decode_attention.py` comes from. With --decode-profile ARCH
@@ -1975,10 +1994,167 @@ def checkpoint_round_trip(torch):
 # phase 8: the dry run (meta device, host only) held against the card
 # ---------------------------------------------------------------------------
 
+# phase 10: llama2-7b at full width and depth, bf16, seed 0: a prompt of
+# SHARDED_PROMPT tokens at batch SHARDED_BATCH, then SHARDED_STEPS greedy steps
+SHARDED_ARCH, SHARDED_BATCH, SHARDED_PROMPT, SHARDED_STEPS = "llama2-7b", 8, 15, 15
+# on a one-rank mesh every local shard is the whole tensor and the same
+# kernels run in the same order, so the logits must be bit for bit the
+# unsharded run's
+SHARDED_LOGIT_TOL = 0.0
+
+
+def greedy_run(torch, model, params, prompt, steps, mesh=None):
+    """Prefill (twice: the first call pays what a cold path pays, the
+    second is timed warm and kept), then `steps` greedy decode steps over a
+    cache of prompt + steps slots, unsharded or under `mesh` (prefill under
+    PREFILL_RULES, decode under DECODE_RULES, the parameters distributed
+    once). -> (every step's logits, prefill's first, (steps + 1, B, V) f32;
+    the tokens fed (steps, B); the two prefills' walls s; each decode
+    step's wall s), each wall synchronised."""
+    from repro_torch import sharding as sh
+
+    full = (lambda t: t.full_tensor()) if mesh else (lambda t: t)
+    use = ((lambda rules: sh.use_mesh(mesh, rules)) if mesh
+           else (lambda rules: contextlib.nullcontext()))
+    B, S = prompt.shape
+    with torch.no_grad():
+        with use(sh.PREFILL_RULES):
+            p = model.distribute_params(params) if mesh else params
+            prefill_s = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model.prefill(p, prompt)
+                logits = full(logits)
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t0)
+        cache = {k: full(v) for k, v in cache.items()}
+        for k in ("k", "v"):  # room for the steps: empty slots after the prompt's
+            cache[k] = torch.nn.functional.pad(cache[k], (0, 0, 0, 0, 0, steps))
+        cache["pos"] = torch.nn.functional.pad(cache["pos"], (0, steps), value=-1)
+        out, toks, walls = [logits.float()], [], []
+        with use(sh.DECODE_RULES):
+            for i in range(steps):
+                tok = out[-1].argmax(-1).to(torch.int32)
+                pos = torch.full((B,), S + i, dtype=torch.int32, device=prompt.device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model.decode(p, cache, tok, pos)
+                logits = full(logits)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                toks.append(tok)
+                out.append(logits.float())
+    return torch.stack(out), torch.stack(toks), prefill_s, walls
+
+
+def phase_sharded(torch, card):
+    """The sharded serving path: llama2-7b at full width and depth (d =
+    4096, 32 heads, 32 layers), bf16, random weights from seed 0, run
+    unsharded, then under `sharding.use_mesh` on a (1, 1) ("data", "model")
+    mesh (`launch.mesh.make_smoke_mesh`) over an NCCL process group of one
+    rank on a local HashStore (no network): the parameters distributed once
+    as DTensors, prefill (twice: cold, then warm and kept) of a
+    SHARDED_PROMPT-token prompt at batch SHARDED_BATCH under
+    PREFILL_RULES, then SHARDED_STEPS greedy decode
+    steps under DECODE_RULES, every kernel on its local shards through
+    `local_map`. The launch counts are set to 0 just before the sharded run
+    and read just after; each kernel must launch what the run predicts
+    (`per_forward`), greedy tokens must equal the unsharded run's on the
+    same weights, and so must the logits (SHARDED_LOGIT_TOL); the largest
+    difference is printed with the sharded and unsharded prefill and
+    decode-step walls (host-bound: DTensor's sharding propagation runs on
+    the host at every op). Returns the launch counts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (SHARDED_BATCH, SHARDED_PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ref, ref_toks, ref_pre, ref_walls = greedy_run(torch, model, params, prompt, SHARDED_STEPS)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_smoke_mesh("cuda")
+        ops.reset_launches()  # the sharded path's run starts here
+        got, toks, pre, walls = greedy_run(torch, model, params, prompt, SHARDED_STEPS, mesh)
+        torch.cuda.synchronize()
+        n = dict(ops.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    (r_p, a_p), (r_d, a_d) = per_forward(cfg)
+    want = {"rmsnorm": 2 * r_p + r_d * SHARDED_STEPS, "rmsnorm_bwd": 0, "flash_attention": 2 * a_p,
+            "decode_attention": a_d * SHARDED_STEPS}
+    diff = float((got - ref).abs().max())
+    med = statistics.median
+    say(f"sharded serving {SHARDED_ARCH} full width: {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads} K={cfg.n_kv_heads} {cfg.dtype}, mesh (1, 1) ('data', 'model') over "
+        f"NCCL, 1 rank; prefill {SHARDED_PROMPT} tokens at batch {SHARDED_BATCH} under "
+        f"PREFILL_RULES, {SHARDED_STEPS} greedy decode steps under DECODE_RULES")
+    say(f"sharded serving: greedy tokens identical to the unsharded run: "
+        f"{bool(torch.equal(toks, ref_toks))}; largest |logit difference| {diff:.6g} "
+        f"over {tuple(got.shape)}")
+    say(f"sharded serving walls: prefill {pre[1] * 1e3:.3f} ms sharded vs {ref_pre[1] * 1e3:.3f} "
+        f"ms unsharded (first call {pre[0] * 1e3:.3f} vs {ref_pre[0] * 1e3:.3f} ms); decode step "
+        f"median {med(walls[1:]) * 1e3:.3f} ms sharded vs "
+        f"{med(ref_walls[1:]) * 1e3:.3f} ms unsharded (first step {walls[0] * 1e3:.3f} vs "
+        f"{ref_walls[0] * 1e3:.3f} ms; ratio {med(walls[1:]) / med(ref_walls[1:]):.3f}); "
+        f"card {card}")
+    say(f"launches under the mesh: {n} (predicted {want}: {r_p} rmsnorm + {a_p} flash a "
+        f"prefill, two prefills, {r_d} rmsnorm + {a_d} decode_attention a step)")
+    check(torch.equal(toks, ref_toks), "sharded greedy tokens differ from the unsharded run's")
+    check(diff <= SHARDED_LOGIT_TOL, f"sharded logits differ from the unsharded run's by {diff:.6g} "
+          f"(> {SHARDED_LOGIT_TOL})")
+    check(bool(torch.isfinite(got).all()), "sharded logits are not finite")
+    check(n == want, f"launches under the mesh {n} != {want}")
+    del params, model
+    torch.cuda.empty_cache()
+    say(f"phase 10 (sharded serving) took {time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
 DRYRUN_MEMORY_TOL = 0.10  # |dry-run peak / max_memory_allocated - 1|, at most
 DRYRUN_FLOPS_TOL = 0.02  # |counted flops / train_reckoning's issued - 1|, at most
 DRYRUN_HBM_TOL = 0.01  # |H100.hbm_bytes / total_memory - 1|, at most
 DRYRUN_FLOPS_HELD = ("llama2-7b", "seamless-m4t-large-v2")  # no recurrent products
+
+
+def check_mesh_records(recs, card):
+    """The dry run's `--mesh both` records: every assigned arch x shape ok
+    on both production meshes but seamless-m4t x long_500k (the documented
+    skip), each with per-device argument bytes by part and `fits_h100`,
+    and no number for what a mesh case does not count (its peak and its
+    collectives)."""
+    from repro_torch.launch import dryrun
+
+    bad = [r["case"] for r in recs if r["status"] == "error"]
+    skipped = sorted(r["case"] for r in recs if r["status"] == "skipped")
+    check(not bad, f"dry-run mesh cases failed: {bad}")
+    check(skipped == [f"seamless-m4t-large-v2__long_500k__{m}" for m in ("multi", "single")],
+          f"mesh cases skipped: {skipped}")
+    for r in (r for r in recs if r["status"] == "ok"):
+        m = r["memory"]
+        check(r["chips"] in (256, 512) and r["collective_counted"] is False
+              and m["peak_counted"] is False and r["roofline"]["collective_s"] is None
+              and "peak_gb" not in m and isinstance(m["fits_h100"], bool)
+              and all(m[k + "_gb"] >= 0 for k in dryrun.MESH_PARTS),
+              f"{r['case']}: a mesh record lacks its counted bytes or counts what it cannot")
+    fits = {mesh: sum(r["memory"]["fits_h100"] for r in recs if r["status"] == "ok"
+                      and r["case"].endswith(mesh)) for mesh in ("single", "multi")}
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    say(f"dry run on the production meshes: {n_ok} ok, {len(skipped)} skipped, 0 errors; "
+        f"arguments fit one 80 GB card a device (counted, not measured): {fits['single']} on "
+        f"16x16, {fits['multi']} on 2x16x16; peaks and collectives not counted; card {card}")
 
 
 def phase_dryrun(torch, peaks, card):
@@ -2006,9 +2182,13 @@ def phase_dryrun(torch, peaks, card):
     train = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
     grid = [(a, s) for a in dryrun.ASSIGNED + ["llama2-7b"] for s in SHAPES]
     held = [(arch, train, cut) for arch, cut, _, _ in TRAIN_RUNS]
-    recs = dryrun.run_cases(grid + held, str(ROOT / dryrun.OUT))
-    for r in recs:
+    meshed = [(a, s, None, m) for a in dryrun.ASSIGNED for s in SHAPES
+              for m in dryrun.MESH_ARGS["both"]]
+    recs = dryrun.run_cases(grid + held + meshed, str(ROOT / dryrun.OUT))
+    recs, mrecs = recs[:len(grid) + len(held)], recs[len(grid) + len(held):]
+    for r in recs + mrecs:
         say(f"dryrun {dryrun.case_line(r)}")
+    check_mesh_records(mrecs, card)
     status = {st: [r["case"] for r in recs[:len(grid)] if r["status"] == st]
               for st in ("ok", "skipped", "error")}
     check(not status["error"] and all(r["status"] == "ok" for r in recs[len(grid):]),
@@ -2039,7 +2219,8 @@ def phase_dryrun(torch, peaks, card):
         check(arch not in DRYRUN_FLOPS_HELD or abs(f_ratio - 1) <= DRYRUN_FLOPS_TOL,
               f"{arch}: dry-run flops {r['cost']['flops']} are not train_reckoning's {issued} "
               f"(within {DRYRUN_FLOPS_TOL})")
-    say(f"phase 8 (dry run, {len(recs)} cases in a pool of {len(os.sched_getaffinity(0))}) "
+    say(f"phase 8 (dry run, {len(recs)} cases on one card and {len(mrecs)} on the production "
+        f"meshes in a pool of {len(os.sched_getaffinity(0))}) "
         f"took {time.perf_counter() - t0:.1f} s")
 
 
@@ -2778,6 +2959,9 @@ def main() -> int:
     ap.add_argument("--decode-profile", metavar="ARCH",
                     help="only build and profile ARCH's decode steps at full width "
                          "(profile_decode)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only build the kernels and run the sharded serving phase "
+                         "(phase_sharded)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive (default: beside "
                          "this script)")
@@ -2825,6 +3009,13 @@ def main() -> int:
         decode_sweep(torch, Timer(torch))
         say(f"decode sweep done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
+    if args.sharded:
+        from repro_torch.kernels import _build
+
+        _build.library()
+        phase_sharded(torch, card)
+        say(f"sharded serving done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
     if args.decode_profile:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
@@ -2852,6 +3043,9 @@ def main() -> int:
     took(4)
     launches, cal, mem = phase_full_width(torch)
     took(5)
+    for k, v in phase_sharded(torch, card).items():
+        launches[k] = launches.get(k, 0) + v
+    took(10)
     # phase 9 is host code in a pool of processes; phase 6, one host process,
     # runs beside it, and no phase on the card runs while they do
     phase_network(card, cal["llama2-7b"], mem["llama2-7b"],

@@ -9,12 +9,31 @@ the gradient, the backward kernel (the plain versions on the CPU, through
 the same Function). The attention kernels have no backward, in this package
 or the reference: their raw wrappers raise on inputs that require grad, and
 training takes the naive or chunked attention (`RuntimeFlags.attn_impl_for`).
+
+Under a mesh (`sharding.use_mesh`) the inputs are DTensors, which the
+kernels cannot take (they launch on raw pointers): each wrapper runs its
+kernel, or on the CPU its plain version, on the local shards through
+`local_map`, with declared placements resolved by the active rules, and
+redistributes inputs whose placements differ first:
+
+  * flash: batch over the data axes, heads over "model";
+  * decode: batch and heads likewise, the cache's slots (`kv_seq`)
+    replicated, so a sequence-sharded cache is gathered for the call;
+  * rmsnorm: rows (the batch dim) sharded, the last dim and gamma
+    replicated.
+
+Where "model" divides the query heads but not the KV heads (GQA), the KV
+heads are replicated and each rank takes the ones its query heads read.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from .. import sharding as sh
 from . import ref
 from ._build import LAUNCHES
 from .decode_attention import decode_attention as _decode_kernel
@@ -42,11 +61,55 @@ def flash_attention(
     """Attention over arange positions (the kernel's only position layout)."""
     B, Sq, K, G, dh = q.shape
     qh = q.view(B, Sq, K * G, dh)  # a view: raises rather than copy
-    if q.is_cuda:
-        out = _flash_kernel(qh, k, v, causal=causal, window=window)
+    fn = functools.partial(_flash_local, causal=causal, window=window)
+    if isinstance(q, DTensor):
+        q_pl, kv_pl, pair = _head_placements(qh.shape, k.shape, ("batch", None, "heads", None),
+                                             ("batch", None, "kv_heads", None))
+        out = sh.run_local(functools.partial(_paired, fn, pair), q_pl, (q_pl, kv_pl, kv_pl),
+                           qh, k, v)
     else:
-        out = ref.flash_attention(qh, k, v, causal=causal, window=window)
+        out = fn(qh, k, v)
     return out.view(B, Sq, K, G, dh)
+
+
+def _flash_local(qh, k, v, *, causal, window):
+    if qh.is_cuda:
+        return _flash_kernel(qh, k, v, causal=causal, window=window)
+    return ref.flash_attention(qh, k, v, causal=causal, window=window)
+
+
+def _head_placements(q_shape, k_shape, q_axes, k_axes):
+    """(q's placements, k and v's, the KV-head pairing) of an attention
+    kernel under the active rules: batch over the data axes, heads over
+    "model". K shares q's head sharding where it resolves to the same mesh
+    dims; elsewhere it is replicated and `pair` holds (the mesh, the heads'
+    mesh dims, G) for `_paired`."""
+    q_pl = sh.placements_of(q_shape, q_axes)
+    k_raw = sh.placements_of(k_shape, k_axes)
+    hq, hk = q_axes.index("heads"), k_axes.index("kv_heads")
+    heads = sh.dims_sharding(q_pl, hq)
+    kv_pl = [Shard(0) if q_pl[i] == Shard(0) else
+             Shard(hk) if i in heads and k_raw[i] == Shard(hk) else Replicate()
+             for i in range(len(q_pl))]
+    pair = None
+    if heads and sh.dims_sharding(kv_pl, hk) != heads:
+        pair = (sh.current_mesh(), heads, q_shape[hq] // k_shape[hk])
+    return q_pl, kv_pl, pair
+
+
+def _paired(fn, pair, q, k, v, *rest):
+    """`fn` on local shards, with k and v (all KV heads) cut to the KV heads
+    of this rank's query heads: the block [r H', (r + 1) H') of the H
+    global heads reads KV heads [r H' / G, ...), G query heads each."""
+    if pair is not None:
+        mesh, dims, G = pair
+        Hl = q.shape[-2]
+        h0 = sh.shard_index(mesh, dims) * Hl
+        if Hl % G and G % Hl:
+            raise ValueError(f"{Hl} query heads a rank cannot pair with KV heads of {G}")
+        kv = slice(h0 // G, h0 // G + max(1, Hl // G))
+        k, v = k[..., kv, :], v[..., kv, :]
+    return fn(q, k, v, *rest)
 
 
 def decode_attention(
@@ -58,6 +121,17 @@ def decode_attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
+    fn = functools.partial(_decode_local, window=window)
+    if isinstance(q, DTensor):  # the cache's slots gathered: kv_seq replicated
+        q_pl, kv_pl, pair = _head_placements(q.shape, k.shape, ("batch", "heads", None),
+                                             ("batch", None, "kv_heads", None))
+        pos_pl = [p if p == Shard(0) else Replicate() for p in q_pl]
+        return sh.run_local(functools.partial(_paired, fn, pair), q_pl,
+                            (q_pl, kv_pl, kv_pl, pos_pl, pos_pl), q, k, v, kv_pos, pos)
+    return fn(q, k, v, kv_pos, pos)
+
+
+def _decode_local(q, k, v, kv_pos, pos, *, window):
     if q.is_cuda:
         return _decode_kernel(q, k, v, kv_pos, pos, window=window)
     return ref.decode_attention(q, k, v, kv_pos, pos, window=window)
@@ -87,4 +161,8 @@ class RMSNormFn(torch.autograd.Function):
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    if isinstance(x, DTensor):  # rows sharded, the last dim and gamma replicated
+        x_pl = sh.placements_of(x.shape, ("batch",) + (None,) * (x.dim() - 1))
+        return sh.run_local(lambda xl, g: RMSNormFn.apply(xl, g, eps), x_pl,
+                            (x_pl, [Replicate()] * len(x_pl)), x, gamma)
     return RMSNormFn.apply(x, gamma, eps)

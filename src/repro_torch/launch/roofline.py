@@ -8,6 +8,11 @@ counted on the meta device):
     memory term     = dot traffic / HBM bandwidth
     collective term = collective bytes / link bandwidth   (0 on one card)
 
+On the production meshes (`launch.dryrun --mesh`) the dry run counts the
+arguments only: the compute term is `model_flops` over the chips and the
+memory term the device's argument bytes; the collective bytes are not
+counted there (the record holds None).
+
 `model_flops` is the paper-standard accounting, equal to the reference's:
 6 N_active T to train, 2 N_active T to prefill, 2 N_active B to decode.
 The ratio model_flops / (chips x counted FLOPs) exposes remat and other

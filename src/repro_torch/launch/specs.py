@@ -12,20 +12,23 @@ The four assigned shapes:
 skip), the runtime flags (chunked attention for 32k+; the sliding-window
 serving variant for full-attention archs at 500k) and returns the step
 callable with its arguments as meta tensors: shapes and dtypes, no values,
-no memory. The reference's sharding (rule sets, logical axes) has no
-counterpart on one card.
+no memory, with the reference's rule set for its kind and the logical axes
+of every argument (`arg_axes`: parameters by name, the optimizer's moments
+likewise, the cache by `Model.cache_axes`, the inputs), from which
+`sharding.tree_specs` lays each one out on a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from ..configs import ModelConfig, get_config
 from ..models import Model, RuntimeFlags, build_model
 from ..models.common import DTYPES
+from ..sharding import DECODE_RULES, PREFILL_RULES, TRAIN_RULES, Axes, AxisRules
 from ..training import AdamWConfig, adamw_init, make_train_step
 
 __all__ = [
@@ -102,9 +105,12 @@ def _cache_len(cfg: ModelConfig, shape: ShapeSpec, rt: RuntimeFlags) -> int:
 class Case:
     """One (arch x shape) case on the meta device: `step(*args)` is the
     step a driver runs. train: (params, AdamW state, batch); prefill:
-    (params, prompt); decode: (params, cache, token, pos). The reference's
-    `donate` has no counterpart: the port's optimizer and decode update
-    their state in place."""
+    (params, prompt); decode: (params, cache, token, pos). `rules` is the
+    kind's rule set, `arg_axes` the logical axes of `args`, tree for tree
+    (parameters and moments keyed by name), and `arg_parts` the part each
+    argument counts under ("params", "moments", "cache" or "inputs"). The reference's `donate` has no
+    counterpart: the port's optimizer and decode update their state in
+    place."""
 
     arch: str
     cfg: ModelConfig
@@ -112,22 +118,31 @@ class Case:
     model: Model
     step: Callable
     args: tuple
+    rules: AxisRules
+    arg_axes: tuple
+    arg_parts: tuple
 
 
-def _batch_inputs(cfg: ModelConfig, shape: ShapeSpec, with_labels: bool) -> Dict[str, Any]:
-    """Meta train/prefill inputs for one architecture."""
+TOK_AXES = Axes(("batch", "seq"))
+EMB_AXES = Axes(("batch", "seq", "embed"))
+
+
+def _batch_inputs(cfg: ModelConfig, shape: ShapeSpec, with_labels: bool):
+    """Meta train/prefill inputs for one architecture, and their axes."""
     B, S = shape.batch, shape.seq
     tok = torch.empty((B, S), dtype=torch.int32, device=META)
     emb = torch.empty((B, S, cfg.d_model), dtype=DTYPES[cfg.dtype], device=META)
     if cfg.n_encoder_layers:
         batch = {"enc_embeds": emb, "dec_tokens": tok}
+        axes = {"enc_embeds": EMB_AXES, "dec_tokens": TOK_AXES}
     elif cfg.embeds_input:
-        batch = {"embeds": emb}
+        batch, axes = {"embeds": emb}, {"embeds": EMB_AXES}
     else:
-        batch = {"tokens": tok}
+        batch, axes = {"tokens": tok}, {"tokens": TOK_AXES}
     if with_labels:
         batch["labels"] = torch.empty((B, S), dtype=torch.int32, device=META)
-    return batch
+        axes["labels"] = TOK_AXES
+    return batch, axes
 
 
 def input_specs(arch: str, shape_name: str) -> tuple:
@@ -160,17 +175,22 @@ def build_case(
         rt = dataclasses.replace(rt, **rt_kwargs)
     model = build_model(cfg, rt)
     params = model.init(device=META)
+    paxes = model.param_axes(params)
 
     if shape.kind == "train":
         params.requires_grad_(True)
         step = make_train_step(model, opt_cfg or AdamWConfig(), microbatches=microbatches)
-        batch = _batch_inputs(cfg, shape, with_labels=True)
-        return Case(arch, cfg, shape, model, step, (params, adamw_init(params), batch))
+        batch, batch_axes = _batch_inputs(cfg, shape, with_labels=True)
+        opt_axes = {"mu": paxes, "nu": paxes, "step": Axes(())}
+        return Case(arch, cfg, shape, model, step, (params, adamw_init(params), batch),
+                    TRAIN_RULES, (paxes, opt_axes, batch_axes), ("params", "moments", "inputs"))
 
     if shape.kind == "prefill":
-        batch = _batch_inputs(cfg, shape, with_labels=False)
-        prompt = batch if cfg.n_encoder_layers else next(iter(batch.values()))
-        return Case(arch, cfg, shape, model, model.prefill, (params, prompt))
+        batch, batch_axes = _batch_inputs(cfg, shape, with_labels=False)
+        if not cfg.n_encoder_layers:
+            batch, batch_axes = next(iter(batch.values())), next(iter(batch_axes.values()))
+        return Case(arch, cfg, shape, model, model.prefill, (params, batch),
+                    PREFILL_RULES, (paxes, batch_axes), ("params", "inputs"))
 
     # decode
     B = shape.batch
@@ -179,4 +199,7 @@ def build_case(
     cache = model.init_cache(B, clen, device=META, enc_len=enc_len)
     tok = torch.empty((B,), dtype=torch.int32, device=META)
     pos = torch.empty((B,), dtype=torch.int32, device=META)
-    return Case(arch, cfg, shape, model, model.decode, (params, cache, tok, pos))
+    return Case(arch, cfg, shape, model, model.decode, (params, cache, tok, pos),
+                DECODE_RULES,
+                (paxes, model.cache_axes(B, clen, enc_len), Axes(("batch",)), Axes(("batch",))),
+                ("params", "cache", "inputs", "inputs"))

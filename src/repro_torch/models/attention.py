@@ -43,6 +43,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from .. import sharding as sh
+from ..sharding import constrain
 from .common import RuntimeFlags, init_normal_, param
 from .rope import rotate
 
@@ -65,15 +67,15 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = param((d, H, dh), device, dtype)
-        self.wk = param((d, K, dh), device, dtype)
-        self.wv = param((d, K, dh), device, dtype)
-        self.wo = param((H, dh, d), device, dtype)
+        self.wq = param((d, H, dh), ("p_embed", "p_heads", None), device, dtype)
+        self.wk = param((d, K, dh), ("p_embed", "p_kv_heads", None), device, dtype)
+        self.wv = param((d, K, dh), ("p_embed", "p_kv_heads", None), device, dtype)
+        self.wo = param((H, dh, d), ("p_heads", None, "p_embed"), device, dtype)
         self.bq = self.bk = self.bv = None
         if cfg.qkv_bias:
-            self.bq = param((H, dh), device, dtype)
-            self.bk = param((K, dh), device, dtype)
-            self.bv = param((K, dh), device, dtype)
+            self.bq = param((H, dh), ("p_heads", None), device, dtype)
+            self.bk = param((K, dh), ("p_kv_heads", None), device, dtype)
+            self.bv = param((K, dh), ("p_kv_heads", None), device, dtype)
 
 
 def init_attention(p: Attention, gen: torch.Generator) -> Attention:
@@ -214,7 +216,8 @@ def project_kv(p: Attention, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     k, v = _project(x, p.wk), _project(x, p.wv)
     if p.bk is not None:
         k, v = k + p.bk, v + p.bv
-    return k, v
+    return (constrain(k, ("batch", "seq", "kv_heads", None)),
+            constrain(v, ("batch", "seq", "kv_heads", None)))
 
 
 def _project_qkv(
@@ -224,8 +227,8 @@ def _project_qkv(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     k, v = project_kv(p, x)
     if rope is not None:
-        k = rotate(k, rope)
-    return _project_q(p, x, rope), k, v
+        k = constrain(rotate(k, rope), ("batch", "seq", "kv_heads", None))
+    return constrain(_project_q(p, x, rope), ("batch", "seq", "heads", None)), k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -260,7 +263,8 @@ def attention_forward(
         causal, window = False, 0
     qg = q.view(B, S, K, G, cfg.head_dim)
     out = attention_core(qg, k, v, positions, k_pos, causal, window, rt)
-    return _out_proj(out.reshape(B, S, cfg.n_heads, cfg.head_dim), p.wo), (k, v)
+    y = _out_proj(out.reshape(B, S, cfg.n_heads, cfg.head_dim), p.wo)
+    return constrain(y, ("batch", "seq_res", "embed")), (k, v)
 
 
 def decode_attention(
@@ -268,7 +272,7 @@ def decode_attention(
     x: torch.Tensor,  # (B, d) — one new token per sequence
     pos: torch.Tensor,  # (B,) int32 current position
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # tables of pos[:, None]; None = NoPE
-    flat_slot: torch.Tensor,  # (B,) int64: b * Sc + pos % Sc, the new token's row
+    flat_slot: Optional[torch.Tensor],  # (B,) int64: b * Sc + pos % Sc; None on a mesh
     cache_k: torch.Tensor,  # (B, Sc, K, dh) — this layer's cache, updated in place
     cache_v: torch.Tensor,
     cache_pos: torch.Tensor,  # (B, Sc) int32, pos already written at the slot
@@ -279,13 +283,18 @@ def decode_attention(
 
     The cache tensors are updated in place (the reference rebuilds them
     functionally); at full width a per-step copy would double the KV
-    traffic. Returns out (B, d)."""
+    traffic. Under a mesh (`flat_slot` None) each rank writes the slots it
+    holds (`sharding.write_slots`). Returns out (B, d)."""
     q, k, v = _project_qkv(p, x[:, None, :], rope)
-    K, dh = cache_k.shape[2:]
-    cache_k.view(-1, K, dh).index_copy_(0, flat_slot, k[:, 0])
-    cache_v.view(-1, K, dh).index_copy_(0, flat_slot, v[:, 0])
+    if flat_slot is None:
+        sh.write_slots(cache_k, k[:, 0], pos)
+        sh.write_slots(cache_v, v[:, 0], pos)
+    else:
+        K, dh = cache_k.shape[2:]
+        cache_k.view(-1, K, dh).index_copy_(0, flat_slot, k[:, 0])
+        cache_v.view(-1, K, dh).index_copy_(0, flat_slot, v[:, 0])
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, cache_pos, pos, window=window)
-    return _out_proj(out, p.wo)
+    return constrain(_out_proj(out, p.wo), ("batch", "embed"))
 
 
 def cross_decode_attention(

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..sharding import Axes
 
 __all__ = [
     "DTYPES",
@@ -45,8 +46,10 @@ class RuntimeFlags:
     (`models/xlstm.py`), and `remat`: while a gradient is recorded, each
     block (dense/vlm/moe, each encoder and decoder layer) or group (zamba2,
     xlstm) is recomputed in the backward (`torch.utils.checkpoint`), as the
-    reference's `jax.checkpoint`. The sharding field has no effect: the port
-    runs on one card."""
+    reference's `jax.checkpoint`. `attn_seq_shard` (context-parallel
+    attention under the reference's ATTNSP rule sets) is kept for the
+    reference's signature; the port's sharded path (`sharding.use_mesh`)
+    runs the dense family's prefill and decode and does not read it."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024
@@ -92,11 +95,16 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def param(shape: Sequence[int], device, dtype) -> nn.Parameter:
+def param(shape: Sequence[int], axes: Sequence[Optional[str]], device, dtype) -> nn.Parameter:
     """An uninitialised parameter, created without gradients (serving
-    records none; `training.train_loop` turns them on)."""
-    return nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype),
-                        requires_grad=False)
+    records none; `training.train_loop` turns them on). `axes` are its
+    logical axes in the reference's vocabulary ("p_embed", "p_heads", ...),
+    kept as `p.axes` (`Model.param_axes` reads them; `sharding` resolves
+    them to a layout on a mesh)."""
+    assert len(shape) == len(axes), (shape, axes)
+    p = nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype), requires_grad=False)
+    p.axes = Axes(axes)
+    return p
 
 
 @torch.no_grad()

@@ -45,6 +45,8 @@ from .attention import (
 from .common import DTYPES, RuntimeFlags, init_normal_, param, rms_norm
 from .mlp import MLP, init_mlp, mlp_forward
 from .transformer import (
+    KV_AXES,
+    POS_AXES,
     Block,
     _arange_positions,
     _rope_tables,
@@ -63,17 +65,18 @@ __all__ = [
     "encdec_prefill",
     "encdec_decode",
     "init_encdec_cache",
+    "encdec_cache_axes",
 ]
 
 
 class DecLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        self.self_norm = param((cfg.d_model,), device, dtype)
+        self.self_norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.self_attn = Attention(cfg, device=device, dtype=dtype)
-        self.cross_norm = param((cfg.d_model,), device, dtype)
+        self.cross_norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.cross_attn = Attention(cfg, device=device, dtype=dtype)
-        self.mlp_norm = param((cfg.d_model,), device, dtype)
+        self.mlp_norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.mlp = MLP(cfg, device=device, dtype=dtype)
 
 
@@ -86,10 +89,10 @@ class EncDec(nn.Module):
             raise ValueError(f"{cfg.name} has no encoder: it is a `transformer.Decoder`")
         dtype = dtype or DTYPES[cfg.dtype]
         d, V = cfg.d_model, cfg.padded_vocab
-        self.embed = param((V, d), device, dtype)
-        self.enc_final_norm = param((d,), device, dtype)
-        self.final_norm = param((d,), device, dtype)
-        self.lm_head = param((d, V), device, dtype)
+        self.embed = param((V, d), ("p_vocab", "p_embed"), device, dtype)
+        self.enc_final_norm = param((d,), ("p_embed",), device, dtype)
+        self.final_norm = param((d,), ("p_embed",), device, dtype)
+        self.lm_head = param((d, V), ("p_embed", "p_vocab"), device, dtype)
         self.enc_layers = nn.ModuleList(
             Block(cfg, device=device, dtype=dtype) for _ in range(cfg.n_encoder_layers))
         self.dec_layers = nn.ModuleList(
@@ -211,6 +214,12 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int
         "cross_v": zeros(enc_len),
         "cross_pos": torch.zeros((batch, enc_len), dtype=torch.int32, device=device),
     }
+
+
+def encdec_cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of `init_encdec_cache`'s tree, the reference's."""
+    return {"k": KV_AXES, "v": KV_AXES, "pos": POS_AXES,
+            "cross_k": KV_AXES, "cross_v": KV_AXES, "cross_pos": POS_AXES}
 
 
 @torch.no_grad()

@@ -49,19 +49,19 @@ class Mamba2(nn.Module):
         super().__init__()
         d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
         nh, cw = cfg.n_ssm_heads, cfg.ssm_conv
-        self.w_x = param((d, di), device, dtype)
-        self.w_z = param((d, di), device, dtype)
-        self.w_B = param((d, N), device, dtype)
-        self.w_C = param((d, N), device, dtype)
-        self.w_dt = param((d, nh), device, dtype)
-        self.dt_bias = param((nh,), device, dtype)
-        self.A_log = param((nh,), device, dtype)
-        self.D = param((nh,), device, dtype)
-        self.conv_x = param((cw, di), device, dtype)
-        self.conv_B = param((cw, N), device, dtype)
-        self.conv_C = param((cw, N), device, dtype)
-        self.norm = param((di,), device, dtype)
-        self.w_out = param((di, d), device, dtype)
+        self.w_x = param((d, di), ("p_embed", "p_inner"), device, dtype)
+        self.w_z = param((d, di), ("p_embed", "p_inner"), device, dtype)
+        self.w_B = param((d, N), ("p_embed", None), device, dtype)
+        self.w_C = param((d, N), ("p_embed", None), device, dtype)
+        self.w_dt = param((d, nh), ("p_embed", "p_inner"), device, dtype)
+        self.dt_bias = param((nh,), ("p_inner",), device, dtype)
+        self.A_log = param((nh,), ("p_inner",), device, dtype)
+        self.D = param((nh,), ("p_inner",), device, dtype)
+        self.conv_x = param((cw, di), (None, "p_inner"), device, dtype)
+        self.conv_B = param((cw, N), (None, None), device, dtype)
+        self.conv_C = param((cw, N), (None, None), device, dtype)
+        self.norm = param((di,), ("p_inner",), device, dtype)
+        self.w_out = param((di, d), ("p_inner", "p_embed"), device, dtype)
 
 
 def init_mamba2(p: Mamba2, gen: torch.Generator) -> Mamba2:

@@ -15,6 +15,18 @@ take dict(enc_embeds=(B, S_enc, d), dec_tokens=(B, S_dec)). `params` is a
 every call runs on the device its parameters live on. `loss` is
 differentiable for every family (`training/` trains them); prefill and
 decode record no graph.
+
+Sharded serving (the dense family): under `sharding.use_mesh(mesh, rules)`
+the parameters go on the mesh once (`distribute_params`, by `param_axes`),
+and `prefill`, `decode` and `init_cache` bring their inputs onto it by
+their axes (tokens ("batch", "seq"), pos ("batch",), the cache by
+`cache_axes`), as jit's `in_shardings` do in the reference:
+
+    with sharding.use_mesh(mesh, sharding.PREFILL_RULES):
+        dparams = model.distribute_params(params)
+        logits, cache = model.prefill(dparams, tokens)      # DTensors
+    with sharding.use_mesh(mesh, sharding.DECODE_RULES):
+        logits, cache = model.decode(dparams, cache, tok, pos)
 """
 
 from __future__ import annotations
@@ -23,7 +35,9 @@ import dataclasses
 from typing import Any, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from .. import sharding as sh
 from ..configs.base import ModelConfig
 from . import encdec, transformer
 from .common import RuntimeFlags, resolve_device
@@ -87,6 +101,43 @@ class Model:
             return encdec.init_encdec_params(self.cfg, gen, dev, dtype)
         return transformer.init_decoder_params(self.cfg, gen, dev, dtype)
 
+    def param_axes(self, params: Params) -> dict:
+        """{parameter name: its logical axes}, the reference's axes tree
+        keyed by the port's names (`convert.reference_key`; the stacked
+        layer axes, unsharded there, dropped): each parameter's `.axes`,
+        set where `common.param` made it."""
+        axes = {n: getattr(p, "axes", None) for n, p in params.named_parameters()}
+        lost = [n for n, a in axes.items() if a is None]
+        if lost:
+            # copy.deepcopy makes new Parameters without them
+            raise ValueError(f"parameters without logical axes: {lost[:3]}")
+        return axes
+
+    def cache_axes(self, batch: int = 0, cache_len: int = 0, enc_len: int = 0) -> dict:
+        """The logical axes of `init_cache`'s tree, leaf for leaf the
+        reference's. The sizes are the reference's signature; the tree
+        depends on the config alone."""
+        if self.is_encdec:
+            return encdec.encdec_cache_axes(self.cfg)
+        return transformer.decode_cache_axes(self.cfg)
+
+    def distribute_params(self, params: Params) -> Params:
+        """`params` on the active mesh, each leaf placed by `param_axes`
+        (`sharding.distribute_params`)."""
+        return sh.distribute_params(params, self.param_axes(params))
+
+    def _on_mesh(self, params: Params) -> bool:
+        """Whether a mesh is active; then the family must be one whose
+        sharded execution is ported and `params` must be on the mesh."""
+        if sh.current_mesh() is None:
+            return False
+        if self.cfg.family != "dense":
+            raise NotImplementedError(f"{self.cfg.name}: sharded execution covers the dense "
+                                      f"family, not {self.cfg.family!r}")
+        if not isinstance(params.embed, DTensor):
+            raise TypeError("params are not on the mesh: Model.distribute_params first")
+        return True
+
     # -------------------------------------------------------------- forward
     def forward(
         self, params: Params, batch: Any,
@@ -126,13 +177,18 @@ class Model:
         if self.is_encdec:
             return encdec.init_encdec_cache(self.cfg, batch, cache_len,
                                             enc_len or cache_len, dev, dtype)
-        return transformer.init_decode_cache(self.cfg, batch, cache_len, dev, dtype)
+        cache = transformer.init_decode_cache(self.cfg, batch, cache_len, dev, dtype)
+        if sh.current_mesh() is not None:
+            cache = sh.distribute_cache(cache, self.cache_axes())
+        return cache
 
     def prefill(
         self, params: Params, prompt: Any,
         mrope_positions: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, dict]:
         """-> (last-position logits (B, V), cache)."""
+        if self._on_mesh(params):
+            prompt = sh.on_mesh(prompt, ("batch", "seq", "embed")[:prompt.dim()])
         if self.is_encdec:
             return encdec.encdec_prefill(params, self.cfg, self.rt, prompt["enc_embeds"],
                                          prompt["dec_tokens"])
@@ -143,6 +199,10 @@ class Model:
         self, params: Params, cache: dict, token: torch.Tensor, pos: torch.Tensor
     ) -> Tuple[torch.Tensor, dict]:
         """One token for every sequence in the batch -> (logits, cache)."""
+        if self._on_mesh(params):
+            token = sh.on_mesh(token, ("batch", "embed")[:token.dim()])
+            pos = sh.on_mesh(pos, ("batch",))
+            cache = sh.distribute_cache(cache, self.cache_axes())
         if self.is_encdec:
             return encdec.encdec_decode(params, self.cfg, self.rt, cache, token, pos)
         return transformer.decoder_decode(params, self.cfg, self.rt, cache, token, pos)

@@ -44,10 +44,11 @@ class MoE(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self.router = param((d, E), device, dtype)
-        self.w1 = param((E, d, f), device, dtype)
-        self.w2 = param((E, f, d), device, dtype)
-        self.w3 = param((E, d, f), device, dtype) if cfg.activation in ("silu", "gelu") else None
+        self.router = param((d, E), ("p_embed", None), device, dtype)
+        self.w1 = param((E, d, f), ("p_experts", "p_embed", "p_ffn"), device, dtype)
+        self.w2 = param((E, f, d), ("p_experts", "p_ffn", "p_embed"), device, dtype)
+        self.w3 = (param((E, d, f), ("p_experts", "p_embed", "p_ffn"), device, dtype)
+                   if cfg.activation in ("silu", "gelu") else None)
 
 
 def init_moe(p: MoE, gen: torch.Generator) -> MoE:

@@ -18,6 +18,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..sharding import replicated_like
+
 __all__ = [
     "rope_freqs",
     "rope_tables",
@@ -41,7 +43,8 @@ def rope_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (B, S) -> f32 (cos, sin) tables (B, S, 1, D), laid out for
     `rotate`: cos = [cos, cos], sin = [-sin, sin] over the two halves."""
-    inv = rope_freqs(head_dim, theta, positions.device)  # (D/2,)
+    # (D/2,), replicated on positions' mesh when they are a DTensor
+    inv = replicated_like(positions, rope_freqs(head_dim, theta, positions.device))
     return _tables(positions[..., None, None].float() * inv)  # angles (B, S, 1, D/2)
 
 
@@ -69,7 +72,8 @@ def rotate(x: torch.Tensor, tables: Tuple[torch.Tensor, torch.Tensor]) -> torch.
     """x (B, S, H, D): [x1 cos - x2 sin, x2 cos + x1 sin] in f32, cast back."""
     cos, sin = tables
     xf = x.float()
-    swapped = torch.roll(xf, xf.shape[-1] // 2, dims=-1)  # [x2, x1]
+    h = xf.shape[-1] // 2
+    swapped = torch.cat([xf[..., h:], xf[..., :h]], -1)  # [x2, x1] (DTensor has no roll)
     return (xf * cos + swapped * sin).to(x.dtype)
 
 

@@ -48,9 +48,12 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding as sh
 from ..configs.base import ModelConfig
+from ..sharding import Axes, constrain
 from .attention import Attention, attention_forward, decode_attention, init_attention
 from .common import DTYPES, RuntimeFlags, init_normal_, param, rms_norm
 from .mamba2 import Mamba2, init_mamba2, init_mamba_state, mamba2_decode_step, mamba2_forward
@@ -83,8 +86,10 @@ __all__ = [
     "decoder_prefill",
     "decoder_decode",
     "init_decode_cache",
+    "decode_cache_axes",
     "logits_from_hidden",
     "embed_inputs",
+    "embed_lookup",
 ]
 
 
@@ -113,9 +118,9 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        self.attn_norm = param((cfg.d_model,), device, dtype)
+        self.attn_norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.attn = Attention(cfg, device=device, dtype=dtype)
-        self.mlp_norm = param((cfg.d_model,), device, dtype)
+        self.mlp_norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         if cfg.n_experts:
             self.moe = MoE(cfg, device=device, dtype=dtype)
         else:
@@ -127,7 +132,7 @@ class MambaBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        self.norm = param((cfg.d_model,), device, dtype)
+        self.norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.mamba = Mamba2(cfg, device=device, dtype=dtype)
 
 
@@ -136,7 +141,7 @@ class MLSTMBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        self.norm = param((cfg.d_model,), device, dtype)
+        self.norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.mlstm = MLSTM(cfg, device=device, dtype=dtype)
 
 
@@ -145,8 +150,8 @@ class SLSTMBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        self.norm = param((cfg.d_model,), device, dtype)
-        self.ffn_norm = param((cfg.d_model,), device, dtype)
+        self.norm = param((cfg.d_model,), ("p_embed",), device, dtype)
+        self.ffn_norm = param((cfg.d_model,), ("p_embed",), device, dtype)
         self.slstm = SLSTM(cfg, device=device, dtype=dtype)
 
 
@@ -163,10 +168,11 @@ class Decoder(nn.Module):
         if cfg.n_encoder_layers or cfg.family not in UNIFORM + ("hybrid", "ssm"):
             raise ValueError(f"family {cfg.family!r}: enc-dec models are `encdec.EncDec`")
         dtype = dtype or DTYPES[cfg.dtype]
-        self.embed = param((cfg.padded_vocab, cfg.d_model), device, dtype)
-        self.final_norm = param((cfg.d_model,), device, dtype)
+        d, V = cfg.d_model, cfg.padded_vocab
+        self.embed = param((V, d), ("p_vocab", "p_embed"), device, dtype)
+        self.final_norm = param((d,), ("p_embed",), device, dtype)
         self.lm_head = (None if cfg.tie_embeddings
-                        else param((cfg.d_model, cfg.padded_vocab), device, dtype))
+                        else param((d, V), ("p_embed", "p_vocab"), device, dtype))
         ng, gs, rem = group_shape(cfg)
         if cfg.family in UNIFORM:
             self.layers = _blocks(Block, cfg.n_layers, cfg, device, dtype)
@@ -231,17 +237,42 @@ def init_decoder_params(
 # ---------------------------------------------------------------------------
 
 
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids]. Under a mesh the lookup is vocab-parallel, on local
+    shards: each rank looks up the ids inside its slice of the vocab
+    (`p_vocab`), zeros the others, and the result is a partial sum over the
+    vocab's mesh dims (one rank holds each row: the sum is exact)."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    mesh = sh.current_mesh()
+    ids_pl = sh.placements_of(ids.shape, ("batch",) + (None,) * (ids.dim() - 1))
+    vocab = [i for i in sh.dims_sharding(sh.placements_of(table.shape, ("p_vocab", None)), 0)
+             if ids_pl[i] != Shard(0)]
+    t_pl = [Shard(0) if i in vocab else Replicate() for i in range(len(ids_pl))]
+    out_pl = [p if p == Shard(0) else Partial() if i in vocab else Replicate()
+              for i, p in enumerate(ids_pl)]
+
+    def look(t, i):
+        n = t.shape[0]
+        local = i.long() - sh.shard_index(mesh, vocab) * n
+        own = (local >= 0) & (local < n)
+        return torch.where(own[..., None], t[local.clamp(0, n - 1)], 0)
+
+    return sh.run_local(look, out_pl, (t_pl, ids_pl), table, ids)
+
+
 def embed_inputs(params: Decoder, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) int -> (B, S, d); (B, S, d) frontend embeds pass through."""
     if inputs.dim() == 3:
-        return inputs
-    return params.embed[inputs.long()]
+        return constrain(inputs, ("batch", "seq", "embed"))
+    return constrain(embed_lookup(params.embed, inputs), ("batch", "seq", "embed"))
 
 
 def logits_from_hidden(params: Decoder, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     w = params.embed.T if params.lm_head is None else params.lm_head  # tied: a view
-    return h @ w
+    logits = h @ w
+    return constrain(logits, ("batch", "seq", "vocab") if logits.dim() == 3 else ("batch", "vocab"))
 
 
 def _uses_rope(cfg: ModelConfig, i: int) -> bool:
@@ -260,17 +291,20 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor,
 
 
 def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int):
-    """-> (x, (k, v), aux losses of this block)."""
+    """-> (x, (k, v), aux losses of this block). The residual stream is
+    pinned to ("batch", "seq_res", "embed") at the block's boundaries, as in
+    the reference (the identity off a mesh)."""
+    x = constrain(x, ("batch", "seq_res", "embed"))
     h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
     a, kv = attention_forward(lp.attn, h, cfg, rt, positions, rope, causal=True,
                               window=window)
-    x = x + a
+    x = constrain(x + a, ("batch", "seq_res", "embed"))
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
     if cfg.n_experts:
         m, aux = moe_forward(lp.moe, h, cfg, rt.moe_dispatch)
     else:
         m, aux = mlp_forward(lp.mlp, h, cfg), {}
-    return x + m, kv, aux
+    return constrain(x + m, ("batch", "seq_res", "embed")), kv, aux
 
 
 def _attn_block_decode(lp: Block, x, cfg, rt, pos, rope, flat_slot, ck, cv, cache_pos,
@@ -338,11 +372,18 @@ def write_positions(cache: dict, pos: torch.Tensor, window: int) -> torch.Tensor
     The check reads the positions only where they already are on the host
     (CPU tensors): on the card it would cost a device-to-host sync every
     step. There `InferenceEngine.submit` keeps every position below Sc
-    (prompt + new tokens <= max_seq), checked on the host at admission."""
+    (prompt + new tokens <= max_seq), checked on the host at admission.
+
+    Under a mesh the cache is a DTensor, whose flattened rows are no view:
+    each rank writes its own slots (`sharding.write_slots`), the attention
+    layers do the same with K/V, and this returns None."""
     Sc = cache["pos"].shape[1]
     if window and Sc < window and pos.device.type == "cpu" and int(pos.max()) >= Sc:
         raise ValueError(f"position {int(pos.max())} would wrap a cache of {Sc} slots, "
                          f"smaller than the window {window}")
+    if isinstance(pos, DTensor):
+        sh.write_slots(cache["pos"], pos, pos)
+        return None
     slot = (pos % Sc).long()  # ring-buffer slot (full cache: pos < Sc)
     flat_slot = torch.arange(pos.shape[0], device=pos.device) * Sc + slot
     cache["pos"].view(-1).index_copy_(0, flat_slot, pos)
@@ -501,7 +542,8 @@ def _arange_positions(inputs: torch.Tensor, positions: Optional[torch.Tensor]):
         if inputs.is_cuda:
             raise ValueError("explicit positions: the flash kernel takes arange only")
         return positions
-    return torch.arange(S, dtype=torch.int32, device=inputs.device).expand(B, S)
+    positions = torch.arange(S, dtype=torch.int32, device=inputs.device).expand(B, S)
+    return sh.on_mesh(positions, ("batch", "seq")) if isinstance(inputs, DTensor) else positions
 
 
 def _stack(params: Decoder, cfg, rt, x, positions, mrope_positions, collect_cache: bool):
@@ -572,6 +614,41 @@ def init_decode_cache(
     raise ValueError(f"family {cfg.family!r}: enc-dec caches are `encdec.init_encdec_cache`")
 
 
+KV_AXES = Axes(("layers", "kv_batch", "kv_seq", "kv_heads", None))
+POS_AXES = Axes(("kv_batch", "kv_seq"))
+MAMBA_STATE_AXES = {
+    "h": Axes((None, None, "kv_batch", "inner", None, None)),
+    "conv_x": Axes((None, None, "kv_batch", None, "inner")),
+    "conv_B": Axes((None, None, "kv_batch", None, None)),
+    "conv_C": Axes((None, None, "kv_batch", None, None)),
+}
+
+
+def decode_cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of `init_decode_cache`'s tree, leaf for leaf the
+    reference's (the port keeps its cache layout)."""
+    ng, gs, rem = group_shape(cfg)
+    attn = {"k": KV_AXES, "v": KV_AXES, "pos": POS_AXES}
+    if cfg.family in UNIFORM:
+        return attn
+    if cfg.family == "hybrid":
+        axes = dict(attn, mamba=dict(MAMBA_STATE_AXES))
+        if rem:
+            axes["rest"] = {k: Axes(v[1:]) for k, v in MAMBA_STATE_AXES.items()}
+        return axes
+    if cfg.family == "ssm":
+        return {
+            "mlstm": {
+                "C": Axes((None, None, "kv_batch", None, "inner", None)),
+                "n": Axes((None, None, "kv_batch", None, "inner")),
+                "m": Axes((None, None, "kv_batch", None)),
+                "conv": Axes((None, None, "kv_batch", None, "inner")),
+            },
+            "slstm": {k: Axes((None, "kv_batch", None)) for k in ("h", "c", "n", "m")},
+        }
+    raise ValueError(f"family {cfg.family!r}: enc-dec caches are `encdec.encdec_cache_axes`")
+
+
 @torch.no_grad()
 def decoder_prefill(
     params: Decoder,
@@ -614,7 +691,8 @@ def decoder_decode(
     if cfg.embeds_input and token.dim() == 2:
         x = token
     else:
-        x = params.embed[token.long()]
+        x = embed_lookup(params.embed, token)
+    x = constrain(x, ("batch", "embed"))
     pos = pos.to(torch.int32)
     if cfg.family in UNIFORM:
         x, cache = _uniform_decode(params, cfg, rt, x, pos, cache)

@@ -68,17 +68,17 @@ class MLSTM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         d, di, nh, cw = cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.ssm_conv
-        self.w_up = param((d, di), device, dtype)
-        self.w_z = param((d, di), device, dtype)
-        self.conv = param((cw, di), device, dtype)
-        self.wq = param((di, di), device, dtype)
-        self.wk = param((di, di), device, dtype)
-        self.wv = param((di, di), device, dtype)
-        self.w_if = param((di, 2 * nh), device, dtype)
-        self.b_if = param((2 * nh,), device, dtype)
-        self.skip = param((di,), device, dtype)
-        self.norm = param((di,), device, dtype)
-        self.w_down = param((di, d), device, dtype)
+        self.w_up = param((d, di), ("p_embed", "p_inner"), device, dtype)
+        self.w_z = param((d, di), ("p_embed", "p_inner"), device, dtype)
+        self.conv = param((cw, di), (None, "p_inner"), device, dtype)
+        self.wq = param((di, di), ("p_inner", None), device, dtype)
+        self.wk = param((di, di), ("p_inner", None), device, dtype)
+        self.wv = param((di, di), ("p_inner", "p_inner"), device, dtype)
+        self.w_if = param((di, 2 * nh), ("p_inner", None), device, dtype)
+        self.b_if = param((2 * nh,), (None,), device, dtype)
+        self.skip = param((di,), ("p_inner",), device, dtype)
+        self.norm = param((di,), ("p_inner",), device, dtype)
+        self.w_down = param((di, d), ("p_inner", "p_embed"), device, dtype)
 
 
 def init_mlstm(p: MLSTM, gen: torch.Generator) -> MLSTM:
@@ -244,13 +244,13 @@ class SLSTM(nn.Module):
         super().__init__()
         d, nh = cfg.d_model, cfg.n_heads
         dh, f = d // nh, slstm_ffn_dim(cfg)
-        self.w_gates = param((d, 4 * d), device, dtype)
-        self.b_gates = param((4 * d,), device, dtype)
-        self.r_gates = param((4, nh, dh, dh), device, dtype)
-        self.norm = param((d,), device, dtype)
-        self.ffn_w1 = param((d, f), device, dtype)
-        self.ffn_w3 = param((d, f), device, dtype)
-        self.ffn_w2 = param((f, d), device, dtype)
+        self.w_gates = param((d, 4 * d), ("p_embed", None), device, dtype)
+        self.b_gates = param((4 * d,), (None,), device, dtype)
+        self.r_gates = param((4, nh, dh, dh), (None, None, None, None), device, dtype)
+        self.norm = param((d,), ("p_embed",), device, dtype)
+        self.ffn_w1 = param((d, f), ("p_embed", "p_ffn"), device, dtype)
+        self.ffn_w3 = param((d, f), ("p_embed", "p_ffn"), device, dtype)
+        self.ffn_w2 = param((f, d), ("p_ffn", "p_embed"), device, dtype)
 
 
 def init_slstm(p: SLSTM, gen: torch.Generator) -> SLSTM:

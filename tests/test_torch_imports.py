@@ -72,8 +72,23 @@ def test_importing_every_module_pulls_in_no_jax_or_repro():
                 "repro_torch.experiments.progress", "repro_torch.experiments.registry",
                 "repro_torch.experiments.result", "repro_torch.experiments.runlog",
                 "repro_torch.experiments.runner", "repro_torch.experiments.spec",
-                "repro_torch.experiments.suites", "repro_torch.experiments.validate"):
+                "repro_torch.experiments.suites", "repro_torch.experiments.validate",
+                "repro_torch.sharding", "repro_torch.launch.mesh"):
         assert mod in res["imported"]
+
+
+def test_sharding_imports_with_torch_alone_and_starts_no_process_group():
+    """`sharding` and `launch.mesh` import with torch alone (no JAX, nothing
+    of `repro`), and importing them builds no process group or mesh."""
+    probe = ("import sys, json, torch.distributed as dist\n"
+             "import repro_torch.sharding, repro_torch.launch.mesh\n"
+             "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'repro'))\n"
+             "print(json.dumps({'bad': bad, 'pg': dist.is_initialized()}))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "pg": False}
 
 
 @pytest.mark.parametrize("path", sorted(

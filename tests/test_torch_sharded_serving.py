@@ -1,0 +1,223 @@
+"""The port's sharded serving on two CPU ranks against the unsharded port and
+the JAX reference.
+
+One `torch.multiprocessing` spawn of two gloo ranks (a `FileStore` under
+the test's tmp dir, a 60 s process-group timeout) runs llama2-7b's smoke
+config (f32) under `sharding.use_mesh` on a (1, 2) and a (2, 1) mesh, and
+glm4-9b's GQA smoke config on (1, 2), as K = 2 and as K = 1: there "model"
+divides the query heads but not the KV heads, which are then replicated
+and paired with each rank's query heads. Prefill runs under PREFILL_RULES,
+then greedy decode steps under DECODE_RULES (the cache's slots sharded
+over "model"). `attention_impl="pallas"` takes the kernels' wrappers, which
+run the plain versions on the local shards through `local_map`, as the
+card runs the kernels. The same weights (the reference's init, converted)
+run unsharded in the port and in JAX in this process: logits agree within
+TOL (tests/test_consistency.py) and greedy tokens are identical.
+
+Also the dry run's argument count on the single production mesh
+(`--mesh single`), on the fake backend.
+"""
+
+import contextlib
+import dataclasses
+import datetime
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import RuntimeFlags as JaxFlags  # noqa: E402
+from repro.models import build_model as jax_build_model  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import convert_params  # noqa: E402
+from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
+
+TOL = 2e-3
+B, S, STEPS = 2, 12, 4
+LIMIT_S = 150  # the spawn's own time limit (it takes ~15 s on a CPU)
+# (case name, arch, kv heads (None: the config's), mesh shape)
+CASES = [
+    ("llama2-7b (1, 2)", "llama2-7b", None, (1, 2)),
+    ("llama2-7b (2, 1)", "llama2-7b", None, (2, 1)),
+    ("glm4-9b (1, 2)", "glm4-9b", None, (1, 2)),
+    ("glm4-9b K=1 (1, 2)", "glm4-9b", 1, (1, 2)),
+]
+
+
+def _cfg(get, arch, kv):
+    cfg = dataclasses.replace(get(arch, smoke=True), dtype="float32")
+    return cfg if kv is None else dataclasses.replace(cfg, n_kv_heads=kv)
+
+
+def _pad(cache, n):
+    """The cache with n empty slots after the prompt's."""
+    out = {}
+    for k in ("k", "v"):
+        out[k] = torch.nn.functional.pad(cache[k], (0, 0, 0, 0, 0, n))
+    out["pos"] = torch.nn.functional.pad(cache["pos"], (0, n), value=-1)
+    return out
+
+
+def _greedy(model, params, prompt, steps, on_mesh=None):
+    """Prefill, then `steps` greedy decode steps -> (the logits of every
+    step, prefill's first, as one (steps + 1, B, V) array; the tokens fed)."""
+    from repro_torch import sharding as sh
+
+    full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
+    rules = (sh.PREFILL_RULES, sh.DECODE_RULES)
+    ctx = (lambda r: sh.use_mesh(on_mesh, r)) if on_mesh else (lambda r: contextlib.nullcontext())
+    with torch.no_grad():
+        with ctx(rules[0]):
+            if on_mesh:
+                params = model.distribute_params(params)
+            logits, cache = model.prefill(params, prompt)
+        cache = _pad({k: full(v) for k, v in cache.items()}, steps)
+        out, toks = [full(logits)], []
+        with ctx(rules[1]):
+            for i in range(steps):
+                tok = out[-1].argmax(-1).to(torch.int32)
+                toks.append(tok)
+                pos = torch.full((prompt.shape[0],), prompt.shape[1] + i, dtype=torch.int32)
+                logits, cache = model.decode(params, cache, tok, pos)
+                out.append(full(logits))
+    return torch.stack(out).numpy(), torch.stack(toks).numpy()
+
+
+def _rank(rank, store, tmp, cases):
+    """One gloo rank: every case under its mesh; rank 0 saves the results."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        for name, arch, kv, shape in cases:
+            cfg = _cfg(get_config, arch, kv)
+            model = build_model(cfg, RuntimeFlags(attention_impl="pallas"))
+            w = np.load(os.path.join(tmp, f"{arch}-{kv}.npz"))
+            params = convert_params(_unflatten(w), cfg, device="cpu")
+            prompt = torch.from_numpy(np.load(os.path.join(tmp, "prompt.npy")))
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+            logits, toks = _greedy(model, params, prompt, STEPS, on_mesh=mesh)
+            if rank == 0:
+                np.savez(os.path.join(tmp, f"out-{name}.npz"), logits=logits, toks=toks)
+    finally:
+        dist.destroy_process_group()
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat):
+    tree = {}
+    for name in flat.files:
+        node = tree
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = flat[name]
+    return tree
+
+
+def _jax_logits(mj, pj, prompt, toks):
+    """The reference's prefill, then its decode steps fed `toks`."""
+    l0, cache = mj.prefill(pj, jnp.asarray(prompt))
+    cache = dict(cache)
+    for k in ("k", "v"):
+        cache[k] = jnp.pad(cache[k], ((0, 0), (0, 0), (0, len(toks)), (0, 0), (0, 0)))
+    cache["pos"] = jnp.pad(cache["pos"], ((0, 0), (0, len(toks))), constant_values=-1)
+    out = [np.asarray(l0)]
+    for i, tok in enumerate(toks):
+        pos = jnp.full((prompt.shape[0],), prompt.shape[1] + i, jnp.int32)
+        lj, cache = mj.decode(pj, cache, jnp.asarray(tok), pos)
+        out.append(np.asarray(lj))
+    return np.stack(out)
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Weights, the prompt and the unsharded references, then the two
+    ranks' run of every case: {case: (sharded, port, JAX) results}."""
+    tmp = str(tmp_path_factory.mktemp("sharded"))
+    prompt = np.random.default_rng(0).integers(0, 1000, (B, S), np.int32)
+    np.save(os.path.join(tmp, "prompt.npy"), prompt)
+    refs = {}
+    for name, arch, kv, _ in CASES:
+        key = f"{arch}-{kv}"
+        if key not in refs:
+            cfg_j = _cfg(jax_get_config, arch, kv)
+            mj = jax_build_model(cfg_j, JaxFlags(remat=False))
+            pj, _ = mj.init(jax.random.PRNGKey(0))
+            flat = _flatten(jax.tree.map(np.asarray, pj))
+            np.savez(os.path.join(tmp, key + ".npz"), **flat)
+            cfg = _cfg(get_config, arch, kv)
+            model = build_model(cfg, RuntimeFlags(attention_impl="pallas"))
+            params = convert_params(jax.tree.map(np.asarray, pj), cfg, device="cpu")
+            logits, toks = _greedy(model, params, torch.from_numpy(prompt), STEPS)
+            refs[key] = (logits, toks, _jax_logits(mj, pj, prompt, toks))
+    t0 = time.time()
+    ctx = mp.start_processes(_rank, args=(os.path.join(tmp, "store"), tmp, CASES), nprocs=2,
+                             join=False, start_method="spawn")
+    while not ctx.join(timeout=max(1.0, LIMIT_S - (time.time() - t0))):
+        if time.time() - t0 > LIMIT_S:
+            for p in ctx.processes:
+                p.terminate()
+            pytest.fail(f"the two ranks did not finish within {LIMIT_S} s")
+    out = {}
+    for name, arch, kv, _ in CASES:
+        got = np.load(os.path.join(tmp, f"out-{name}.npz"))
+        out[name] = (got["logits"], got["toks"], *refs[f"{arch}-{kv}"])
+    return out
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CASES])
+class TestShardedServing:
+    def test_logits_match_unsharded_port(self, sharded, case):
+        logits, toks, ref_logits, ref_toks, _ = sharded[case]
+        np.testing.assert_allclose(logits, ref_logits, rtol=TOL, atol=TOL)
+
+    def test_logits_match_jax(self, sharded, case):
+        logits, toks, _, _, jax_logits = sharded[case]
+        np.testing.assert_allclose(logits, jax_logits, rtol=TOL, atol=TOL)
+
+    def test_greedy_tokens_identical(self, sharded, case):
+        _, toks, _, ref_toks, _ = sharded[case]
+        np.testing.assert_array_equal(toks, ref_toks)
+
+
+@pytest.mark.parametrize("arch,shape", [("llama2-7b", "decode_32k"), ("glm4-9b", "train_4k")])
+def test_dryrun_mesh_single_writes_counted_records(tmp_path, arch, shape):
+    """`python -m repro_torch.launch.dryrun --mesh single` on one case: a
+    record on the 16 x 16 mesh with the per-device argument bytes and
+    `fits_h100`, and no number for the peak or the collectives."""
+    from repro_torch.launch import dryrun
+
+    (rec,) = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
+                          "--out", str(tmp_path)])
+    with open(tmp_path / f"{arch}__{shape}__single.json") as f:
+        assert json.load(f) == json.loads(json.dumps(rec))
+    assert rec["status"] == "ok" and rec["mesh"] == {"data": 16, "model": 16}
+    assert rec["chips"] == 256 and rec["collective_counted"] is False
+    m = rec["memory"]
+    parts = sum(m[k + "_gb"] for k in dryrun.MESH_PARTS)
+    assert m["argument_gb"] == pytest.approx(parts) and m["argument_gb"] > 0
+    assert m["fits_h100"] is True and m["peak_counted"] is False and "peak_gb" not in m
+    assert rec["roofline"]["chips"] == 256 and rec["roofline"]["collective_s"] is None
+    assert rec["roofline"]["compute_s"] > 0 and rec["roofline"]["memory_s"] > 0
