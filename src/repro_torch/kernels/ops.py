@@ -20,7 +20,12 @@ redistributes inputs whose placements differ first:
   * decode: batch and heads likewise, the cache's slots (`kv_seq`)
     replicated, so a sequence-sharded cache is gathered for the call;
   * rmsnorm: rows (the batch dim) sharded, the last dim and gamma
-    replicated.
+    replicated; a row whose last dim is sharded (Mamba2's and the mLSTM's
+    norms over "inner") is gathered for the call and cut again after it.
+
+Flash takes any Sq and Sk and either mask (the enc-dec encoder is
+non-causal, its cross prefill Sq != Sk); decode takes any cache, the
+enc-dec cross cache too, whose slots and positions `cache_axes` lays out.
 
 Where "model" divides the query heads but not the KV heads (GQA), the KV
 heads are replicated and each rank takes the ones its query heads read.
@@ -163,6 +168,11 @@ class RMSNormFn(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     if isinstance(x, DTensor):  # rows sharded, the last dim and gamma replicated
         x_pl = sh.placements_of(x.shape, ("batch",) + (None,) * (x.dim() - 1))
-        return sh.run_local(lambda xl, g: RMSNormFn.apply(xl, g, eps), x_pl,
-                            (x_pl, [Replicate()] * len(x_pl)), x, gamma)
+        y = sh.run_local(lambda xl, g: RMSNormFn.apply(xl, g, eps), x_pl,
+                         (x_pl, [Replicate()] * len(x_pl)), x, gamma)
+        # a row sharded on its last dim ("inner": Mamba2's gated norm, the
+        # mLSTM's) was gathered for the kernel; the result goes back in the
+        # caller's placement, a local cut
+        last = Shard(x.dim() - 1)
+        return sh.redistribute(y, [p if p == last else q for p, q in zip(x.placements, x_pl)])
     return RMSNormFn.apply(x, gamma, eps)

@@ -309,7 +309,10 @@ def cross_decode_attention(
     """One decode step of cross attention: softmax over the valid encoder
     frames (cache_pos >= 0). The kernel also masks kv_pos > pos, so it gets
     `beyond` as the query position and window 0, which mask nothing else.
-    Returns out (B, d); the cache is not written."""
+    Returns out (B, d); the cache is not written. Under a mesh the cross
+    cache comes laid out by `cache_axes` (its slots over "model" under
+    DECODE_RULES) and the kernel's wrapper gathers it, as it does the self
+    cache."""
     q = _project_q(p, x[:, None, :], rope)
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, cache_pos, beyond, window=0)
-    return _out_proj(out, p.wo)
+    return constrain(_out_proj(out, p.wo), ("batch", "embed"))

@@ -49,7 +49,7 @@ class RuntimeFlags:
     reference's `jax.checkpoint`. `attn_seq_shard` (context-parallel
     attention under the reference's ATTNSP rule sets) is kept for the
     reference's signature; the port's sharded path (`sharding.use_mesh`)
-    runs the dense family's prefill and decode and does not read it."""
+    runs every family's prefill and decode and does not read it."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024

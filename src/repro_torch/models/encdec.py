@@ -19,7 +19,14 @@ slot in place and reads the cross cache only.
 
 Kernel launches per forward, L decoder and Le encoder layers: prefill 2 Le
 + 1 + 3 L + 1 rmsnorm and Le + 2 L flash; a decode step 3 L + 1 rmsnorm and
-2 L decode_attention (self and cross). `encdec_forward` is the training
+2 L decode_attention (self and cross).
+
+Under a mesh (`sharding.use_mesh`) the encoder input, the decoder's
+embedded tokens (a vocab-parallel lookup, `transformer.embed_lookup`) and
+the decode step's token are pinned at the reference's four `constrain`
+sites; the encoder's non-causal flash, the cross prefill (Sq != Sk) and the
+cross decode run on local shards (`kernels/ops.py`), and the cross cache,
+written once at prefill, is laid out by `encdec_cache_axes`. `encdec_forward` is the training
 path: differentiable, with naive or chunked attention and, under remat,
 each encoder and decoder layer recomputed in the backward
 (`model.rmsnorm_calls` counts a train step's norms).
@@ -34,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from .attention import (
     Attention,
     attention_forward,
@@ -50,6 +58,7 @@ from .transformer import (
     Block,
     _arange_positions,
     _rope_tables,
+    embed_lookup,
     init_block,
     logits_from_hidden,
     remat_on,
@@ -134,7 +143,7 @@ def encode(params: EncDec, cfg: ModelConfig, rt: RuntimeFlags,
     positions = _arange_positions(enc_embeds, None)
     rope = _rope_tables(cfg, positions)
     remat = remat_on(rt, params.enc_layers, False)
-    x = enc_embeds
+    x = constrain(enc_embeds, ("batch", "seq", "embed"))
     for lp in params.enc_layers:
         args = (lp, x, cfg, rt, positions, rope)
         x = checkpoint(_enc_layer, *args, use_reentrant=False) if remat else _enc_layer(*args)
@@ -177,7 +186,7 @@ def _encode_and_decode(params, cfg, rt, enc_embeds, dec_tokens, collect_cache: b
     enc_out = encode(params, cfg, rt, enc_embeds)
     enc_pos = _arange_positions(enc_out, None)
     positions = _arange_positions(dec_tokens, None)
-    x = params.embed[dec_tokens.long()]
+    x = constrain(embed_lookup(params.embed, dec_tokens), ("batch", "seq", "embed"))
     x, kvs = _dec_stack(params, cfg, rt, x, positions, enc_out, enc_pos, collect_cache)
     return x, kvs, positions, enc_pos
 
@@ -256,7 +265,7 @@ def encdec_decode(
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step: returns (logits (B, V), the cache, its self-attention
     part updated in place)."""
-    x = params.embed[token.long()]
+    x = constrain(embed_lookup(params.embed, token), ("batch", "embed"))
     pos = pos.to(torch.int32)
     flat_slot = write_positions(cache, pos, 0)
     rope = _rope_tables(cfg, pos[:, None])

@@ -26,14 +26,18 @@ that much again every step.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from .. import sharding as sh
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from .common import init_normal_, param, rms_norm
 
 __all__ = ["Mamba2", "init_mamba2", "mamba2_forward", "mamba2_decode_step",
@@ -92,10 +96,21 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out)
 
 
-def _gates(p: Mamba2, x: torch.Tensor):
+def _gates(p, x: torch.Tensor):
     """Raw (pre-conv) projections: xi/z (..., di), B/C (..., N), dt (..., nh) f32."""
     dt = F.softplus((x @ p.w_dt).float() + p.dt_bias)
     return x @ p.w_x, x @ p.w_z, x @ p.w_B, x @ p.w_C, dt
+
+
+# The leaves the core reads (all but the inner norm and w_out), and the dim of
+# each that the heads shard under a mesh (None: replicated): xi's inner
+# ("batch", "seq", "inner") is a whole number of heads
+_CORE = ("w_x", "w_z", "w_B", "w_C", "w_dt", "dt_bias", "A_log", "D", "conv_x", "conv_B",
+         "conv_C")
+_CORE_HEAD_DIM = (1, 1, None, None, 1, 0, 0, 0, 1, None, None)
+_STATE = ("h", "conv_x", "conv_B", "conv_C")
+_STATE_HEAD_DIM = (1, 2, None, None)  # h (B, nh, P, N), conv_x (B, cw-1, di)
+_Core = collections.namedtuple("_Core", _CORE)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device, dtype) -> Dict[str, torch.Tensor]:
@@ -117,20 +132,15 @@ def _roll_ctx(raw: torch.Tensor, prev: Optional[torch.Tensor], cw: int) -> torch
     return torch.cat([prev, raw], dim=1)[:, -(cw - 1):].contiguous()
 
 
-def mamba2_forward(
-    p: Mamba2,
-    x: torch.Tensor,  # (B, S, d)
-    cfg: ModelConfig,
-    chunk: int = 128,
-    state: Optional[dict] = None,  # continue from a previous state (or None = fresh)
-) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence chunked forward. Returns (y (B, S, d), final state)."""
+def _ssd(p, x: torch.Tensor, cfg: ModelConfig, chunk: int, prior: dict):
+    """The chunked scan over the heads `p` holds (nh = p.D's length): ->
+    (y * silu(z) (B, S, nh P), final state). Runs whole off a mesh and on
+    each rank's local heads and batch rows under one."""
     B, S, _ = x.shape
-    nh, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    nh, P, N = p.D.shape[0], cfg.ssm_head_dim, cfg.ssm_state
     cw = cfg.ssm_conv
     Q = min(chunk, S)
     pad = (-S) % Q
-    prior = state or {}
 
     xi_raw, z, B_raw, C_raw, dt = _gates(p, x)
     xi = _causal_conv(xi_raw, p.conv_x, prior.get("conv_x"))
@@ -175,16 +185,67 @@ def mamba2_forward(
     y = (y_intra.float() + y_inter).reshape(B, nc * Q, nh, P)[:, :S]
     y = y + p.D.float()[:, None] * xi.view(B, S, nh, P).float()
     y = y.reshape(B, S, nh * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    out = y @ p.w_out
-
     new_state = {
         "h": h,
         "conv_x": _roll_ctx(xi_raw, prior.get("conv_x"), cw),
         "conv_B": _roll_ctx(B_raw, prior.get("conv_B"), cw),
         "conv_C": _roll_ctx(C_raw, prior.get("conv_C"), cw),
     }
-    return out, new_state
+    return y * F.silu(z), new_state
+
+
+def _mesh_layout(B: int, nh: int, batch_axis: str):
+    """The core's layout under a mesh: (the mesh dims of the batch rows, those
+    of the heads), as (batch_axis, "inner") resolve on (B, nh) (the heads
+    stay whole where "model" does not divide them)."""
+    pl = sh.placements_of((B, nh), (batch_axis, "inner"))
+    return sh.dims_sharding(pl, 0), sh.dims_sharding(pl, 1)
+
+
+def _core_placements(bd, hd):
+    """(the core leaves' placements, the state leaves') for batch mesh dims
+    `bd` and head mesh dims `hd`."""
+    leaves = [sh.placed({} if d is None else {d: hd}) for d in _CORE_HEAD_DIM]
+    states = [sh.placed({0: bd} if d is None else {0: bd, d: hd}) for d in _STATE_HEAD_DIM]
+    return leaves, states
+
+
+def mamba2_forward(
+    p: Mamba2,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    chunk: int = 128,
+    state: Optional[dict] = None,  # continue from a previous state (or None = fresh)
+) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence chunked forward. Returns (y (B, S, d), final state).
+
+    Under a mesh the gates, the causal convs and the scan run in one
+    `run_local` on each rank's batch rows and local heads (xi, dt and h
+    sharded by heads over "inner", B and C replicated), so DTensor's host
+    cost is paid once a mixer, not once an op; the gated norm takes the full
+    inner row through `ops.rmsnorm`, and w_out's product is a partial sum
+    until the output's constraint."""
+    prior = state or {}
+    if not isinstance(x, DTensor):
+        yz, new_state = _ssd(p, x, cfg, chunk, prior)
+    else:
+        bd, hd = _mesh_layout(x.shape[0], cfg.n_ssm_heads, "batch")
+        leaves, states = _core_placements(bd, hd)
+        names = [k for k in _STATE if k in prior]
+        yz, *st = sh.run_local(
+            lambda xl, *a: _ssd_local(xl, a[:len(_CORE)], names, a[len(_CORE):], cfg, chunk),
+            (sh.placed({0: bd, 2: hd}),) + tuple(states),
+            (sh.placed({0: bd}),) + tuple(leaves)
+            + tuple(states[_STATE.index(k)] for k in names),
+            x, *(getattr(p, n) for n in _CORE), *(prior[k] for k in names))
+        new_state = dict(zip(_STATE, st))
+    y = rms_norm(yz, p.norm, cfg.norm_eps)
+    return constrain(y @ p.w_out, ("batch", "seq", "embed")), new_state
+
+
+def _ssd_local(x, leaves, names, prior, cfg, chunk):
+    yz, st = _ssd(_Core(*leaves), x, cfg, chunk, dict(zip(names, prior)))
+    return (yz,) + tuple(st[k] for k in _STATE)
 
 
 def _push(ctx: torch.Tensor, raw: torch.Tensor) -> None:
@@ -192,16 +253,11 @@ def _push(ctx: torch.Tensor, raw: torch.Tensor) -> None:
     ctx.copy_(torch.cat([ctx[:, 1:], raw], dim=1))
 
 
-def mamba2_decode_step(
-    p: Mamba2,
-    x: torch.Tensor,  # (B, d) one token
-    state: dict,
-    cfg: ModelConfig,
-) -> Tuple[torch.Tensor, dict]:
-    """Single-token recurrent step; `state` (as from `init_mamba_state`) is
-    updated in place and returned."""
+def _ssd_step(p, x: torch.Tensor, state: dict, cfg: ModelConfig) -> torch.Tensor:
+    """One token through the heads `p` holds, the state updated in place:
+    -> y * silu(z) (B, nh P)."""
     B = x.shape[0]
-    nh, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    nh, P = p.D.shape[0], cfg.ssm_head_dim
     xi_raw, z, B_raw, C_raw, dt = _gates(p, x[:, None, :])
     xi = _causal_conv(xi_raw, p.conv_x, state["conv_x"])[:, 0]
     Bc = _causal_conv(B_raw, p.conv_B, state["conv_B"])[:, 0]
@@ -216,9 +272,34 @@ def mamba2_decode_step(
     y = (h @ Cc.float()[:, None, :, None])[..., 0]  # (B, nh, P)
     y = y + p.D.float()[:, None] * xh
     y = y.reshape(B, nh * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z[:, 0]), p.norm, cfg.norm_eps)
-    out = y @ p.w_out
     _push(state["conv_x"], xi_raw)
     _push(state["conv_B"], B_raw)
     _push(state["conv_C"], C_raw)
-    return out, state
+    return y * F.silu(z[:, 0])
+
+
+def mamba2_decode_step(
+    p: Mamba2,
+    x: torch.Tensor,  # (B, d) one token
+    state: dict,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, dict]:
+    """Single-token recurrent step; `state` (as from `init_mamba_state`) is
+    updated in place and returned. Under a mesh the step runs in one
+    `run_local` on the layout the cache's axes give its state ("kv_batch",
+    heads over "inner"), writing each leaf's local storage (a leaf laid out
+    otherwise, conv_x where "model" divides the inner width but not the
+    heads, is updated through a copy written back)."""
+    if not isinstance(x, DTensor):
+        yz = _ssd_step(p, x, state, cfg)
+    else:
+        bd, hd = _mesh_layout(x.shape[0], cfg.n_ssm_heads, "kv_batch")
+        leaves, states = _core_placements(bd, hd)
+        n = len(_CORE)
+        yz = sh.run_local(
+            lambda xl, *a: _ssd_step(_Core(*a[:n]), xl, dict(zip(_STATE, a[n:])), cfg),
+            sh.placed({0: bd, 1: hd}), (sh.placed({0: bd}),) + tuple(leaves) + tuple(states),
+            x, *(getattr(p, k) for k in _CORE), *(state[k] for k in _STATE),
+            inplace=range(1 + n, 1 + n + len(_STATE)))
+    y = rms_norm(yz, p.norm, cfg.norm_eps)
+    return constrain(y @ p.w_out, ("batch", "embed")), state

@@ -16,11 +16,16 @@ every call runs on the device its parameters live on. `loss` is
 differentiable for every family (`training/` trains them); prefill and
 decode record no graph.
 
-Sharded serving (the dense family): under `sharding.use_mesh(mesh, rules)`
-the parameters go on the mesh once (`distribute_params`, by `param_axes`),
-and `prefill`, `decode` and `init_cache` bring their inputs onto it by
-their axes (tokens ("batch", "seq"), pos ("batch",), the cache by
-`cache_axes`), as jit's `in_shardings` do in the reference:
+Sharded serving, every family: under `sharding.use_mesh(mesh, rules)` the
+parameters go on the mesh once (`distribute_params`, by `param_axes`), and
+`prefill`, `decode` and `init_cache` bring their inputs onto it by their
+axes (tokens ("batch", "seq"), vlm embeds ("batch", "seq", "embed") and
+M-RoPE streams (None, "batch", "seq"), enc-dec's encoder embeds and
+decoder tokens likewise, pos ("batch",), the cache, attention and
+recurrent leaves alike, by `cache_axes`), as jit's `in_shardings` do in the
+reference. The three kernels run on local shards (`kernels/ops.py`); the
+recurrences (Mamba2, mLSTM, sLSTM) and the moe routing run each in one
+`sharding.run_local` on the local shards (their modules say how):
 
     with sharding.use_mesh(mesh, sharding.PREFILL_RULES):
         dparams = model.distribute_params(params)
@@ -127,13 +132,9 @@ class Model:
         return sh.distribute_params(params, self.param_axes(params))
 
     def _on_mesh(self, params: Params) -> bool:
-        """Whether a mesh is active; then the family must be one whose
-        sharded execution is ported and `params` must be on the mesh."""
+        """Whether a mesh is active; then `params` must be on the mesh."""
         if sh.current_mesh() is None:
             return False
-        if self.cfg.family != "dense":
-            raise NotImplementedError(f"{self.cfg.name}: sharded execution covers the dense "
-                                      f"family, not {self.cfg.family!r}")
         if not isinstance(params.embed, DTensor):
             raise TypeError("params are not on the mesh: Model.distribute_params first")
         return True
@@ -175,9 +176,10 @@ class Model:
         frames (`cache_len` when 0, as the reference)."""
         dev = resolve_device(device)
         if self.is_encdec:
-            return encdec.init_encdec_cache(self.cfg, batch, cache_len,
-                                            enc_len or cache_len, dev, dtype)
-        cache = transformer.init_decode_cache(self.cfg, batch, cache_len, dev, dtype)
+            cache = encdec.init_encdec_cache(self.cfg, batch, cache_len,
+                                             enc_len or cache_len, dev, dtype)
+        else:
+            cache = transformer.init_decode_cache(self.cfg, batch, cache_len, dev, dtype)
         if sh.current_mesh() is not None:
             cache = sh.distribute_cache(cache, self.cache_axes())
         return cache
@@ -188,7 +190,13 @@ class Model:
     ) -> Tuple[torch.Tensor, dict]:
         """-> (last-position logits (B, V), cache)."""
         if self._on_mesh(params):
-            prompt = sh.on_mesh(prompt, ("batch", "seq", "embed")[:prompt.dim()])
+            if self.is_encdec:
+                prompt = {"enc_embeds": sh.on_mesh(prompt["enc_embeds"], ("batch", "seq", "embed")),
+                          "dec_tokens": sh.on_mesh(prompt["dec_tokens"], ("batch", "seq"))}
+            else:
+                prompt = sh.on_mesh(prompt, ("batch", "seq", "embed")[:prompt.dim()])
+            if mrope_positions is not None:
+                mrope_positions = sh.on_mesh(mrope_positions, (None, "batch", "seq"))
         if self.is_encdec:
             return encdec.encdec_prefill(params, self.cfg, self.rt, prompt["enc_embeds"],
                                          prompt["dec_tokens"])

@@ -17,16 +17,31 @@ result back to the host, so a step needs no device-to-host sync.
 
 Router aux outputs: the Switch-style load-balancing loss and the router
 z-loss.
+
+Under a mesh (`sharding.use_mesh`) the routing, `_dispatch` and `_combine`
+run on each rank's batch rows (`sharding.run_local`), which is what the
+reference's per-row `vmap` asks of GSPMD: the data movement stays local to
+the batch shard. The router is replicated; the expert products run as
+DTensor `bmm`s on the weights as their axes place them (PREFILL/DECODE
+rules: "experts" replicated, "ffn" over "model"), so `w2`'s product is a
+partial sum that `_combine`, linear in it, carries to the output's
+constraint. The reference's five `constrain` sites are kept; the port's
+expert hidden is (E, B*C, f), so its ("batch", "experts", None, "ffn")
+reads ("experts", "batch", "ffn") here.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from .. import sharding as sh
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from .common import activation_fn, init_normal_, param
 
 __all__ = ["MoE", "init_moe", "moe_forward", "expert_capacity"]
@@ -63,7 +78,8 @@ def init_moe(p: MoE, gen: torch.Generator) -> MoE:
 def _route(p: MoE, x: torch.Tensor, cfg: ModelConfig, C: int):
     """Top-k routing and capacity positions. Returns (gate_w, gate_idx,
     pos_sel, keep_k) of shape (B, S, k), (sel, keep) of (B, S, k, E) and
-    (probs, logits) of (B, S, E), as the reference's `_route`."""
+    (probs, logits) of (B, S, E), as the reference's `_route`. `p` needs
+    only its `router`."""
     E, k = cfg.n_experts, cfg.top_k
     B, S, _ = x.shape
     logits = (x @ p.router).float()  # in x's dtype, then f32, as the reference
@@ -89,6 +105,7 @@ def _experts(p: MoE, xe: torch.Tensor, act) -> torch.Tensor:
     h = act(torch.bmm(xf, p.w1))
     if p.w3 is not None:
         h = h * torch.bmm(xf, p.w3)
+    h = constrain(h, ("experts", "batch", "ffn"))  # the reference's (B, E, C, f) site
     return torch.bmm(h, p.w2).view(E, B, C, d).transpose(0, 1)
 
 
@@ -116,6 +133,27 @@ def _combine(ye: torch.Tensor, e_idx, c_idx, gate_w, keep_k) -> torch.Tensor:
     return torch.einsum("bskd,bsk->bsd", yk, w)
 
 
+def _einsum_combine(gate_w, pos_sel, keep_k, sel, keep, C: int, dtype) -> torch.Tensor:
+    """The Mesh-TF combine tensor (B, S, E, C): each kept pick's gate weight
+    at its (expert, slot)."""
+    e_oh = (sel * keep).to(dtype) * gate_w[..., None].to(dtype)
+    slot = torch.where(keep_k, pos_sel, C)  # C: no slot, an all-zero one-hot row
+    c_oh = (slot[..., None] == torch.arange(C, device=slot.device)).to(dtype)
+    return torch.einsum("bske,bskc->bsec", e_oh, c_oh)
+
+
+_Router = collections.namedtuple("_Router", "router")  # a rank's local router for `_route`
+
+
+def _rows(x: torch.Tensor):
+    """Under a mesh, the placements of x's batch rows: sharded as "batch"
+    resolves, every other dim replicated (one list serves every tensor
+    with the batch first); None off a mesh."""
+    if not isinstance(x, DTensor):
+        return None
+    return sh.placements_of(x.shape, ("batch",) + (None,) * (x.dim() - 1))
+
+
 def moe_forward(
     p: MoE, x: torch.Tensor, cfg: ModelConfig, dispatch: str = "scatter",
     aux: bool = True,
@@ -127,23 +165,49 @@ def moe_forward(
     E, k = cfg.n_experts, cfg.top_k
     C = expert_capacity(cfg, S)
     act = activation_fn(cfg.activation)
-    gate_w, gate_idx, pos_sel, keep_k, sel, keep, probs, logits = _route(p, x, cfg, C)
+    rows = _rows(x)
+    if rows is None:
+        gate_w, gate_idx, pos_sel, keep_k, sel, keep, probs, logits = _route(p, x, cfg, C)
+    else:  # each rank routes its batch rows
+        rep = [Replicate()] * len(rows)
+        gate_w, gate_idx, pos_sel, keep_k, sel, keep, probs, logits = sh.run_local(
+            lambda r, xl: _route(_Router(r), xl, cfg, C), (rows,) * 8, (rep, rows), p.router, x)
 
     if dispatch == "scatter":
-        xe, e_idx, c_idx = _dispatch(x, gate_idx, pos_sel, keep_k, E, C)
-        out = _combine(_experts(p, xe, act), e_idx, c_idx, gate_w, keep_k)
+        if rows is None:
+            xe, e_idx, c_idx = _dispatch(x, gate_idx, pos_sel, keep_k, E, C)
+        else:
+            xe, e_idx, c_idx = sh.run_local(lambda *a: _dispatch(*a, E, C), (rows,) * 3,
+                                            (rows,) * 4, x, gate_idx, pos_sel, keep_k)
+        xe = constrain(xe, ("batch", "experts", None, "embed"))
+        ye = _experts(p, xe, act)
+        if rows is None:
+            out = _combine(ye, e_idx, c_idx, gate_w, keep_k)
+        else:  # linear in ye: a partial sum over "model" stays one
+            ye_pl = [q if isinstance(q, Partial) else r for q, r in zip(ye.placements, rows)]
+            out = sh.run_local(_combine, ye_pl, (ye_pl,) + (rows,) * 4,
+                               ye, e_idx, c_idx, gate_w, keep_k)
     elif dispatch == "einsum":
-        e_oh = (sel * keep).to(x.dtype) * gate_w[..., None].to(x.dtype)
-        slot = torch.where(keep_k, pos_sel, C)  # C: no slot, an all-zero one-hot row
-        c_oh = (slot[..., None] == torch.arange(C, device=x.device)).to(x.dtype)
-        combine = torch.einsum("bske,bskc->bsec", e_oh, c_oh)
+        if rows is None:
+            combine = _einsum_combine(gate_w, pos_sel, keep_k, sel, keep, C, x.dtype)
+        else:
+            combine = sh.run_local(
+                lambda *a: _einsum_combine(*a, C, x.dtype), rows, (rows,) * 5,
+                gate_w, pos_sel, keep_k, sel, keep)
+        combine = constrain(combine, ("batch", "seq", "experts", None))
         disp = (combine > 0).to(x.dtype)
-        ye = _experts(p, torch.einsum("bsec,bsd->becd", disp, x), act)
+        xe = constrain(torch.einsum("bsec,bsd->becd", disp, x),
+                       ("batch", "experts", None, "embed"))
+        ye = _experts(p, xe, act)
         out = torch.einsum("bsec,becd->bsd", combine, ye)
     else:
         raise ValueError(dispatch)
+    out = constrain(out, ("batch", "seq_res", "embed"))
     if not aux:
         return out, {}
+    if rows is not None:  # served under a mesh (prefill and decode skip them)
+        raise NotImplementedError("moe router aux losses under a mesh: sharded training "
+                                  "is not ported yet")
 
     # Each of the k picks counts 1/k, so a balanced router scores exactly 1.
     frac_tokens = sel.float().sum(2).mean((0, 1)) / k  # (E,)

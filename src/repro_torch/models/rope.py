@@ -56,10 +56,12 @@ def mrope_tables(
     half = head_dim // 2
     if sum(sections) != half:
         raise ValueError(f"mrope sections {tuple(sections)} do not sum to {half}")
-    inv = rope_freqs(head_dim, theta, positions3.device)  # (D/2,)
-    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
-                          device=positions3.device)  # (D/2,): the stream driving each band
-    pos = positions3.float().index_select(0, sec_id).permute(1, 2, 0)  # (B, S, D/2)
+    inv = replicated_like(positions3, rope_freqs(head_dim, theta, positions3.device))
+    # (B, S, D/2): each band's driving stream, stream i repeated over its
+    # sections[i] bands (slices and a cat: no index tensor built on the
+    # host, which would have to be put on the mesh)
+    pos = torch.cat([positions3[i].float()[..., None].expand(*positions3.shape[1:], n)
+                     for i, n in enumerate(sections)], -1)
     return _tables(pos[..., None, :] * inv)  # angles (B, S, 1, D/2)
 
 

@@ -40,6 +40,16 @@ Caches, in the reference's layout, updated in place by decode:
 
 `CACHE_BATCH_AXIS` gives the batch axis of every cache leaf by its
 top-level key, as the reference's "kv_batch" logical axis does.
+
+Under a mesh (`sharding.use_mesh`, through `Model.prefill/decode`) every
+family's stack runs on DTensors: the attention blocks as the dense one
+(the kernels on local shards), the moe blocks' routing and the
+recurrences (Mamba2, mLSTM, sLSTM) each in one `sharding.run_local`
+(`moe.py`, `mamba2.py`, `xlstm.py`). Prefill stacks the per-layer states
+as they come out of those cores; `Model.decode` lays the cache out by
+`decode_cache_axes`, and a decode step's per-layer state is a view of the
+stacked DTensor (`_index_state`) whose local storage the core updates in
+place.
 """
 
 from __future__ import annotations
@@ -290,10 +300,10 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor,
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int):
-    """-> (x, (k, v), aux losses of this block). The residual stream is
-    pinned to ("batch", "seq_res", "embed") at the block's boundaries, as in
-    the reference (the identity off a mesh)."""
+def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int, aux: bool = True):
+    """-> (x, (k, v), aux losses of this block; {} when not `aux`). The
+    residual stream is pinned to ("batch", "seq_res", "embed") at the
+    block's boundaries, as in the reference (the identity off a mesh)."""
     x = constrain(x, ("batch", "seq_res", "embed"))
     h = rms_norm(x, lp.attn_norm, cfg.norm_eps)
     a, kv = attention_forward(lp.attn, h, cfg, rt, positions, rope, causal=True,
@@ -301,10 +311,10 @@ def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int):
     x = constrain(x + a, ("batch", "seq_res", "embed"))
     h = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
     if cfg.n_experts:
-        m, aux = moe_forward(lp.moe, h, cfg, rt.moe_dispatch)
+        m, losses = moe_forward(lp.moe, h, cfg, rt.moe_dispatch, aux=aux)
     else:
-        m, aux = mlp_forward(lp.mlp, h, cfg), {}
-    return constrain(x + m, ("batch", "seq_res", "embed")), kv, aux
+        m, losses = mlp_forward(lp.mlp, h, cfg), {}
+    return constrain(x + m, ("batch", "seq_res", "embed")), kv, losses
 
 
 def _attn_block_decode(lp: Block, x, cfg, rt, pos, rope, flat_slot, ck, cv, cache_pos,
@@ -334,9 +344,10 @@ def remat_on(rt: RuntimeFlags, blocks: nn.Module, collect_cache: bool) -> bool:
 def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
                    collect_cache: bool):
     """-> (x, per-layer (k, v) if collect_cache, aux losses summed over
-    layers: zeros-started for moe configs, {} otherwise). Under remat
-    (`remat_on`) each block keeps only its input and runs again in the
-    backward, as the reference's `jax.checkpoint` around its scanned
+    layers: zeros-started for moe configs, {} otherwise; prefill, which
+    collects the cache, discards them, so they are not computed there).
+    Under remat (`remat_on`) each block keeps only its input and runs again
+    in the backward, as the reference's `jax.checkpoint` around its scanned
     block."""
     window = rt.window_for(cfg.window)
     rope = _rope_tables(cfg, positions, mrope_positions)
@@ -346,7 +357,8 @@ def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
     remat = remat_on(rt, params.layers, collect_cache)
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for i, lp in enumerate(params.layers):
-        args = (lp, x, cfg, rt, positions, rope if _uses_rope(cfg, i) else None, window)
+        args = (lp, x, cfg, rt, positions, rope if _uses_rope(cfg, i) else None, window,
+                not collect_cache)
         x, kv, a = (checkpoint(_attn_block_apply, *args, use_reentrant=False) if remat
                     else _attn_block_apply(*args))
         for name, v in a.items():
@@ -409,7 +421,9 @@ def _uniform_decode(params: Decoder, cfg, rt, x, pos, cache: dict):
 
 def _index_state(states: dict, *idx) -> dict:
     """One layer's state: views into the stacked leaves, so that decode's
-    in-place updates land in the cache."""
+    in-place updates land in the cache. A DTensor leaf's view is a DTensor
+    over a view of the leaf's local storage, with the leaf's placements
+    (the layer dims are never sharded), which `run_local` hands the core."""
     return {k: v[idx] for k, v in states.items()}
 
 

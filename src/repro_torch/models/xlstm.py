@@ -20,6 +20,23 @@ Plain PyTorch throughout, as the reference is plain jnp; the inner RMSNorms
 go through the rmsnorm kernel on the card. Decode updates the states in
 place (as the KV cache): xlstm-1.3b's mLSTM C is 42 x 4 x 1024 x 1024 f32,
 0.7 GB per batch row.
+
+Under a mesh (`sharding.use_mesh`) the projections are DTensor products on
+the weights as their axes place them; each recurrence runs in one
+`sharding.run_local` on the local shards, so the host pays DTensor's
+dispatch once a block, not once an op or a time step:
+
+  * mLSTM prefill: the chunked scan on each rank's batch rows and heads
+    ("inner" on the head count); its output is sharded on "inner", which
+    the inner norm gathers (`ops.rmsnorm`).
+  * mLSTM decode, on the cache's layout (the reference's axes: C (B, nh,
+    P_value, P_key) sharded on its value dim, n (B, nh, P_key) on its key
+    dim, m by batch only): C's readout C q sums over the key dim, which
+    every rank holds whole, so it comes out sharded on the value dim and
+    is gathered; n . q sums over n's sharded key dim, so the core returns
+    it as a partial sum, which the readout reduces. Nothing gathers C.
+  * sLSTM: the whole time loop (prefill) or step (decode) on each rank's
+    batch rows, r_gates replicated.
 """
 
 from __future__ import annotations
@@ -30,8 +47,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from .. import sharding as sh
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from .common import init_normal_, param, rms_norm
 from .mamba2 import _causal_conv, _push, _roll_ctx
 
@@ -117,21 +137,14 @@ def _mlstm_proj(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, conv_prior=None):
     return q, k, v, gates[..., :nh], gates[..., nh:], z, up, c
 
 
-def mlstm_forward(
-    p: MLSTM,
-    x: torch.Tensor,  # (B, S, d)
-    cfg: ModelConfig,
-    chunk: int = 256,
-    state: Optional[dict] = None,
-) -> Tuple[torch.Tensor, dict]:
-    B, S, _ = x.shape
-    nh, P, di = cfg.n_heads, cfg.d_inner // cfg.n_heads, cfg.d_inner
+def _mlstm_scan(q, k, v, ipre, fpre, cfg: ModelConfig, chunk: int, prior: dict):
+    """The chunkwise scan over the heads given (q, k, v (B, S, nh, P); the
+    gates' preactivations (B, S, nh) f32): -> (h (B, S, nh P) in q's dtype,
+    C, n, m)."""
+    B, S, nh, P = q.shape
+    logf = F.logsigmoid(fpre)
     Q = min(chunk, S)
     pad = (-S) % Q
-    prior = state or {}
-
-    q, k, v, ipre, fpre, z, up_raw, conv_out = _mlstm_proj(p, x, cfg, prior.get("conv"))
-    logf = F.logsigmoid(fpre)  # (B, S, nh)
 
     def padq(a, fill=0.0):  # along the sequence axis
         return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad), value=fill) if pad else a
@@ -143,20 +156,20 @@ def mlstm_forward(
     cum = torch.cumsum(padq(logf, 0.0).view(B, nc, Q, nh), dim=2)  # inclusive log-decay
 
     # intra-chunk: D_ij = cum_i - cum_j + ipre_j for j <= i
-    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=q.device).tril()
     D = cum[:, :, :, None, :] - cum[:, :, None, :, :] + ic[:, :, None, :, :]
     D = D.masked_fill(~causal[None, None, :, :, None], NEG_INF)  # (B, nc, i, j, nh)
     m_intra = D.amax(dim=3)  # (B, nc, i, nh)
 
     C_hat = prior.get("C")
     if C_hat is None:
-        C_hat = torch.zeros((B, nh, P, P), dtype=torch.float32, device=x.device)
-        n_hat = torch.zeros((B, nh, P), dtype=torch.float32, device=x.device)
-        m_prev = torch.full((B, nh), NEG_INF, dtype=torch.float32, device=x.device)
+        C_hat = torch.zeros((B, nh, P, P), dtype=torch.float32, device=q.device)
+        n_hat = torch.zeros((B, nh, P), dtype=torch.float32, device=q.device)
+        m_prev = torch.full((B, nh), NEG_INF, dtype=torch.float32, device=q.device)
     else:
         n_hat, m_prev = prior["n"], prior["m"]
 
-    hs = torch.empty((B, nc, Q, nh, P), dtype=torch.float32, device=x.device)
+    hs = torch.empty((B, nc, Q, nh, P), dtype=torch.float32, device=q.device)
     for c in range(nc):  # scaled state: actual = hat * exp(m_prev)
         qx, kx, vx = qc[:, c].float(), kc[:, c].float(), vc[:, c].float()
         Dx, mx, cumx, icx = D[:, c], m_intra[:, c], cum[:, c], ic[:, c]
@@ -183,45 +196,91 @@ def mlstm_forward(
             "bjhp,bjhr->bhpr", vx * w_end[..., None], kx)
         n_hat = decay[:, :, None] * n_hat + torch.einsum("bjh,bjhp->bhp", w_end, kx)
         m_prev = m_end
+    h = hs.view(B, Sp, nh, P)[:, :S].reshape(B, S, nh * P).to(q.dtype).contiguous()
+    return h, C_hat, n_hat, m_prev
 
-    # per-head norm, learnable skip (conv path), output gate, down-projection
-    h = hs.view(B, Sp, nh, P)[:, :S].reshape(B, S, di).to(x.dtype).contiguous()
+
+def _mlstm_out(p: MLSTM, h, conv_out, z, cfg: ModelConfig) -> torch.Tensor:
+    """per-head norm, learnable skip (conv path), output gate, down-projection"""
     h = rms_norm(h, p.norm, cfg.norm_eps)
     h = h + p.skip * conv_out
     h = h * F.silu(z)
     out = h @ p.w_down
+    return constrain(out, ("batch", "seq", "embed") if out.dim() == 3 else ("batch", "embed"))
 
+
+def mlstm_forward(
+    p: MLSTM,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    chunk: int = 256,
+    state: Optional[dict] = None,
+) -> Tuple[torch.Tensor, dict]:
+    prior = state or {}
+    q, k, v, ipre, fpre, z, up_raw, conv_out = _mlstm_proj(p, x, cfg, prior.get("conv"))
+    if not isinstance(x, DTensor):
+        h, C, n, m = _mlstm_scan(q, k, v, ipre, fpre, cfg, chunk, prior)
+    else:  # each rank's batch rows and heads ("inner" on the head count)
+        pl = sh.placements_of((x.shape[0], cfg.n_heads), ("batch", "inner"))
+        bd, hd = sh.dims_sharding(pl, 0), sh.dims_sharding(pl, 1)
+        seq, heads = sh.placed({0: bd, 2: hd}), sh.placed({0: bd, 1: hd})
+        names = [k for k in ("C", "n", "m") if k in prior]
+        h, C, n, m = sh.run_local(
+            lambda *a: _mlstm_scan(*a[:5], cfg, chunk, dict(zip(names, a[5:]))),
+            (seq, heads, heads, heads), (seq,) * 5 + (heads,) * len(names),
+            q, k, v, ipre, fpre, *(prior[k] for k in names))
+    out = _mlstm_out(p, h, conv_out, z, cfg)
     new_conv = _roll_ctx(up_raw, prior.get("conv"), cfg.ssm_conv)
-    return out, {"C": C_hat, "n": n_hat, "m": m_prev, "conv": new_conv}
+    return out, {"C": C, "n": n, "m": m, "conv": new_conv}
+
+
+def _mlstm_cell(q, q_key, k, k_key, v_value, ipre, fpre, C, n, m):
+    """One step of the (C, n, m) recurrence, in place, on the state shards
+    given -> (C q (B, nh, P_value shard), n . q (B, nh), summed over the key
+    shard only; m's new value). `q_key`/`k_key` are q/k cut as n's key dim
+    is, `v_value` v as C's value dim is (whole off a mesh)."""
+    logf = F.logsigmoid(fpre)
+    m_new = torch.maximum(logf + m, ipre)
+    f_eff = torch.exp(logf + m - m_new)
+    i_eff = torch.exp(ipre - m_new)
+    C.mul_(f_eff[..., None, None]).addcmul_((i_eff[..., None] * v_value)[..., None],
+                                            k[..., None, :])
+    n.mul_(f_eff[..., None]).add_(i_eff[..., None] * k_key)
+    m.copy_(m_new)
+    return (C @ q[..., None])[..., 0], (n * q_key).sum(-1), m_new
+
+
+def _mlstm_readout(num, qn, m_new, dtype):
+    """(B, nh, P) numerators, (B, nh) n . q -> h (B, nh P) in `dtype`."""
+    denom = torch.maximum(qn.abs(), torch.exp(-m_new))
+    return (num / denom[..., None]).reshape(num.shape[0], -1).to(dtype)
 
 
 def mlstm_decode_step(
     p: MLSTM, x: torch.Tensor, state: dict, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, dict]:
     """One token (B, d); `state` is updated in place and returned."""
-    B = x.shape[0]
-    di = cfg.d_inner
     q, k, v, ipre, fpre, z, up_raw, conv_out = _mlstm_proj(p, x[:, None, :], cfg,
                                                            state["conv"])
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B, nh, P)
-    ipre, logf = ipre[:, 0], F.logsigmoid(fpre[:, 0])  # (B, nh)
-
-    m = state["m"]
-    m_new = torch.maximum(logf + m, ipre)
-    f_eff = torch.exp(logf + m - m_new)
-    i_eff = torch.exp(ipre - m_new)
-    C, n = state["C"], state["n"]
-    C.mul_(f_eff[..., None, None]).addcmul_((i_eff[..., None] * v)[..., None], k[..., None, :])
-    n.mul_(f_eff[..., None]).add_(i_eff[..., None] * k)
-    m.copy_(m_new)
-    num = (C @ q[..., None])[..., 0]  # (B, nh, P)
-    qn = (n * q).sum(-1)
-    denom = torch.maximum(qn.abs(), torch.exp(-m_new))
-    h = (num / denom[..., None]).reshape(B, di).to(x.dtype)
-    h = rms_norm(h, p.norm, cfg.norm_eps)
-    h = h + p.skip * conv_out[:, 0]
-    h = h * F.silu(z[:, 0])
-    out = h @ p.w_down
+    ipre, fpre = ipre[:, 0], fpre[:, 0]  # (B, nh)
+    C, n, m = state["C"], state["n"], state["m"]
+    if not isinstance(x, DTensor):
+        h = _mlstm_readout(*_mlstm_cell(q, q, k, k, v, ipre, fpre, C, n, m), x.dtype)
+    else:  # on the cache's layout: C by value dim, n by key dim, m by batch
+        pl = sh.placements_of(C.shape, ("kv_batch", None, "inner", None))
+        bd, cd = sh.dims_sharding(pl, 0), sh.dims_sharding(pl, 2)
+        rows, cut = sh.placed({0: bd}), sh.placed({0: bd, 2: cd})
+        summed = [Shard(0) if i in bd else Partial() if i in cd else Replicate()
+                  for i in range(len(rows))]
+        num, qn, m_new = sh.run_local(
+            _mlstm_cell, (cut, summed, rows),
+            (rows, cut, rows, cut, cut, rows, rows, cut, cut, rows),
+            q, q, k, k, v, ipre, fpre, C, n, m, inplace=(7, 8, 9))
+        # the readout on whole rows: C q gathered, n . q summed
+        h = sh.run_local(lambda *a: _mlstm_readout(*a, x.dtype), rows, (rows,) * 3,
+                         num, qn, m_new)
+    out = _mlstm_out(p, h, conv_out[:, 0], z[:, 0], cfg)
     _push(state["conv"], up_raw)
     return out, state
 
@@ -301,7 +360,29 @@ def _slstm_cell(r: torch.Tensor, carry, g_x: torch.Tensor, cfg: ModelConfig):
 
 def _slstm_out(p: SLSTM, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = rms_norm(y, p.norm, cfg.norm_eps)
-    return (_gelu(y @ p.ffn_w1) * (y @ p.ffn_w3)) @ p.ffn_w2  # gated FFN, 4/3 factor
+    out = (_gelu(y @ p.ffn_w1) * (y @ p.ffn_w3)) @ p.ffn_w2  # gated FFN, 4/3 factor
+    return constrain(out, ("batch", "seq", "embed"))
+
+
+def _slstm_scan(r_gates, g_x, cfg: ModelConfig, dtype, *carry):
+    """The time loop over g_x (B, S, 4d) from `carry` (h, c, n, m), a fresh
+    state when empty -> (y (B, S, d) in `dtype`, h, c, n, m)."""
+    B, S = g_x.shape[:2]
+    if not carry:
+        st = init_slstm_state(cfg, B, g_x.device)
+        carry = (st["h"], st["c"], st["n"], st["m"])
+    r = _recurrent_weights(r_gates)
+    hs = []
+    for t in range(S):
+        carry = _slstm_cell(r, carry, g_x[:, t], cfg)
+        hs.append(carry[0])
+    return (torch.stack(hs, dim=1).to(dtype),) + tuple(carry)
+
+
+def _slstm_rows(B: int, batch_axis: str):
+    """(r_gates' placements, the batch rows') under a mesh."""
+    rows = sh.placed({0: sh.dims_sharding(sh.placements_of((B,), (batch_axis,)), 0)})
+    return [Replicate()] * len(rows), rows
 
 
 def slstm_forward(
@@ -310,18 +391,24 @@ def slstm_forward(
     cfg: ModelConfig,
     state: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    B, S, _ = x.shape
-    st = state or init_slstm_state(cfg, B, x.device)
     g_x = x @ p.w_gates + p.b_gates
-    r = _recurrent_weights(p.r_gates)
-    carry = (st["h"], st["c"], st["n"], st["m"])
-    hs = []
-    for t in range(S):
-        carry = _slstm_cell(r, carry, g_x[:, t], cfg)
-        hs.append(carry[0])
-    y = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, d)
-    h, c, n, m = carry
+    carry = (state["h"], state["c"], state["n"], state["m"]) if state else ()
+    if not isinstance(x, DTensor):
+        y, h, c, n, m = _slstm_scan(p.r_gates, g_x, cfg, x.dtype, *carry)
+    else:  # the whole loop on each rank's batch rows
+        rep, rows = _slstm_rows(x.shape[0], "batch")
+        y, h, c, n, m = sh.run_local(
+            lambda r, g, *st: _slstm_scan(r, g, cfg, x.dtype, *st), (rows,) * 5,
+            (rep, rows) + (rows,) * len(carry), p.r_gates, g_x, *carry)
     return _slstm_out(p, y, cfg), {"h": h, "c": c, "n": n, "m": m}
+
+
+def _slstm_step(r_gates, g_x, cfg: ModelConfig, dtype, *carry):
+    """One step from the state `carry` (h, c, n, m), updated in place -> h in `dtype`."""
+    new = _slstm_cell(_recurrent_weights(r_gates), carry, g_x, cfg)
+    for old, v in zip(carry, new):
+        old.copy_(v)
+    return new[0].to(dtype)
 
 
 def slstm_decode_step(
@@ -330,7 +417,11 @@ def slstm_decode_step(
     """One token (B, d); `state` is updated in place and returned."""
     g_x = x @ p.w_gates + p.b_gates
     carry = (state["h"], state["c"], state["n"], state["m"])
-    new = _slstm_cell(_recurrent_weights(p.r_gates), carry, g_x, cfg)
-    for old, v in zip(carry, new):
-        old.copy_(v)
-    return _slstm_out(p, new[0].to(x.dtype)[:, None], cfg)[:, 0], state
+    if not isinstance(x, DTensor):
+        h = _slstm_step(p.r_gates, g_x, cfg, x.dtype, *carry)
+    else:  # on each rank's batch rows, the state's
+        rep, rows = _slstm_rows(x.shape[0], "kv_batch")
+        h = sh.run_local(lambda r, g, *st: _slstm_step(r, g, cfg, x.dtype, *st), rows,
+                         (rep, rows) + (rows,) * 4, p.r_gates, g_x, *carry,
+                         inplace=(2, 3, 4, 5))
+    return _slstm_out(p, h[:, None], cfg)[:, 0], state

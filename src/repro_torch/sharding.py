@@ -38,7 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
 __all__ = [
     "AxisRules",
@@ -66,6 +66,8 @@ __all__ = [
     "placements_of",
     "dims_sharding",
     "shard_index",
+    "placed",
+    "redistribute",
     "run_local",
     "write_slots",
     "constrain",
@@ -320,10 +322,7 @@ def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         raise TypeError(f"constrain{tuple(axes)}: a plain tensor {tuple(x.shape)} under a "
                         "mesh (it escaped the mesh; bring it on with on_mesh)")
-    want = placements_for(spec_for(x.shape, axes), ctx.mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(ctx.mesh, want)
+    return redistribute(x, placements_for(spec_for(x.shape, axes), ctx.mesh))
 
 
 def on_mesh(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
@@ -380,17 +379,61 @@ def shard_index(mesh: DeviceMesh, dims: Sequence[int]) -> int:
     return idx
 
 
-def run_local(fn, out_placements, in_placements, *args):
+def placed(dims: Dict[int, Sequence[int]]) -> List[Placement]:
+    """Placements on the active mesh that shard tensor dim d over the mesh
+    dims `dims[d]` and replicate over every other mesh dim."""
+    out: List[Placement] = [Replicate()] * current_mesh().ndim
+    for d, mesh_dims in dims.items():
+        for i in mesh_dims:
+            out[i] = Shard(d)
+    return out
+
+
+def redistribute(x: DTensor, placements: Sequence[Placement]) -> DTensor:
+    """`x` redistributed to `placements`, through the collectives every
+    backend has: a partial sum or a shard that must become a shard of
+    another dim is first made whole (all-reduce, all-gather), then cut
+    locally. (gloo has no reduce-scatter or all-to-all, which DTensor's
+    direct path takes.) `x` itself when it is already so placed."""
+    want = tuple(placements)
+    if tuple(x.placements) == want:
+        return x
+    whole = tuple(Replicate() if p != w and (isinstance(p, Partial) or
+                                             isinstance(p, Shard) and isinstance(w, Shard))
+                  else p for p, w in zip(x.placements, want))
+    if whole != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, whole)
+    return x if whole == want else x.redistribute(x.device_mesh, want)
+
+
+def run_local(fn, out_placements, in_placements, *args, inplace: Sequence[int] = ()):
     """`fn` on each rank's local shards (`local_map`): each DTensor argument
     is redistributed to its entry of `in_placements` first (None for an
     argument that is not a tensor); the result is a DTensor placed as
     `out_placements` says (one list of placements; a tuple of lists for a
-    tuple of results)."""
+    tuple of results).
+
+    `inplace` lists the positions of the arguments `fn` updates in place (a
+    recurrent state, a cache leaf or a view of one). Such an argument
+    already placed as `fn` takes it reaches `fn` as its own local storage,
+    so the update lands in the DTensor; one placed otherwise reaches it as
+    a redistributed copy, which is written back into it after the call."""
     from torch.distributed.tensor.experimental import local_map
 
-    return local_map(fn, out_placements=out_placements,
-                     in_placements=tuple(None if p is None else tuple(p) for p in in_placements),
-                     device_mesh=current_mesh(), redistribute_inputs=True)(*args)
+    in_pl = tuple(None if p is None else tuple(p) for p in in_placements)
+    args = list(args)
+    back = []
+    for i, a in enumerate(args):
+        if isinstance(a, DTensor):
+            moved = redistribute(a, in_pl[i])
+            if i in inplace and moved is not a:
+                back.append((a, moved))
+            args[i] = moved
+    out = local_map(fn, out_placements=out_placements, in_placements=in_pl,
+                    device_mesh=current_mesh(), redistribute_inputs=False)(*args)
+    for dst, moved in back:
+        dst.copy_(redistribute(moved, dst.placements))
+    return out
 
 
 def write_slots(dst: DTensor, src: DTensor, pos: DTensor) -> None:
@@ -398,7 +441,11 @@ def write_slots(dst: DTensor, src: DTensor, pos: DTensor) -> None:
     as it is laid out (batch, slots and any later dim sharded or not): each
     rank writes the rows it holds into the slots it holds, mapping the
     global slot to its local one. The sharded counterpart of a flat
-    `index_copy_`, which a sharded batch x slots cannot take as a view."""
+    `index_copy_`, which a sharded batch x slots cannot take as a view.
+    `dst` may be one layer of a stacked cache (`cache["k"][i]`, (L, B, Sc,
+    ...); zamba2's shared-block and enc-dec's self caches alike): the
+    layer's DTensor is a view of the stack's local storage, which the
+    write reaches unmoved (`dst` keeps its placements)."""
     pl = list(dst.placements)
     if any(not isinstance(p, (Shard, Replicate)) for p in pl):
         raise ValueError(f"write_slots: dst placements {pl}")
@@ -415,7 +462,7 @@ def write_slots(dst: DTensor, src: DTensor, pos: DTensor) -> None:
         d[b, ls] = torch.where(own, s.to(d.dtype), d[b, ls])  # others write back their own
         return d
 
-    run_local(write, pl, (pl, src_pl, pos_pl), dst, src, pos)
+    run_local(write, pl, (pl, src_pl, pos_pl), dst, src, pos, inplace=(0,))
 
 
 def _tree_map(fn, tree, axes):
