@@ -76,8 +76,9 @@ Phases, each of which must pass or the script exits non-zero:
      2e-3, every gradient leaf finite and within 2e-4 of its largest
      magnitude, and the losses of the AdamW steps (3 for llama2-7b, 1 for
      the others) within 2e-3;
-  5. the main paths at full width and depth, bf16, random weights from a
-     seed, each with the launch counts set to 0 just before it: llama2-7b
+  5. the main paths at full width and depth (glm4-9b at 20 of 40 layers),
+     bf16, random weights from a seed, each with the launch counts set to 0
+     just before it: llama2-7b
      and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
      then served through `InferenceEngine` under `ICCServer` (priority and
      fifo) over a Poisson trace, then a profile of a batch-8 decode step and
@@ -86,8 +87,9 @@ Phases, each of which must pass or the script exits non-zero:
      cumsum, scatter and gather); nemotron-4-15b calibrated at 15/15;
      mixtral-8x22b (8 of its 56 layers: all 56 need ~282 GB) served and
      profiled as glm4-9b, with a 576-slot cache under its 4096 window;
-     llama4-scout (8 of 48 layers) calibrated at 15/15; zamba2-7b (81
-     layers) served and profiled as llama2-7b; xlstm-1.3b (48 layers)
+     llama4-scout (8 of 48 layers) calibrated at 15/15; zamba2-7b (39 of
+     81 layers: 6 groups and 3 remainder layers) served and profiled as
+     llama2-7b; xlstm-1.3b (48 layers)
      calibrated at 15/15 and profiled; seamless-m4t (24 + 24 layers)
      through `InferenceEngine(enc_len=15)` at batch 1 and 8, and profiled.
      Every kernel's launch count must be what the prefills and decode
@@ -211,7 +213,20 @@ Phases, each of which must pass or the script exits non-zero:
      the whole tensor), rmsnorm, flash and decode must launch what each run
      predicts under the mesh (counts set to 0 just before it); the largest
      logit difference and the sharded and unsharded prefill and
-     decode-step walls are printed for each arch.
+     decode-step walls are printed for each arch. Then sharded training
+     (`sharded_train_run`): llama2-7b (4 layers), qwen2-vl-72b (1 layer,
+     embeds in), mixtral-8x22b (1 layer, all 8 experts, aux losses),
+     zamba2-7b (7: a Mamba2 group, the shared block, a remainder layer),
+     xlstm-1.3b (8: one group) and seamless-m4t (2 + 2) at full width,
+     bf16, remat, the stream's first batch of 2 x 256 tokens: the loss and
+     gradients and one AdamW step (`make_train_step`) from
+     `Model.init(seed=0)` unsharded, then the same from the weights drawn
+     again under TRAIN_RULES on the same mesh (`Model.distribute_params` of
+     parameters that require grad): the loss, every gradient leaf and every updated
+     parameter must equal the unsharded step's (SHARDED_TRAIN_TOL = 0; a
+     leaf that differs is named and held to SHARDED_TRAIN_BAR, 2e-2 of its
+     largest value), the sharded step's rmsnorm and rmsnorm_bwd launches
+     must be `train_step_launches`'s, and the two step walls are printed.
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -225,7 +240,8 @@ times another checkout's wrapper with the same timer. With
 --rmsnorm-bwd-profile it builds a copy of the backward with clock reads at
 its phase boundaries and prints where a call's time goes
 (`rmsnorm_bwd_profile`).
-With --sharded it only builds the kernels and runs phase 10.
+With --sharded it only builds the kernels and runs phase 10 (sharded serving
+and training).
 With --decode-sweep it only builds the kernels and times decode_attention at
 each head-group size against SDPA (`decode_sweep`), where `head_groups`'s
 rule in `kernels/decode_attention.py` comes from. With --decode-profile ARCH
@@ -1155,11 +1171,14 @@ def ring_card_vs_cpu(torch, W=8, T=20):
 def grads_of(torch, model, params, batch):
     """(loss, {name: gradient}) of one batch, parameters requiring grad; a
     leaf the loss never reads (xlstm's sLSTM `ffn_norm`, also unread in the
-    reference) gets zeros, as in `make_train_step`."""
+    reference) gets zeros, as in `make_train_step`. Under a mesh the loss
+    is a replicated DTensor and the gradients DTensors."""
+    from repro_torch.sharding import whole
+
     loss, _ = model.loss(params, batch)
     names, leaves = zip(*params.named_parameters())
     grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    return float(loss.detach()), dict(zip(names, grads))
+    return float(whole(loss.detach())), dict(zip(names, grads))
 
 
 def train_step_launches(cfg):
@@ -1304,12 +1323,16 @@ FULL_WIDTH = [  # (arch, what runs, layers kept of the full depth, None: all). "
     #               "calibrate": 15/15 only; "encdec": requests through the engine
     #               with enc_len (batch 1 and 8) and decode profiles
     ("llama2-7b", "serve", None),  # the paper's serving model
-    ("glm4-9b", "serve", None),  # G = 16, QKV bias, vocab 151552
+    # glm4-9b and zamba2-7b at half depth since phase 10 took in sharded training
+    # (the script's 1200 s): per-layer cost, G = 16 and the hybrid groups are as at
+    # full depth
+    ("glm4-9b", "serve", 20),  # G = 16, QKV bias, vocab 151552; 20 of 40 layers
     ("nemotron-4-15b", "calibrate", None),  # relu2, d_model 6144, G = 6
     # moe: the whole depth does not fit one 80 GB card (~282 and ~217 GB in bf16)
     ("mixtral-8x22b", "serve", 8),  # 8 experts top-2, window 4096 over 576 slots, G = 6
     ("llama4-scout-17b-a16e", "calibrate", 8),  # 16 experts top-1, iRoPE, G = 5
-    ("zamba2-7b", "serve", None),  # hybrid: 81 Mamba2 layers, a shared block every 6, dh 112
+    ("zamba2-7b", "serve", 39),  # hybrid: 39 of 81 Mamba2 layers (6 groups of 6, each with
+    #                              the shared block, and 3 remainder layers), dh 112
     ("xlstm-1.3b", "profile", None),  # ssm: 42 mLSTM + 6 sLSTM blocks, no attention
     ("seamless-m4t-large-v2", "encdec", None),  # 24 encoder + 24 decoder layers
 ]
@@ -2032,6 +2055,14 @@ DTENSOR_OPS = (
     "aten.new_zeros.default", "aten.select.int", "aten.silu.default", "aten.sin.default",
     "aten.slice.Tensor", "aten.stack.default", "aten.transpose.int", "aten.unsqueeze.default",
     "aten.view.default",
+    # the training paths' (tests/test_torch_sharded_training.py records them): the
+    # backward's and the optimizer's
+    "aten.add_.Tensor", "aten.addcmul_.default", "aten.div_.Tensor", "aten.expand.default",
+    "aten.gelu_backward.default", "aten.gt.Scalar", "aten.mul_.Tensor",
+    "aten.ones_like.default", "aten.permute.default", "aten.pow.Tensor_Scalar",
+    "aten.select_backward.default", "aten.silu_backward.default", "aten.slice_backward.default",
+    "aten.sqrt.default", "aten.squeeze.dim", "aten.sub_.Tensor", "aten.sum.default",
+    "aten.sum.dim_IntList", "aten.t.default", "aten.zeros_like.default",
 )
 
 
@@ -2167,6 +2198,131 @@ def sharded_run(torch, card, mesh, arch, layers, steps):
     return n
 
 
+# phase 10's sharded training: one AdamW step a family at full width, bf16, remat on,
+# weights from seed 0, depth cut so that ~16 bytes a parameter (bf16 weights and
+# gradients, f32 moments, the update's temporaries) fit the card with room for the
+# largest leaf's temporaries: (arch, config fields replaced, batch, tokens)
+SHARDED_TRAIN_RUNS = (
+    ("llama2-7b", {"n_layers": 4}, 2, 256),  # ~1.07 B parameters
+    ("qwen2-vl-72b", {"n_layers": 1}, 2, 256),  # ~3.36 B: two 1.25 B vocab tables; embeds in
+    ("mixtral-8x22b", {"n_layers": 1}, 2, 256),  # ~2.9 B: all 8 experts, top-2, aux losses
+    ("zamba2-7b", {"n_layers": 7}, 2, 256),  # a group of 6 Mamba2 layers, the shared block,
+    #                                          a remainder layer; one chunk of 256
+    ("xlstm-1.3b", {"n_layers": 8}, 2, 256),  # one group: 7 mLSTM blocks and the sLSTM
+    ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2}, 2, 256),
+)
+# as SHARDED_LOGIT_TOL: the loss, every gradient leaf and every updated parameter of
+# the sharded step must be the unsharded step's bit for bit on the one-rank mesh
+SHARDED_TRAIN_TOL = 0.0
+# a difference that is not 0 is a finding, named leaf by leaf; it must stay within
+# this share of the leaf's largest value (bf16's TOLS) or the phase fails
+SHARDED_TRAIN_BAR = TOLS["bfloat16"]
+
+
+def first_batch(torch, model, cfg, B, S):
+    """The training stream's first batch (`SyntheticLM`, seed 0) as `model.loss`
+    takes it (`model_batch`: one-hot embeds for the frontend-stub archs), on the card."""
+    from repro_torch.training import DataConfig, SyntheticLM, model_batch
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    return model_batch(model, batch, torch.bfloat16)
+
+
+def sharded_train_run(torch, card, mesh, arch, cut, B, S):
+    """One arch of phase 10's training: from `Model.init(seed=0)`, the first
+    batch's loss and gradients (`grads_of`) and one AdamW step
+    (`make_train_step`) unsharded; then the same from weights drawn again
+    from seed 0 (the step updates them in place) under
+    `sharding.use_mesh(mesh, TRAIN_RULES)`, the parameters distributed as
+    DTensors that require grad. The unsharded gradients and updated parameters wait
+    on the host. The loss, every gradient leaf and every updated parameter
+    are held to SHARDED_TRAIN_TOL (a leaf past it is named, and must stay
+    within SHARDED_TRAIN_BAR of its largest value); the sharded step's
+    rmsnorm and rmsnorm_bwd launches (counts set to 0 just before it) to
+    `train_step_launches`. -> those launches."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    model = build_model(cfg, RuntimeFlags(remat=True))
+    batch = first_batch(torch, model, cfg, B, S)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+
+    def one_step(params):
+        """-> (loss, gradients (whole, on the host), updated parameters, step
+        wall s, launches, the step's loss)."""
+        loss, grads = grads_of(torch, model, params, batch)
+        grads = {n: sh.whole(g).cpu() for n, g in grads.items()}
+        step, state = make_train_step(model, opt), adamw_init(params)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall, launched = time.perf_counter() - t0, dict(ops.LAUNCHES)
+        del state
+        return loss, grads, params, wall, launched, float(metrics["loss"])
+
+    params = model.init(seed=0, device="cuda").requires_grad_(True)
+    n_params = sum(p.numel() for p in params.parameters())
+    loss_u, host_g, params, wall_u, _, step_loss_u = one_step(params)
+    host_p = {n: p.detach().cpu() for n, p in params.named_parameters()}
+    del params
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    with sh.use_mesh(mesh, sh.TRAIN_RULES):
+        dparams = model.distribute_params(
+            model.init(seed=0, device="cuda").requires_grad_(True))
+        loss_s, grads_s, dparams, wall_s, launched, step_loss_s = one_step(dparams)
+    peak = torch.cuda.max_memory_allocated()
+
+    def differences(got, want):  # {name: (max |difference|, the leaf's largest |value|)}
+        out = {}
+        for n, g in got.items():
+            w, g = want[n].cuda(), sh.whole(g).cuda()
+            out[n] = (float((g.float() - w.float()).abs().max()), float(w.float().abs().max()))
+        return out
+
+    d_grad = differences(grads_s, host_g)
+    d_param = differences({n: p.detach() for n, p in dparams.named_parameters()}, host_p)
+    n_fwd, n_bwd = train_step_launches(cfg)
+    want = {"rmsnorm": n_fwd, "rmsnorm_bwd": n_bwd, "flash_attention": 0, "decode_attention": 0}
+    layers = ", ".join(f"{k}={v}" for k, v in cut.items())
+    say(f"sharded training {arch} full width ({cfg.family}): {layers}, d={cfg.d_model} "
+        f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, remat, batch {B} x {S}, mesh (1, 1) "
+        f"('data', 'model') over NCCL, 1 rank, TRAIN_RULES; peak {peak / 2**30:.2f} GiB")
+    for what, diffs in (("gradient", d_grad), ("updated parameter", d_param)):
+        worst = max(diffs, key=lambda n: diffs[n][0])
+        off = {n: d for n, d in diffs.items() if d[0] > SHARDED_TRAIN_TOL}
+        say(f"sharded training {arch}: {len(diffs)} {what} leaves, {len(off)} differ from the "
+            f"unsharded step's; largest |difference| {diffs[worst][0]:.6g} ({worst}, largest "
+            f"value {diffs[worst][1]:.6g})"
+            + "".join(f"; {n} {d[0]:.6g} of {d[1]:.6g}" for n, d in list(off.items())[:8]))
+        bad = [n for n, (d, m) in off.items() if d > SHARDED_TRAIN_BAR * max(m, 1e-30)]
+        check(not bad, f"{arch}: sharded {what}s {bad[:5]} differ by more than "
+              f"{SHARDED_TRAIN_BAR} of their largest value")
+    say(f"sharded training {arch}: loss {loss_s:.9g} sharded vs {loss_u:.9g} unsharded "
+        f"(difference {abs(loss_s - loss_u):.6g}; the steps' {step_loss_s:.9g} vs "
+        f"{step_loss_u:.9g}); step walls {wall_s * 1e3:.3f} ms sharded vs {wall_u * 1e3:.3f} ms "
+        f"unsharded (ratio {wall_s / wall_u:.3f}); card {card}")
+    say(f"sharded training {arch} launches of the step under the mesh: {launched} "
+        f"(predicted {want}: train_step_launches)")
+    check(abs(loss_s - loss_u) <= SHARDED_TRAIN_BAR * abs(loss_u),
+          f"{arch}: sharded loss {loss_s} vs unsharded {loss_u}")
+    check(math.isfinite(loss_s) and math.isfinite(step_loss_s), f"{arch}: sharded loss not finite")
+    check(launched == want, f"{arch}: sharded train step launches {launched} != {want}")
+    del dparams, grads_s, model, batch, host_g, host_p
+    torch.cuda.empty_cache()
+    say(f"sharded training {arch}: {time.perf_counter() - t_run:.1f} s")
+    return launched
+
+
 def phase_sharded(torch, card):
     """The sharded serving path of every family, SHARDED_RUNS in turn: each
     arch at full width (mixtral-8x22b at 8 of 56 layers), bf16, random
@@ -2185,8 +2341,13 @@ def phase_sharded(torch, card):
     unsharded run's on the same weights, and so must the logits
     (SHARDED_LOGIT_TOL); the largest difference is printed with the
     sharded and unsharded prefill and decode-step walls (host-bound:
-    DTensor's sharding propagation runs on the host at every op). Returns
-    the launch counts summed over the runs."""
+    DTensor's sharding propagation runs on the host at every op). Then the
+    sharded training of every family, SHARDED_TRAIN_RUNS in turn
+    (`sharded_train_run`): one AdamW step unsharded and one under
+    TRAIN_RULES from the same weights, the loss, every gradient leaf and
+    every updated parameter held to SHARDED_TRAIN_TOL, the step's rmsnorm
+    and rmsnorm_bwd launches to `train_step_launches`. Returns the launch
+    counts summed over the runs."""
     import datetime
 
     import torch.distributed as dist
@@ -2207,9 +2368,15 @@ def phase_sharded(torch, card):
         for arch, layers, steps in SHARDED_RUNS:
             for k, v in sharded_run(torch, card, mesh, arch, layers, steps).items():
                 total[k] = total.get(k, 0) + v
+        t_train = time.perf_counter()
+        for arch, cut, B, S in SHARDED_TRAIN_RUNS:
+            for k, v in sharded_train_run(torch, card, mesh, arch, cut, B, S).items():
+                total[k] = total.get(k, 0) + v
     finally:
         dist.destroy_process_group()
-    say(f"phase 10 (sharded serving) took {time.perf_counter() - t_phase:.1f} s")
+    now = time.perf_counter()
+    say(f"phase 10 (sharded serving {t_train - t_phase:.1f} s, sharded training "
+        f"{now - t_train:.1f} s) took {now - t_phase:.1f} s")
     return total
 
 
@@ -3050,8 +3217,8 @@ def main() -> int:
                     help="only build and profile ARCH's decode steps at full width "
                          "(profile_decode)")
     ap.add_argument("--sharded", action="store_true",
-                    help="only build the kernels and run the sharded serving phase "
-                         "(phase_sharded)")
+                    help="only build the kernels and run the sharded phase, serving and "
+                         "training (phase_sharded)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive (default: beside "
                          "this script)")
@@ -3104,7 +3271,8 @@ def main() -> int:
 
         _build.library()
         phase_sharded(torch, card)
-        say(f"sharded serving done in {time.perf_counter() - t_start:.1f} s on {card}")
+        say(f"sharded serving and training done in {time.perf_counter() - t_start:.1f} s on "
+            f"{card}")
         return 0
     if args.decode_profile:
         from repro_torch.configs import get_config

@@ -22,6 +22,10 @@ redistributes inputs whose placements differ first:
   * rmsnorm: rows (the batch dim) sharded, the last dim and gamma
     replicated; a row whose last dim is sharded (Mamba2's and the mLSTM's
     norms over "inner") is gathered for the call and cut again after it.
+    `RMSNormFn` runs inside `local_map` as it is, its backward kernel on
+    each rank's rows: gamma's gradient there is a partial sum over the
+    rows' mesh dims (`sharding.run_local`), which the backward of gamma's
+    gather reduces to gamma's own placement (its FSDP shard over "data").
 
 Flash takes any Sq and Sk and either mask (the enc-dec encoder is
 non-causal, its cross prefill Sq != Sk); decode takes any cache, the

@@ -34,12 +34,14 @@ frame exceeds and no window. The cross cache is never written in decode.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -180,15 +182,48 @@ def attention_core(
 ) -> torch.Tensor:
     """On the card q_pos/k_pos are arange positions (see decoder_forward).
     While a gradient is recorded through q, k or v, "auto" takes the
-    reference's differentiable rule (`RuntimeFlags.attn_impl_for`)."""
+    reference's differentiable rule (`RuntimeFlags.attn_impl_for`). Under a
+    mesh naive and chunked attention run on local shards (`_local_core`)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     impl = rt.attn_impl_for(k.shape[1], q.is_cuda, grad)
     if impl == "pallas":
         return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if isinstance(q, DTensor):
+        return _local_core(q, k, v, causal, window, impl, rt)
     if impl == "chunked":
         return chunked_attention(q, k, v, q_pos, k_pos, causal, window,
                                  rt.q_chunk, rt.kv_chunk)
     return naive_attention(q, k, v, q_pos, k_pos, causal, window)
+
+
+def _local_core(q, k, v, causal: bool, window: int, impl: str, rt: RuntimeFlags):
+    """Naive or chunked attention in one `run_local`, laid out as the flash
+    kernel's wrapper lays it out: batch over the data axes, heads over
+    "model", each rank's KV heads those of its query heads
+    (`ops._head_placements`, `ops._paired`). The positions are arange, as
+    every caller's are under a mesh, and are built on each rank, so no
+    position tensor and no mask goes through DTensor; op by op, the scores,
+    masks and online softmax would each pay DTensor's dispatch."""
+    B, Sq, K, G, dh = q.shape
+    qh = q.view(B, Sq, K * G, dh)
+    q_pl, kv_pl, pair = ops._head_placements(qh.shape, k.shape, ("batch", None, "heads", None),
+                                             ("batch", None, "kv_heads", None))
+
+    def core(ql, kl, vl):
+        b, sq, hl, _ = ql.shape
+        kh, sk = kl.shape[2], kl.shape[1]
+        qp = torch.arange(sq, dtype=torch.int32, device=ql.device).expand(b, sq)
+        kp = torch.arange(sk, dtype=torch.int32, device=ql.device).expand(b, sk)
+        qg = ql.view(b, sq, kh, hl // kh, dh)
+        if impl == "chunked":
+            out = chunked_attention(qg, kl, vl, qp, kp, causal, window, rt.q_chunk, rt.kv_chunk)
+        else:
+            out = naive_attention(qg, kl, vl, qp, kp, causal, window)
+        return out.reshape(b, sq, hl, dh)
+
+    out = sh.run_local(functools.partial(ops._paired, core, pair), q_pl, (q_pl, kv_pl, kv_pl),
+                       qh, k, v)
+    return out.view(B, Sq, K, G, dh)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,10 @@ cross decode run on local shards (`kernels/ops.py`), and the cross cache,
 written once at prefill, is laid out by `encdec_cache_axes`. `encdec_forward` is the training
 path: differentiable, with naive or chunked attention and, under remat,
 each encoder and decoder layer recomputed in the backward
-(`model.rmsnorm_calls` counts a train step's norms).
+(`model.rmsnorm_calls` counts a train step's norms). Under TRAIN_RULES it
+runs on DTensors (`Model.loss`): the encoder's, the decoder's self and the
+cross attention each on local shards (`attention._local_core`), the cross
+K/V's gradient reaching the encoder through the same redistributions.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding as sh
 from ..configs.base import ModelConfig
 from ..sharding import constrain
 from .attention import (
@@ -146,7 +150,8 @@ def encode(params: EncDec, cfg: ModelConfig, rt: RuntimeFlags,
     x = constrain(enc_embeds, ("batch", "seq", "embed"))
     for lp in params.enc_layers:
         args = (lp, x, cfg, rt, positions, rope)
-        x = checkpoint(_enc_layer, *args, use_reentrant=False) if remat else _enc_layer(*args)
+        x = (checkpoint(sh.bound(_enc_layer), *args, use_reentrant=False) if remat
+             else _enc_layer(*args))
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
@@ -174,7 +179,7 @@ def _dec_stack(params: EncDec, cfg, rt, x, positions, enc_out, enc_pos, collect_
     for lp in params.dec_layers:
         args = (lp, x, cfg, rt, positions, rope, enc_out, enc_pos)
         if remat:
-            x = checkpoint(_dec_layer, *args, use_reentrant=False)[0]
+            x = checkpoint(sh.bound(_dec_layer), *args, use_reentrant=False)[0]
             continue
         x, kv, ckv = _dec_layer(*args)
         if collect_cache:

@@ -224,7 +224,10 @@ def mamba2_forward(
     sharded by heads over "inner", B and C replicated), so DTensor's host
     cost is paid once a mixer, not once an op; the gated norm takes the full
     inner row through `ops.rmsnorm`, and w_out's product is a partial sum
-    until the output's constraint."""
+    until the output's constraint. Under a gradient each `_CORE` leaf's
+    gradient is each rank's rows' (and, for a leaf the heads do not cut,
+    its heads') part, a partial sum over those mesh dims, and sharded on the
+    heads where the leaf is (`sharding.run_local`)."""
     prior = state or {}
     if not isinstance(x, DTensor):
         yz, new_state = _ssd(p, x, cfg, chunk, prior)

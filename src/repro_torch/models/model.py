@@ -32,6 +32,25 @@ recurrences (Mamba2, mLSTM, sLSTM) and the moe routing run each in one
         logits, cache = model.prefill(dparams, tokens)      # DTensors
     with sharding.use_mesh(mesh, sharding.DECODE_RULES):
         logits, cache = model.decode(dparams, cache, tok, pos)
+
+Sharded training, every family: under `sharding.use_mesh(mesh,
+TRAIN_RULES)` (FSDP over "data", tensor parallelism over "model") the
+parameters go on the mesh as DTensors that require grad
+(`distribute_params(params.requires_grad_(True))`), `loss` brings its batch on
+by `BATCH_AXES`, and `training.make_train_step` takes the gradients, the
+clip and AdamW as DTensors (moments placed like their parameters). The
+loss is vocab-parallel (`cross_entropy_loss`: the (B, S, V) logits are
+never gathered), the moe aux losses are the whole batch's, naive or
+chunked attention runs on local shards in one `run_local`
+(`attention._local_core`), and rmsnorm and its backward kernel run on
+local shards, gamma's gradient a partial sum over the rows reduced to its
+own placement. Each `run_local` core declares the gradient of an input it
+takes replicated beside sharded ones a partial sum (`sharding.run_local`):
+
+    with sharding.use_mesh(mesh, sharding.TRAIN_RULES):
+        dparams = model.distribute_params(params.requires_grad_(True))
+        step = training.make_train_step(model, training.AdamWConfig())
+        dparams, opt_state, metrics = step(dparams, training.adamw_init(dparams), batch)
 """
 
 from __future__ import annotations
@@ -40,7 +59,7 @@ import dataclasses
 from typing import Any, Optional, Tuple, Union
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .. import sharding as sh
 from ..configs.base import ModelConfig
@@ -50,6 +69,10 @@ from .common import RuntimeFlags, resolve_device
 __all__ = ["Model", "build_model", "Params", "cross_entropy_loss", "rmsnorm_calls"]
 
 Params = Union[transformer.Decoder, encdec.EncDec]
+# the logical axes of `Model.loss`'s batch entries
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "dec_tokens": ("batch", "seq"), "embeds": ("batch", "seq", "embed"),
+              "enc_embeds": ("batch", "seq", "embed")}
 
 
 def cross_entropy_loss(
@@ -61,10 +84,51 @@ def cross_entropy_loss(
     through bf16, as the reference's bf16 one-hot contraction computes it
     (its gradient rounds likewise). The picked logit is gathered, not
     contracted with a (B, S, V) one-hot. The padded vocab tail is never a
-    label; `vocab_size` is kept for the reference's signature."""
+    label; `vocab_size` is kept for the reference's signature. Under a mesh
+    the loss is vocab-parallel (`_sharded_cross_entropy`)."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels)
     lse = torch.logsumexp(logits.float(), dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - picked.to(torch.bfloat16).float())
+
+
+def _sharded_cross_entropy(logits: DTensor, labels: DTensor) -> DTensor:
+    """The loss on logits laid out ("batch", "seq", "vocab"), never
+    gathered: each rank takes its vocab shard's logsumexp and the picked
+    logit where the label falls in its shard (0 elsewhere, so the shards'
+    sum is the picked logit); the shards' logsumexps, (B, S) each, are
+    gathered and combined by one more logsumexp; each rank's rows give
+    their share of the mean, which is summed. A replicated scalar. On one
+    shard it is the unsharded loss bit for bit: the logsumexp of one value
+    is that value, and the share is 1."""
+    mesh = sh.current_mesh()
+    lg_pl = sh.placements_of(logits.shape, ("batch", "seq", "vocab"))
+    vocab = sh.dims_sharding(lg_pl, 2)
+    rows = [p if p == Shard(0) else Replicate() for p in lg_pl]
+    B = logits.shape[0]
+
+    def shard_terms(lg, lab):
+        n = lg.shape[-1]
+        local = lab.long() - sh.shard_index(mesh, vocab) * n
+        own = (local >= 0) & (local < n)
+        picked = lg.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+        return (torch.logsumexp(lg.float(), dim=-1)[..., None],
+                torch.where(own, picked, torch.zeros((), dtype=lg.dtype, device=lg.device)))
+
+    lse, picked = sh.run_local(
+        shard_terms, ([Shard(2) if i in vocab else p for i, p in enumerate(rows)],
+                      [Partial() if i in vocab else p for i, p in enumerate(rows)]),
+        (lg_pl, rows), logits, labels)
+    lse, picked = sh.redistribute(lse, rows), sh.redistribute(picked, rows)
+
+    def mean_nll(ls, pk):
+        nll = torch.mean(torch.logsumexp(ls, dim=-1) - pk.to(torch.bfloat16).float())
+        return nll if ls.shape[0] == B else nll * (ls.shape[0] / B)
+
+    loss = sh.run_local(mean_nll, [Partial() if p == Shard(0) else p for p in rows],
+                        (rows, rows), lse, picked)
+    return sh.redistribute(loss, [Replicate()] * len(rows))
 
 
 def rmsnorm_calls(cfg: ModelConfig) -> Tuple[int, int]:
@@ -128,7 +192,8 @@ class Model:
 
     def distribute_params(self, params: Params) -> Params:
         """`params` on the active mesh, each leaf placed by `param_axes`
-        (`sharding.distribute_params`)."""
+        (`sharding.distribute_params`) and requiring grad as its source
+        does (`params.requires_grad_(True)` first to train them)."""
         return sh.distribute_params(params, self.param_axes(params))
 
     def _on_mesh(self, params: Params) -> bool:
@@ -156,7 +221,11 @@ class Model:
         """Next-token LM loss (+ the moe aux terms, weighted 0.01 and 0.001),
         as the reference's `Model.loss`. batch: {"tokens" (B, S) or "embeds"
         (B, S, d), "labels" (B, S)}; enc-dec archs take {"enc_embeds" (B,
-        S_enc, d), "dec_tokens" (B, S), "labels" (B, S)}. Returns (loss, aux)."""
+        S_enc, d), "dec_tokens" (B, S), "labels" (B, S)}. Returns (loss, aux).
+        Under a mesh the batch goes on it by its axes (`BATCH_AXES`), and
+        the loss and aux terms are replicated DTensors."""
+        if self._on_mesh(params):
+            batch = {k: sh.on_mesh(v, BATCH_AXES[k]) for k, v in batch.items()}
         if self.is_encdec:
             logits, aux = encdec.encdec_forward(params, self.cfg, self.rt, batch["enc_embeds"],
                                                 batch["dec_tokens"])

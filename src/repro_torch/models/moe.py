@@ -16,7 +16,10 @@ every call, however few tokens picked it, and nothing reads a routing
 result back to the host, so a step needs no device-to-host sync.
 
 Router aux outputs: the Switch-style load-balancing loss and the router
-z-loss.
+z-loss. Under a mesh each rank takes its rows' share of their batch means,
+the shares are summed over the ranks, and the load-balancing product is
+taken of the whole batch's means (a mean of per-rank products would be
+another number).
 
 Under a mesh (`sharding.use_mesh`) the routing, `_dispatch` and `_combine`
 run on each rank's batch rows (`sharding.run_local`), which is what the
@@ -27,7 +30,11 @@ rules: "experts" replicated, "ffn" over "model"), so `w2`'s product is a
 partial sum that `_combine`, linear in it, carries to the output's
 constraint. The reference's five `constrain` sites are kept; the port's
 expert hidden is (E, B*C, f), so its ("batch", "experts", None, "ffn")
-reads ("experts", "batch", "ffn") here.
+reads ("experts", "batch", "ffn") here. In training the router's gradient
+(and the combine's gate weights', against `w2`'s partial sum) is each
+rank's rows' part, a partial sum (`sharding.run_local`); the expert
+weights' gradients come out of DTensor's `bmm`s placed as `p_experts` and
+`p_ffn` place the weights.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .. import sharding as sh
 from ..configs.base import ModelConfig
@@ -159,8 +166,9 @@ def moe_forward(
     aux: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d), aux losses). aux=False skips the aux
-    losses and returns {} (decode discards them; the reference's jit drops
-    them there unevaluated)."""
+    losses and returns {} (prefill and decode discard them; the reference's
+    jit drops them there unevaluated). Under a mesh the aux losses are
+    replicated DTensors of the whole batch's means (`_aux_means`)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = expert_capacity(cfg, S)
@@ -205,13 +213,26 @@ def moe_forward(
     out = constrain(out, ("batch", "seq_res", "embed"))
     if not aux:
         return out, {}
-    if rows is not None:  # served under a mesh (prefill and decode skip them)
-        raise NotImplementedError("moe router aux losses under a mesh: sharded training "
-                                  "is not ported yet")
-
-    # Each of the k picks counts 1/k, so a balanced router scores exactly 1.
-    frac_tokens = sel.float().sum(2).mean((0, 1)) / k  # (E,)
-    frac_prob = probs.mean((0, 1))
+    if rows is None:
+        frac_tokens, frac_prob, z_loss = _aux_means(sel, probs, logits, k)
+    else:  # each rank's share of the batch means, summed over the ranks
+        part = [Partial() if r == Shard(0) else Replicate() for r in rows]
+        shares = sh.run_local(lambda *a: _aux_means(*a, k, a[0].shape[0] / B), (part,) * 3,
+                              (rows,) * 3, sel, probs, logits)
+        frac_tokens, frac_prob, z_loss = (sh.redistribute(t, [Replicate()] * len(rows))
+                                          for t in shares)
     lb_loss = E * (frac_tokens * frac_prob).sum()
-    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
     return out, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+
+
+def _aux_means(sel, probs, logits, k: int, share: float = 1.0):
+    """The router losses' batch means over the rows given, times `share`,
+    their part of the whole batch (1 off a mesh): (the share of picks each
+    expert got (E,), its mean router probability (E,), the mean squared
+    logsumexp of the router logits). Each of the k picks counts 1/k, so a
+    balanced router's load-balancing loss E sum(frac_tokens frac_prob) is
+    exactly 1. The product is taken of the whole batch's means, after the
+    ranks' shares are summed."""
+    means = (sel.float().sum(2).mean((0, 1)) / k, probs.mean((0, 1)),
+             torch.logsumexp(logits, dim=-1).square().mean())
+    return means if share == 1 else tuple(m * share for m in means)

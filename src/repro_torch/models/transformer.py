@@ -49,7 +49,9 @@ recurrences (Mamba2, mLSTM, sLSTM) each in one `sharding.run_local`
 as they come out of those cores; `Model.decode` lays the cache out by
 `decode_cache_axes`, and a decode step's per-layer state is a view of the
 stacked DTensor (`_index_state`) whose local storage the core updates in
-place.
+place. `Model.loss` runs `decoder_forward` on DTensors too (TRAIN_RULES),
+under remat as off a mesh: `torch.utils.checkpoint` keeps each block's or
+group's input DTensor and recomputes the same DTensors in the backward.
 """
 
 from __future__ import annotations
@@ -344,25 +346,23 @@ def remat_on(rt: RuntimeFlags, blocks: nn.Module, collect_cache: bool) -> bool:
 def _uniform_stack(params: Decoder, cfg, rt, x, positions, mrope_positions,
                    collect_cache: bool):
     """-> (x, per-layer (k, v) if collect_cache, aux losses summed over
-    layers: zeros-started for moe configs, {} otherwise; prefill, which
-    collects the cache, discards them, so they are not computed there).
+    layers for moe configs, {} otherwise; prefill, which collects the
+    cache, discards them, so they are not computed there).
     Under remat (`remat_on`) each block keeps only its input and runs again
     in the backward, as the reference's `jax.checkpoint` around its scanned
     block."""
     window = rt.window_for(cfg.window)
     rope = _rope_tables(cfg, positions, mrope_positions)
-    aux = (dict.fromkeys(("moe_lb_loss", "moe_z_loss"),
-                         torch.zeros((), dtype=torch.float32, device=x.device))
-           if cfg.n_experts else {})
+    aux = {}
     remat = remat_on(rt, params.layers, collect_cache)
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for i, lp in enumerate(params.layers):
         args = (lp, x, cfg, rt, positions, rope if _uses_rope(cfg, i) else None, window,
                 not collect_cache)
-        x, kv, a = (checkpoint(_attn_block_apply, *args, use_reentrant=False) if remat
+        x, kv, a = (checkpoint(sh.bound(_attn_block_apply), *args, use_reentrant=False) if remat
                     else _attn_block_apply(*args))
         for name, v in a.items():
-            aux[name] = aux[name] + v
+            aux[name] = aux[name] + v if name in aux else v
         if collect_cache:
             kvs.append(kv)
     return x, kvs, aux
@@ -466,7 +466,7 @@ def _hybrid_stack(params: Decoder, cfg, rt, x, positions, collect_cache: bool):
     for grp in params.mamba_groups:
         args = (grp, params.shared, x, cfg, rt, positions, rope, window)
         if remat:
-            x = checkpoint(_hybrid_group, *args, use_reentrant=False)[0]
+            x = checkpoint(sh.bound(_hybrid_group), *args, use_reentrant=False)[0]
             continue
         x, sts, kv = _hybrid_group(*args)
         groups.append(sts)
@@ -522,7 +522,7 @@ def _ssm_stack(params: Decoder, cfg, rt, x, collect_cache: bool):
     mstates, sstates = [], []
     for grp, sblk in zip(params.mlstm_groups, params.slstm_blocks):
         if remat:
-            x = checkpoint(_ssm_group, grp, sblk, x, cfg, rt, use_reentrant=False)[0]
+            x = checkpoint(sh.bound(_ssm_group), grp, sblk, x, cfg, rt, use_reentrant=False)[0]
             continue
         x, sts, sst = _ssm_group(grp, sblk, x, cfg, rt)
         mstates.append(sts)

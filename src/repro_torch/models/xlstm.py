@@ -37,6 +37,12 @@ dispatch once a block, not once an op or a time step:
     it as a partial sum, which the readout reduces. Nothing gathers C.
   * sLSTM: the whole time loop (prefill) or step (decode) on each rank's
     batch rows, r_gates replicated.
+
+In training (`Model.loss` under TRAIN_RULES) the mLSTM scan's inputs are
+all sharded, so their gradients come back sharded as they went in; the
+sLSTM's r_gates, replicated beside sharded rows, gets each rank's rows'
+part of its gradient, a partial sum (`sharding.run_local`), and the loop
+still reads one `_recurrent_weights` copy, never one a step.
 """
 
 from __future__ import annotations

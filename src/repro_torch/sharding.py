@@ -33,6 +33,7 @@ import contextlib
 import contextvars
 import copy
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -58,6 +59,7 @@ __all__ = [
     "Axes",
     "use_mesh",
     "current_mesh",
+    "bound",
     "mesh_sizes",
     "spec_for",
     "placements_for",
@@ -73,6 +75,7 @@ __all__ = [
     "constrain",
     "on_mesh",
     "replicated_like",
+    "whole",
     "tree_specs",
     "local_bytes",
     "local_numel",
@@ -238,6 +241,27 @@ def current_mesh() -> Optional[DeviceMesh]:
     return c.mesh if c is not None else None
 
 
+def bound(fn):
+    """`fn` run under the mesh and rules active now, wherever it is called:
+    a remat checkpoint's recompute runs in the backward, which on the card
+    runs in autograd's device thread, where the caller's `use_mesh` is not
+    seen (on the CPU the backward runs in the caller's thread). `fn` itself
+    with no mesh."""
+    c = _ctx.get()
+    if c is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        token = _ctx.set(c)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ctx.reset(token)
+
+    return run
+
+
 def _resolve_dim(dim: int, name: Optional[str], ctx: _Ctx, used: set):
     """Longest prefix of the rule tuple that exists in the mesh, divides
     `dim`, and does not reuse a mesh axis."""
@@ -357,6 +381,12 @@ def replicated_like(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor, the same on every rank (a
+    partial sum reduced, shards gathered); a plain tensor itself."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def placements_of(shape: Sequence[int], axes: Sequence[Optional[str]]) -> List[Placement]:
     """The placements `axes` resolve to for `shape` on the active mesh."""
     ctx = _ctx.get()
@@ -417,7 +447,15 @@ def run_local(fn, out_placements, in_placements, *args, inplace: Sequence[int] =
     recurrent state, a cache leaf or a view of one). Such an argument
     already placed as `fn` takes it reaches `fn` as its own local storage,
     so the update lands in the DTensor; one placed otherwise reaches it as
-    a redistributed copy, which is written back into it after the call."""
+    a redistributed copy, which is written back into it after the call.
+
+    Gradients: `local_map` labels each local input's gradient with the
+    input's own placements unless told otherwise. An input that enters
+    replicated on a mesh dim where another DTensor argument is sharded (or
+    a partial sum) is used by each rank with its own part of that argument
+    only, so each rank's gradient there is a part of the whole: it is
+    declared Partial() on that dim (`_grad_placements`). A gradient
+    labelled Replicate there would be one rank's part taken for the sum."""
     from torch.distributed.tensor.experimental import local_map
 
     in_pl = tuple(None if p is None else tuple(p) for p in in_placements)
@@ -430,10 +468,31 @@ def run_local(fn, out_placements, in_placements, *args, inplace: Sequence[int] =
                 back.append((a, moved))
             args[i] = moved
     out = local_map(fn, out_placements=out_placements, in_placements=in_pl,
-                    device_mesh=current_mesh(), redistribute_inputs=False)(*args)
+                    in_grad_placements=_grad_placements(in_pl, args), device_mesh=current_mesh(),
+                    redistribute_inputs=False)(*args)
     for dst, moved in back:
         dst.copy_(redistribute(moved, dst.placements))
     return out
+
+
+def _grad_placements(in_pl, args) -> Tuple:
+    """`run_local`'s gradient placements: each DTensor argument's own
+    placements with Partial() on every mesh dim where it is replicated and
+    another DTensor argument is not (a partial sum's gradient is Replicate,
+    as DTensor normalises it); None for the other arguments."""
+    dt = [i for i, a in enumerate(args) if isinstance(a, DTensor)]
+    out = []
+    for i, pl in enumerate(in_pl):
+        if i not in dt:
+            out.append(None)
+            continue
+        others = [in_pl[j] for j in dt if j != i]
+        out.append(tuple(
+            Partial() if isinstance(p, Replicate) and any(not isinstance(o[m], Replicate)
+                                                          for o in others)
+            else Replicate() if isinstance(p, Partial) else p
+            for m, p in enumerate(pl)))
+    return tuple(out)
 
 
 def write_slots(dst: DTensor, src: DTensor, pos: DTensor) -> None:
@@ -515,15 +574,16 @@ def local_numel(shape: Sequence[int], spec: Sequence, sizes: Dict[str, int]) -> 
 
 def distribute_params(params: nn.Module, axes: Dict[str, Axes]) -> nn.Module:
     """A copy of `params` whose parameters are DTensors on the active mesh,
-    each placed by its axes (`Model.param_axes`); the module tree is copied,
-    the parameters' storage is not where a shard is the whole tensor. The
-    counterpart of the reference's params `in_shardings`."""
+    each placed by its axes (`Model.param_axes`) and requiring grad as its
+    source does; the module tree is copied, the parameters' storage is not
+    where a shard is the whole tensor. The counterpart of the reference's
+    params `in_shardings`."""
     ctx = _ctx.get()
     if ctx is None:
         raise RuntimeError("distribute_params needs an active mesh (use_mesh)")
     memo: Dict[int, Any] = {}
     for name, p in params.named_parameters():
-        memo[id(p)] = nn.Parameter(on_mesh(p.detach(), axes[name]), requires_grad=False)
+        memo[id(p)] = nn.Parameter(on_mesh(p.detach(), axes[name]), requires_grad=p.requires_grad)
         memo[id(p)].axes = axes[name]
     return copy.deepcopy(params, memo)
 

@@ -16,7 +16,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from .. import sharding as sh
 from ..models.model import Model
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .data import DataConfig, SyntheticLM
@@ -57,12 +59,23 @@ def make_train_step(
     by the count, as the reference's scan (PyTorch's own `.grad`
     accumulation would add in the parameter's dtype); the optimizer then
     sees f32 gradients, as the reference's does. Metrics are device
-    tensors: "loss", "grad_norm", "lr" and the moe aux losses."""
+    tensors: "loss", "grad_norm", "lr" and the moe aux losses.
+
+    Under a mesh (`sharding.use_mesh`, parameters from
+    `Model.distribute_params` of parameters that require grad), `Model.loss` puts
+    each slice of the batch on the mesh by its axes, so each slice is
+    sharded over the batch's data axes; every gradient, a DTensor, is
+    placed like its parameter (a partial sum reduced, FSDP's reduce to
+    the parameter's shard), the slices' f32 sums are DTensors too, and the
+    metrics are plain scalars, the same on every rank."""
 
     def grads_of(params, names, leaves, batch):
         loss, aux = model.loss(params, batch)
         g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, dict(zip(names, g))
+        g = [sh.redistribute(gi, p.placements) if isinstance(gi, DTensor) else gi
+             for gi, p in zip(g, leaves)]
+        return (sh.whole(loss.detach()), {k: sh.whole(v.detach()) for k, v in aux.items()},
+                dict(zip(names, g)))
 
     def step(params, opt_state, batch):
         names, leaves = zip(*params.named_parameters())
@@ -104,9 +117,18 @@ def train_loop(
     defaults to `model.init(seed)`, on the card; pass parameters of your own
     (for example on the CPU, or converted from the reference) to train them
     where they live. With `ckpt_dir`, the latest checkpoint there (either
-    package's) is restored into params and optimizer state first."""
+    package's) is restored into params and optimizer state first.
+
+    Under a mesh, given distributed parameters (`Model.distribute_params`),
+    the loop trains them as DTensors (`make_train_step`); the stream's
+    batches, the same on every rank, go on the mesh in `Model.loss`.
+    Checkpoints of distributed parameters are not written or read: with
+    `ckpt_dir` that raises."""
     if params is None:
         params = model.init(seed)
+    if ckpt_dir and isinstance(params.embed, DTensor):
+        raise ValueError("train_loop: checkpoints of distributed parameters are not supported "
+                         "(a checkpoint holds whole tensors; gather them first)")
     params.requires_grad_(True)
     device = next(params.parameters()).device
     opt_state = adamw_init(params)
