@@ -87,9 +87,9 @@ Phases, each of which must pass or the script exits non-zero:
      cumsum, scatter and gather); nemotron-4-15b calibrated at 15/15;
      mixtral-8x22b (8 of its 56 layers: all 56 need ~282 GB) served and
      profiled as glm4-9b, with a 576-slot cache under its 4096 window;
-     llama4-scout (8 of 48 layers) calibrated at 15/15; zamba2-7b (39 of
-     81 layers: 6 groups and 3 remainder layers) served and profiled as
-     llama2-7b; xlstm-1.3b (48 layers)
+     llama4-scout (8 of 48 layers) calibrated at 15/15; zamba2-7b (13 of
+     81 layers: 2 groups and a remainder layer) served and profiled as
+     llama2-7b; xlstm-1.3b (24 of 48 layers)
      calibrated at 15/15 and profiled; seamless-m4t (24 + 24 layers)
      through `InferenceEngine(enc_len=15)` at batch 1 and 8, and profiled.
      Every kernel's launch count must be what the prefills and decode
@@ -127,7 +127,7 @@ Phases, each of which must pass or the script exits non-zero:
      its 32 layers (3.50 B parameters, 42 GB of weights, gradients and
      moments), 10 steps; zamba2-7b, 39 of its 81 layers (6 groups of 6
      Mamba2 layers and the shared block, 3 remainder layers; ~3.47 B),
-     xlstm-1.3b, all 48 layers (~3.6 B), and seamless-m4t, 24 + 24 layers
+     xlstm-1.3b, 24 of its 48 layers, and seamless-m4t, 24 + 24 layers
      (~2.0 B, vocab 256206), 5 steps each, each model freed before the
      next: wall time a step (synchronised) split into forward + backward
      and the optimizer beside its bound (model flops at 989 TFLOP/s plus
@@ -150,18 +150,28 @@ Phases, each of which must pass or the script exits non-zero:
      computed, nothing on the card) of every assigned arch and llama2-7b x
      train_4k, prefill_32k, decode_32k and long_500k in a spawned pool, one
      line a case (peak memory and its parts, whether it fits one card, dot
-     flops, the roofline terms under `launch.roofline.H100`): every case
-     ok but seamless-m4t x long_500k, the documented skip; and in the same
-     pool `--mesh both`'s argument count of every assigned arch x shape on
-     the production meshes (16 x 16 and 2 x 16 x 16 over a fake process
-     group): per device, the argument bytes by part and `fits_h100`
-     (counted, not measured), no number for the peak or the collectives,
-     one line a case, the same skip only. Then it holds
-     the dry run against the card: each of phase 7's four configs counted
-     the same way, its peak within 10% of the run's measured
-     `max_memory_allocated` and, for llama2-7b and seamless-m4t, its dot
-     flops within 2% of `train_reckoning`'s issued flops (zamba2 and xlstm
-     printed: the counter also sees the recurrences' own products), and
+     flops, the roofline terms under `launch.roofline.H100`; every
+     prefill_32k and xlstm-1.3b's train_4k at a quarter depth, `grid_cut`):
+     every case ok but seamless-m4t x long_500k, the documented skip; and in the same
+     pool steps on the 16 x 16 production mesh, each run as DTensors on
+     meta tensors over a fake process group of 256 ranks and counted on
+     one device (`DRYRUN_MESH_CASES`: one arch a family x train_4k,
+     prefill_32k and decode_32k at full width, the depth cut where a case
+     would take minutes; `DRYRUN_MESH_FLAGS`: each of the reference's nine
+     `--rules` overrides and both `--moe-dispatch` values once on a
+     full-size case, context-parallel sets with `--attn-seq-shard`) and on
+     the 2 x 16 x 16 one over 512 ranks (`DRYRUN_MULTI_CASES`: every
+     assigned arch's decode_32k, one step a family at cut depth, one
+     long_500k), one line a case with the peak and its parts, dot flops, the collective
+     bytes by class and the dominant term, every case ok (`--all --mesh
+     both` runs in a call of its own). Then it holds the dry run against
+     the card: each of phase 7's four configs counted the same way, its
+     peak within 10% of the run's measured `max_memory_allocated` and,
+     for llama2-7b and seamless-m4t, its dot flops within 2% of
+     `train_reckoning`'s issued flops (zamba2 and xlstm printed: the
+     counter also sees the recurrences' own products); each of phase 10's
+     six sharded training steps counted on the card's (1, 1) mesh, its
+     peak within 10% of phase 10's measured `max_memory_allocated`; and
      `H100.hbm_bytes` within 1% of the card's `total_memory`;
   9. the experiments layer (`experiments/`, `telemetry/report.py`; host
      code, numpy) over the multi-cell network and the batched fleet
@@ -1323,17 +1333,19 @@ FULL_WIDTH = [  # (arch, what runs, layers kept of the full depth, None: all). "
     #               "calibrate": 15/15 only; "encdec": requests through the engine
     #               with enc_len (batch 1 and 8) and decode profiles
     ("llama2-7b", "serve", None),  # the paper's serving model
-    # glm4-9b and zamba2-7b at half depth since phase 10 took in sharded training
-    # (the script's 1200 s): per-layer cost, G = 16 and the hybrid groups are as at
-    # full depth
+    # glm4-9b and zamba2-7b at half depth since phase 10 took in sharded training,
+    # zamba2-7b at a quarter since phase 8 counts the mesh steps, at 13 layers since
+    # it counts them on 2 x 16 x 16 too (the script's 1200 s): per-layer cost, G = 16
+    # and the hybrid groups are as at full depth
     ("glm4-9b", "serve", 20),  # G = 16, QKV bias, vocab 151552; 20 of 40 layers
     ("nemotron-4-15b", "calibrate", None),  # relu2, d_model 6144, G = 6
     # moe: the whole depth does not fit one 80 GB card (~282 and ~217 GB in bf16)
     ("mixtral-8x22b", "serve", 8),  # 8 experts top-2, window 4096 over 576 slots, G = 6
     ("llama4-scout-17b-a16e", "calibrate", 8),  # 16 experts top-1, iRoPE, G = 5
-    ("zamba2-7b", "serve", 39),  # hybrid: 39 of 81 Mamba2 layers (6 groups of 6, each with
-    #                              the shared block, and 3 remainder layers), dh 112
-    ("xlstm-1.3b", "profile", None),  # ssm: 42 mLSTM + 6 sLSTM blocks, no attention
+    ("zamba2-7b", "serve", 13),  # hybrid: 13 of 81 Mamba2 layers (2 groups of 6, each with
+    #                              the shared block, and a remainder layer), dh 112
+    # ssm: 24 of 48 layers, 21 mLSTM + 3 sLSTM blocks, no attention (the script's 1200 s)
+    ("xlstm-1.3b", "profile", 24),
     ("seamless-m4t-large-v2", "encdec", None),  # 24 encoder + 24 decoder layers
 ]
 ENC_LEN = 15  # seamless-m4t's encoder frames: Table I's N_input
@@ -1683,8 +1695,9 @@ TRAIN_RUNS = [
     # 39 of 81 layers: 6 groups of 6 Mamba2 layers (each followed by the shared
     # block) and 3 remainder layers, ~3.47 B parameters, ~41.6 GB; all 81 need ~81 GB
     ("zamba2-7b", {"n_layers": 39}, 5, False),
-    # all 48 layers (6 groups of 7 mLSTM + 1 sLSTM): ~3.6 B, ~43 GB
-    ("xlstm-1.3b", {}, 5, False),
+    # 24 of 48 layers (3 groups of 7 mLSTM + 1 sLSTM; cut for
+    # the script's 1200 s: its host-bound steps took ~15 s each on a slow host)
+    ("xlstm-1.3b", {"n_layers": 24}, 5, False),
     ("seamless-m4t-large-v2", {}, 5, True),  # 24 + 24 layers, vocab 256206: ~2.0 B, ~24.5 GB
 ]
 
@@ -2240,7 +2253,8 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
     are held to SHARDED_TRAIN_TOL (a leaf past it is named, and must stay
     within SHARDED_TRAIN_BAR of its largest value); the sharded step's
     rmsnorm and rmsnorm_bwd launches (counts set to 0 just before it) to
-    `train_step_launches`. -> those launches."""
+    `train_step_launches`. -> (those launches, the sharded run's
+    `max_memory_allocated`, which phase 8's (1, 1)-mesh count is held to)."""
     from repro_torch import sharding as sh
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2320,7 +2334,7 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
     del dparams, grads_s, model, batch, host_g, host_p
     torch.cuda.empty_cache()
     say(f"sharded training {arch}: {time.perf_counter() - t_run:.1f} s")
-    return launched
+    return launched, peak
 
 
 def phase_sharded(torch, card):
@@ -2347,7 +2361,7 @@ def phase_sharded(torch, card):
     TRAIN_RULES from the same weights, the loss, every gradient leaf and
     every updated parameter held to SHARDED_TRAIN_TOL, the step's rmsnorm
     and rmsnorm_bwd launches to `train_step_launches`. Returns the launch
-    counts summed over the runs."""
+    counts summed over the runs and each training run's peak by arch."""
     import datetime
 
     import torch.distributed as dist
@@ -2360,7 +2374,7 @@ def phase_sharded(torch, card):
         f"of the {len(DTENSOR_OPS)} ops of the sharded paths have a sharding rule; missing: "
         f"{missing or 'none'}")
     check(not missing, f"DTensor has no sharding rule for {missing}")
-    total = {}
+    total, peaks = {}, {}
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=300))
     try:
@@ -2370,62 +2384,152 @@ def phase_sharded(torch, card):
                 total[k] = total.get(k, 0) + v
         t_train = time.perf_counter()
         for arch, cut, B, S in SHARDED_TRAIN_RUNS:
-            for k, v in sharded_train_run(torch, card, mesh, arch, cut, B, S).items():
+            launched, peaks[arch] = sharded_train_run(torch, card, mesh, arch, cut, B, S)
+            for k, v in launched.items():
                 total[k] = total.get(k, 0) + v
     finally:
         dist.destroy_process_group()
     now = time.perf_counter()
     say(f"phase 10 (sharded serving {t_train - t_phase:.1f} s, sharded training "
         f"{now - t_train:.1f} s) took {now - t_phase:.1f} s")
-    return total
+    return total, peaks
 
 
 DRYRUN_MEMORY_TOL = 0.10  # |dry-run peak / max_memory_allocated - 1|, at most
 DRYRUN_FLOPS_TOL = 0.02  # |counted flops / train_reckoning's issued - 1|, at most
 DRYRUN_HBM_TOL = 0.01  # |H100.hbm_bytes / total_memory - 1|, at most
+# phase 8's one-card grid at a quarter of the depth (whole sLSTM groups) where a case's
+# analysis takes minutes of host time: every prefill_32k (its 32k-token attention chunk
+# loops) and xlstm-1.3b's train_4k (its sLSTM time loop); a layer's work is as at full
+# depth, and `launch.dryrun --all` counts every case whole
+DRYRUN_GRID_CUT = 4
+DRYRUN_GRID_CUT_CASES = ("prefill_32k", ("xlstm-1.3b", "train_4k"))
+
+
+def grid_cut(arch, shape):
+    """The depth phase 8's one-card grid runs `arch` x `shape` at (None: all)."""
+    from repro_torch.configs import get_config
+
+    if shape not in DRYRUN_GRID_CUT_CASES and (arch, shape) not in DRYRUN_GRID_CUT_CASES:
+        return None
+    cfg = get_config(arch)
+    group = cfg.slstm_every or 1
+    cut = {"n_layers": max(group, cfg.n_layers // DRYRUN_GRID_CUT // group * group)}
+    if cfg.n_encoder_layers:
+        cut["n_encoder_layers"] = max(1, cfg.n_encoder_layers // DRYRUN_GRID_CUT)
+    return cut
+
+
 DRYRUN_FLOPS_HELD = ("llama2-7b", "seamless-m4t-large-v2")  # no recurrent products
+# phase 8's steps on the single production mesh (16 x 16, a fake process group of
+# 256 ranks), one arch a family and step kind at full width: (arch, shape, the depth
+# where the whole stack would take minutes of host time; None: all). A layer's work
+# and collectives are those of full depth; `launch.dryrun --all --mesh both` counts
+# every case at full depth in a call of its own
+DRYRUN_MESH_CASES = [
+    ("glm4-9b", "train_4k", None), ("glm4-9b", "prefill_32k", {"n_layers": 10}),
+    ("glm4-9b", "decode_32k", None),  # the cache gathered a step: ~10.7 GB a device
+    ("qwen2-vl-72b", "train_4k", {"n_layers": 20}),
+    ("qwen2-vl-72b", "prefill_32k", {"n_layers": 10}), ("qwen2-vl-72b", "decode_32k", None),
+    ("mixtral-8x22b", "train_4k", None), ("mixtral-8x22b", "prefill_32k", {"n_layers": 8}),
+    ("mixtral-8x22b", "decode_32k", None),
+    ("zamba2-7b", "train_4k", None), ("zamba2-7b", "prefill_32k", {"n_layers": 39}),
+    ("zamba2-7b", "decode_32k", None),
+    ("xlstm-1.3b", "train_4k", {"n_layers": 8}), ("xlstm-1.3b", "prefill_32k", {"n_layers": 8}),
+    ("xlstm-1.3b", "decode_32k", None),
+    ("seamless-m4t-large-v2", "train_4k", None),
+    ("seamless-m4t-large-v2", "prefill_32k", {"n_layers": 4, "n_encoder_layers": 4}),
+    ("seamless-m4t-large-v2", "decode_32k", None),
+]
+# phase 8's steps on the multi-pod mesh (2 x 16 x 16, 512 ranks: "batch" joins "pod" and
+# "data" where the rules resolve so): every assigned arch's decode_32k, one step a
+# family at cut depth, and one long_500k decode
+DRYRUN_MULTI_CASES = (
+    [(a, "decode_32k", None) for a in ("glm4-9b", "nemotron-4-15b", "qwen1.5-110b",
+                                       "mistral-large-123b", "qwen2-vl-72b", "mixtral-8x22b",
+                                       "llama4-scout-17b-a16e", "zamba2-7b", "xlstm-1.3b",
+                                       "seamless-m4t-large-v2")]
+    + [("glm4-9b", "train_4k", {"n_layers": 10}), ("qwen2-vl-72b", "train_4k", {"n_layers": 20}),
+       ("mixtral-8x22b", "train_4k", {"n_layers": 14}),
+       ("zamba2-7b", "prefill_32k", {"n_layers": 13}), ("xlstm-1.3b", "train_4k", {"n_layers": 8}),
+       ("seamless-m4t-large-v2", "train_4k", {"n_layers": 6, "n_encoder_layers": 6}),
+       ("glm4-9b", "long_500k", None)])
+# the reference's dry-run flags (`--rules` over its nine overrides, `--moe-dispatch`,
+# `--attn-seq-shard`), each once on a full-size case on the single mesh: (arch,
+# shape, run_case's options)
+DRYRUN_MESH_FLAGS = [
+    ("glm4-9b", "train_4k", {"rules": "train_sp"}),
+    ("glm4-9b", "train_4k", {"rules": "train_attnsp", "rt_kwargs": {"attn_seq_shard": True}}),
+    ("glm4-9b", "train_4k", {"rules": "train_cp_sp", "rt_kwargs": {"attn_seq_shard": True}}),
+    ("glm4-9b", "train_4k", {"rules": "train_fsdp"}),
+    ("mixtral-8x22b", "train_4k", {"rules": "train_ep_cp",
+                                   "rt_kwargs": {"attn_seq_shard": True}}),
+    ("mixtral-8x22b", "train_4k", {"rules": "train_ep_cp_sp",
+                                   "rt_kwargs": {"attn_seq_shard": True}}),
+    ("glm4-9b", "decode_32k", {"rules": "decode_v2"}),
+    ("glm4-9b", "decode_32k", {"rules": "decode_v3"}),
+    ("mixtral-8x22b", "decode_32k", {"rules": "decode_v3_ep"}),
+    ("mixtral-8x22b", "decode_32k", {"rt_kwargs": {"moe_dispatch": "einsum"}}),
+    ("mixtral-8x22b", "decode_32k", {"rt_kwargs": {"moe_dispatch": "scatter"}}),
+]
+
+
+def flag_tag(opts):
+    """A record's variant tag from its flags, as `--tag` names one."""
+    parts = [opts.get("rules") or ""] + [f"{k}_{v}" for k, v in opts.get("rt_kwargs", {}).items()]
+    return "_".join(p for p in parts if p)
 
 
 def check_mesh_records(recs, card):
-    """The dry run's `--mesh both` records: every assigned arch x shape ok
-    on both production meshes but seamless-m4t x long_500k (the documented
-    skip), each with per-device argument bytes by part and `fits_h100`,
-    and no number for what a mesh case does not count (its peak and its
-    collectives)."""
-    from repro_torch.launch import dryrun
+    """The mesh records of phase 8: every case ok, each with one device's
+    peak and its parts, `fits_h100` on the peak, dot FLOPs, the collective
+    bytes by the reference's five classes and the three roofline terms
+    (the collective one over `H100.link_bw`), and no flag saying something
+    was not counted. Prints glm4-9b decode_32k's all-gather against the
+    cache's (40 layers x k and v x 8 rows x 32768 slots x 2 KV heads x 128
+    x 2 B: the decode kernel takes the slots whole, `kernels/ops.py`)."""
+    from repro_torch.launch.cost_analysis import COLLECTIVES, PARTS
+    from repro_torch.launch.roofline import H100
 
-    bad = [r["case"] for r in recs if r["status"] == "error"]
-    skipped = sorted(r["case"] for r in recs if r["status"] == "skipped")
-    check(not bad, f"dry-run mesh cases failed: {bad}")
-    check(skipped == [f"seamless-m4t-large-v2__long_500k__{m}" for m in ("multi", "single")],
-          f"mesh cases skipped: {skipped}")
-    for r in (r for r in recs if r["status"] == "ok"):
-        m = r["memory"]
-        check(r["chips"] in (256, 512) and r["collective_counted"] is False
-              and m["peak_counted"] is False and r["roofline"]["collective_s"] is None
-              and "peak_gb" not in m and isinstance(m["fits_h100"], bool)
-              and all(m[k + "_gb"] >= 0 for k in dryrun.MESH_PARTS),
-              f"{r['case']}: a mesh record lacks its counted bytes or counts what it cannot")
-    fits = {mesh: sum(r["memory"]["fits_h100"] for r in recs if r["status"] == "ok"
-                      and r["case"].endswith(mesh)) for mesh in ("single", "multi")}
-    n_ok = sum(r["status"] == "ok" for r in recs)
-    say(f"dry run on the production meshes: {n_ok} ok, {len(skipped)} skipped, 0 errors; "
-        f"arguments fit one 80 GB card a device (counted, not measured): {fits['single']} on "
-        f"16x16, {fits['multi']} on 2x16x16; peaks and collectives not counted; card {card}")
+    bad = [r["case"] for r in recs if r["status"] != "ok"]
+    check(not bad, f"dry-run mesh cases not ok: {bad}")
+    for r in recs:
+        m, c, t = r["memory"], r["cost"], r["roofline"]
+        total = sum(c["collective_bytes"].values())
+        check(r["chips"] in (1, 256, 512) and set(c["collective_bytes"]) == set(COLLECTIVES)
+              and abs(m["peak_gb"] - sum(m[k + "_gb"] for k in PARTS)) <= 1e-9 * m["peak_gb"]
+              and m["fits_h100"] == (m["peak_gb"] * 1e9 <= H100.hbm_bytes)
+              and c["flops"] > 0 and c["link_bw"] == H100.link_bw
+              and abs(t["collective_s"] - total / H100.link_bw) <= 1e-9 * max(t["collective_s"], 1)
+              and "peak_counted" not in m and "collective_counted" not in r,
+              f"{r['case']}: a mesh record lacks a counted quantity")
+    glm = next(r for r in recs if r["case"] == "glm4-9b__decode_32k__single")
+    cache = 40 * 2 * 8 * 32768 * 2 * 128 * 2
+    say(f"glm4-9b decode_32k on 16x16: all-gather {glm['cost']['collective_bytes']['all-gather']:.6g}"
+        f" B a device a step, of which the cache's slots gathered for the decode kernel "
+        f"{cache:.6g} B (counted, not measured); card {card}")
 
 
-def phase_dryrun(torch, peaks, card):
+def phase_dryrun(torch, peaks, sharded_peaks, card):
     """`launch.dryrun` on every assigned arch and llama2-7b x the four
-    shapes (a spawned pool, one process a core: nothing computed, nothing
-    on the card), one line a case: every case ok but seamless-m4t x
-    long_500k, the documented skip. Then the same counting of each TRAIN_RUNS
-    config's phase-7 step (4 x 512, bf16, remat, AdamW) held against the
-    card: its peak within DRYRUN_MEMORY_TOL of phase 7's measured
-    `max_memory_allocated` (`peaks`, bytes by arch), its dot flops within
-    DRYRUN_FLOPS_TOL of `train_reckoning`'s issued flops for the attention
-    stacks (zamba2 and xlstm printed: the reckoning leaves out the
-    recurrences' own products, which the counter sees), and `H100.hbm_bytes`
-    within DRYRUN_HBM_TOL of the card's `total_memory`."""
+    shapes on one card (a spawned pool, one process a core: nothing
+    computed, nothing on the card), one line a case: every case ok but
+    seamless-m4t x long_500k, the documented skip. In the same pool the
+    mesh counts: DRYRUN_MESH_CASES and DRYRUN_MESH_FLAGS on the single
+    production mesh, DRYRUN_MULTI_CASES on the multi-pod one (each device's
+    step run as DTensors on meta tensors over a fake process group of 256
+    or 512 ranks: its peak and parts, dot FLOPs,
+    collective bytes by class, the dominant term; `check_mesh_records`),
+    and each of phase 10's six sharded training steps on the card's (1, 1)
+    mesh, its counted peak within DRYRUN_MEMORY_TOL of phase 10's measured
+    `max_memory_allocated` (`sharded_peaks`). Then the same counting of each
+    TRAIN_RUNS config's phase-7 step (4 x 512, bf16, remat, AdamW) held
+    against the card: its peak within DRYRUN_MEMORY_TOL of phase 7's
+    measured `max_memory_allocated` (`peaks`, bytes by arch), its dot flops
+    within DRYRUN_FLOPS_TOL of `train_reckoning`'s issued flops for the
+    attention stacks (zamba2 and xlstm printed: the reckoning leaves out
+    the recurrences' own products, which the counter sees), and
+    `H100.hbm_bytes` within DRYRUN_HBM_TOL of the card's `total_memory`."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.roofline import H100
     from repro_torch.launch.specs import SHAPES, ShapeSpec, build_case
@@ -2437,25 +2541,44 @@ def phase_dryrun(torch, peaks, card):
     check(abs(H100.hbm_bytes / total - 1) <= DRYRUN_HBM_TOL,
           f"H100.hbm_bytes {H100.hbm_bytes} is not the card's {total} (within {DRYRUN_HBM_TOL})")
     train = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
-    grid = [(a, s) for a in dryrun.ASSIGNED + ["llama2-7b"] for s in SHAPES]
+    grid = [(a, s, grid_cut(a, s)) for a in dryrun.ASSIGNED + ["llama2-7b"] for s in SHAPES]
     held = [(arch, train, cut) for arch, cut, _, _ in TRAIN_RUNS]
-    meshed = [(a, s, None, m) for a in dryrun.ASSIGNED for s in SHAPES
-              for m in dryrun.MESH_ARGS["both"]]
-    recs = dryrun.run_cases(grid + held + meshed, str(ROOT / dryrun.OUT))
-    recs, mrecs = recs[:len(grid) + len(held)], recs[len(grid) + len(held):]
-    for r in recs + mrecs:
+    meshed = ([(a, s, cut, "single") for a, s, cut in DRYRUN_MESH_CASES]
+              + [(a, s, cut, "multi") for a, s, cut in DRYRUN_MULTI_CASES]
+              + [(a, s, None, "single", dict(opts, tag=flag_tag(opts)))
+                 for a, s, opts in DRYRUN_MESH_FLAGS])
+    one = [(arch, ShapeSpec(f"train_{B}x{S}", "train", S, B), cut, "card")
+           for arch, cut, B, S in SHARDED_TRAIN_RUNS]
+    recs = dryrun.run_cases(grid + held + meshed + one, str(ROOT / dryrun.OUT))
+    n = len(grid) + len(held)
+    recs, mrecs, orecs = recs[:n], recs[n:n + len(meshed)], recs[n + len(meshed):]
+    for r in recs + mrecs + orecs:
         say(f"dryrun {dryrun.case_line(r)}")
-    check_mesh_records(mrecs, card)
+    check_mesh_records(mrecs + orecs, card)
     status = {st: [r["case"] for r in recs[:len(grid)] if r["status"] == st]
               for st in ("ok", "skipped", "error")}
     check(not status["error"] and all(r["status"] == "ok" for r in recs[len(grid):]),
           f"dry-run cases failed: {[r['case'] for r in recs if r['status'] == 'error']}")
     check(status["skipped"] == ["seamless-m4t-large-v2__long_500k__h100"],
           f"skipped: {status['skipped']} (only seamless-m4t x long_500k may be)")
-    fits = [r["case"] for r in recs[:len(grid)] if r["status"] == "ok"
-            and r["memory"]["fits_h100"]]
-    say(f"dry run: {len(status['ok'])} ok, {len(status['skipped'])} skipped, 0 errors; "
-        f"{len(fits)} fit one card: {fits}")
+    fits = [r["case"] for (_, _, cut), r in zip(grid, recs) if r["status"] == "ok"
+            and cut is None and r["memory"]["fits_h100"]]
+    say(f"dry run: {len(status['ok'])} ok, {len(status['skipped'])} skipped, 0 errors "
+        f"({sum(cut is not None for _, _, cut in grid)} at 1/{DRYRUN_GRID_CUT} depth, "
+        f"`grid_cut`); {len(fits)} whole cases fit one card: {fits}; on the production meshes: {len(mrecs)} steps ok "
+        f"({len(DRYRUN_MULTI_CASES)} of them on 2x16x16), "
+        f"{sum(r['memory']['fits_h100'] for r in mrecs)} fit one card a device")
+    for (arch, cut, B, S), r in zip(SHARDED_TRAIN_RUNS, orecs):
+        peak = r["memory"]["peak_gb"] * 1e9
+        ratio = peak / sharded_peaks[arch]
+        say(f"dry run on the (1, 1) mesh against phase 10, {arch} {cut} at {B} x {S} under "
+            f"TRAIN_RULES: counted peak {peak / 2**30:.2f} GiB against max_memory_allocated "
+            f"{sharded_peaks[arch] / 2**30:.2f} GiB (ratio {ratio:.4f}; parts GiB "
+            + ", ".join(f"{k} {r['memory'][k + '_gb'] * 1e9 / 2**30:.2f}"
+                        for k in ("params", "grads", "moments", "inputs", "other"))
+            + f"); card {card}")
+        check(abs(ratio - 1) <= DRYRUN_MEMORY_TOL, f"{arch}: (1, 1)-mesh peak {peak:.0f} B is "
+              f"not phase 10's {sharded_peaks[arch]} B (within {DRYRUN_MEMORY_TOL})")
     for (arch, _, cut), r in zip(held, recs[len(grid):]):
         peak = r["memory"]["peak_gb"] * 1e9
         ratio = peak / peaks[arch]
@@ -2476,8 +2599,9 @@ def phase_dryrun(torch, peaks, card):
         check(arch not in DRYRUN_FLOPS_HELD or abs(f_ratio - 1) <= DRYRUN_FLOPS_TOL,
               f"{arch}: dry-run flops {r['cost']['flops']} are not train_reckoning's {issued} "
               f"(within {DRYRUN_FLOPS_TOL})")
-    say(f"phase 8 (dry run, {len(recs)} cases on one card and {len(mrecs)} on the production "
-        f"meshes in a pool of {len(os.sched_getaffinity(0))}) "
+    say(f"phase 8 (dry run, {len(recs)} cases on one card, {len(mrecs) - len(DRYRUN_MULTI_CASES)}"
+        f" steps on 16x16, {len(DRYRUN_MULTI_CASES)} on 2x16x16 and "
+        f"{len(orecs)} on the (1, 1) mesh in a pool of {len(os.sched_getaffinity(0))}) "
         f"took {time.perf_counter() - t0:.1f} s")
 
 
@@ -3270,7 +3394,7 @@ def main() -> int:
         from repro_torch.kernels import _build
 
         _build.library()
-        phase_sharded(torch, card)
+        phase_sharded(torch, card)  # its peaks are held in phase 8, which this skips
         say(f"sharded serving and training done in {time.perf_counter() - t_start:.1f} s on "
             f"{card}")
         return 0
@@ -3301,7 +3425,8 @@ def main() -> int:
     took(4)
     launches, cal, mem = phase_full_width(torch)
     took(5)
-    for k, v in phase_sharded(torch, card).items():
+    sharded, sharded_peaks = phase_sharded(torch, card)
+    for k, v in sharded.items():
         launches[k] = launches.get(k, 0) + v
     took(10)
     # phase 9 is host code in a pool of processes; phase 6, one host process,
@@ -3313,7 +3438,7 @@ def main() -> int:
     trained, peaks = phase_training(torch, card)
     for k, v in trained.items():
         launches[k] = launches.get(k, 0) + v
-    phase_dryrun(torch, peaks, card)
+    phase_dryrun(torch, peaks, sharded_peaks, card)
 
     seen = set()
     kernels = []

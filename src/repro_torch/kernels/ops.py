@@ -60,25 +60,23 @@ def reset_launches() -> None:
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Sq, K, G, dh) — model-layer layout
+    q: torch.Tensor,  # (B, Sq, K, G, dh) — model-layer layout; a DTensor (B, Sq, H, dh)
     k: torch.Tensor,  # (B, Sk, K, dh)
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    """Attention over arange positions (the kernel's only position layout)."""
-    B, Sq, K, G, dh = q.shape
-    qh = q.view(B, Sq, K * G, dh)  # a view: raises rather than copy
+    """Attention over arange positions (the kernel's only position layout),
+    shaped as q."""
     fn = functools.partial(_flash_local, causal=causal, window=window)
-    if isinstance(q, DTensor):
-        q_pl, kv_pl, pair = _head_placements(qh.shape, k.shape, ("batch", None, "heads", None),
+    if isinstance(q, DTensor):  # (B, Sq, H, dh): DTensor cannot cut sharded heads into (K, G)
+        q_pl, kv_pl, pair = _head_placements(q.shape, k.shape, ("batch", None, "heads", None),
                                              ("batch", None, "kv_heads", None))
-        out = sh.run_local(functools.partial(_paired, fn, pair), q_pl, (q_pl, kv_pl, kv_pl),
-                           qh, k, v)
-    else:
-        out = fn(qh, k, v)
-    return out.view(B, Sq, K, G, dh)
+        return sh.run_local(functools.partial(_paired, fn, pair), q_pl, (q_pl, kv_pl, kv_pl),
+                            q, k, v)
+    B, Sq, K, G, dh = q.shape
+    return fn(q.view(B, Sq, K * G, dh), k, v).view(B, Sq, K, G, dh)  # views: raise, not copy
 
 
 def _flash_local(qh, k, v, *, causal, window):

@@ -3,7 +3,14 @@ of `repro/launch/hlo_analysis.py`, which reads the same quantities out of
 compiled HLO text).
 
 `analyze_case(case)` runs a `specs.Case`'s step once on meta tensors under
-a dispatch mode: nothing is computed and nothing is allocated. It counts
+a dispatch mode: nothing is computed and nothing is allocated. On a mesh
+(`analyze_step` of DTensor arguments, inside `launch.mesh.fake_process_group`
+and `sharding.use_mesh`) every quantity is one device's, as the reference's
+per-program count is: the mode hands every op on a DTensor back to DTensor
+(`NotImplemented`), which desugars it into the local op on this rank's
+shards and the collectives of any redistribution, and counts those; the
+ops that DTensor's sharding propagation runs on FakeTensors at global
+shapes are not counted. It counts
 
   * dot FLOPs: every matmul-class op (mm, addmm, bmm, baddbmm), counted by
     the formulas of `torch.utils.flop_counter` (`FlopCounterMode`'s, and
@@ -41,15 +48,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import weakref
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["PARTS", "StepCost", "analyze_case", "analyze_step"]
+__all__ = ["COLLECTIVES", "PARTS", "StepCost", "analyze_case", "analyze_step"]
 
 PARTS = ("params", "grads", "moments", "cache", "inputs", "other")
+# the reference's classes (`repro/launch/hlo_analysis.py`), in its order (DTensor
+# emits no collective-permute: that class stays 0)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
 aten = torch.ops.aten
 # (op, positions of its two matrix operands)
@@ -59,12 +72,18 @@ DOT_OPS = {aten.mm.default: (0, 1), aten.bmm.default: (0, 1),
 
 @dataclasses.dataclass
 class StepCost:
-    flops: float  # dot FLOPs of the step
+    flops: float  # dot FLOPs of the step (one device's)
     dot_bytes: float  # operand + result bytes of every dot
     peak_bytes: int  # live tensor bytes at the step's peak
     parts: Dict[str, int]  # peak_bytes by PARTS
-    n_ops: int  # ops dispatched
-    collective_bytes: float = 0.0  # one card: no collectives
+    n_ops: int  # ops dispatched (on plain tensors: one device's)
+    # weighted bytes by COLLECTIVES (module docstring); 0 on one card
+    collective_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVES, 0.0))
+
+    @property
+    def total_collective_bytes(self) -> float:
+        return float(sum(self.collective_bytes.values()))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -112,6 +131,43 @@ def _tensors(tree) -> list:
 
 _RUNS = object()  # memo entry of an op that must run each time
 
+# ops on these tensor types go back to the type's own dispatch, which runs
+# the local ops (and collectives) this mode counts
+_WRAPPERS = (DTensor, AsyncCollectiveTensor)
+# collectives that move nothing of their own
+_SYNC = {"wait_tensor", "_wrap_tensor_autograd"}
+# (class, its functional op's name with "_" dropped holds, weight, the tensor
+# counted: "out" the result, 0 the first argument)
+_KINDS = (("all-gather", "allgather", 1, "out"), ("all-reduce", "allreduce", 2, 0),
+          ("reduce-scatter", "reducescatter", 1, 0), ("all-to-all", "alltoall", 1, 0))
+
+
+def _collective(func) -> Optional[Tuple[str, int, Any]]:
+    """(class, weight, the tensor counted: "out" or an argument's position)
+    of a collective that DTensor emits (its functional collectives and
+    `shard_dim_alltoall`), None for any other op. Any other collective
+    raises: it would move bytes the count does not read."""
+    ns, name = func.namespace, func._schema.name.split("::")[-1]
+    if ns == "_dtensor" and name == "shard_dim_alltoall":
+        return "all-to-all", 1, 0
+    if ns not in ("_c10d_functional", "_c10d_functional_autograd", "c10d") or name in _SYNC:
+        return None
+    for cls, part, weight, counted in _KINDS:
+        if ns != "c10d" and part in name.replace("_", ""):
+            return cls, weight, counted
+    raise ValueError(f"{func}: a collective outside the reference's classes {COLLECTIVES} "
+                     "as DTensor's functional collectives emit them; the count cannot read it")
+
+
+def _bytes(tree) -> int:
+    return sum(_nbytes(t) for t in _tensors(tree))
+
+
+def _fake_mode_active() -> bool:
+    """Whether a FakeTensorMode runs (sharding propagation's shape
+    inference: its ops, factories included, are not the step's)."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
 
 class _Tracker(TorchDispatchMode):
     """Dot FLOPs and traffic, live storages and the op memo (module
@@ -131,8 +187,11 @@ class _Tracker(TorchDispatchMode):
         self.flops = 0
         self.dot_bytes = 0
         self.n_ops = 0
+        self.collective = dict.fromkeys(COLLECTIVES, 0)
 
     def track(self, t: torch.Tensor, part: str = "other") -> None:
+        if isinstance(t, DTensor):  # one device's bytes: its local shard
+            t = t._local_tensor
         st = t.untyped_storage()
         key = id(st)  # one Python object a storage while it lives
         entry = self.live.get(key)
@@ -155,13 +214,19 @@ class _Tracker(TorchDispatchMode):
 
     def _op_info(self, func) -> tuple:
         s = func._schema
-        fresh = not s.is_mutable and all(r.alias_info is None for r in s.returns)
-        info = self.info[func] = (fresh, flop_registry.get(func._overloadpacket))
+        coll = _collective(func)
+        # a collective runs each time: its result is the backend's
+        fresh = not s.is_mutable and all(r.alias_info is None for r in s.returns) and not coll
+        info = self.info[func] = (fresh, flop_registry.get(func._overloadpacket), coll)
         return info
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, _WRAPPERS) for t in types):
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types) or _fake_mode_active():
+            return func(*args, **(kwargs or {}))
         self.n_ops += 1
-        fresh, formula = self.info.get(func) or self._op_info(func)
+        fresh, formula, coll = self.info.get(func) or self._op_info(func)
         key = None
         if fresh and self.memo_on:
             key = (func, _key(args), _key(kwargs) if kwargs else None)
@@ -182,6 +247,9 @@ class _Tracker(TorchDispatchMode):
                 return out
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if coll is not None:
+            cls, weight, counted = coll
+            self.collective[cls] += weight * _bytes(out if counted == "out" else args[counted])
         flops = formula(*args, **kwargs, out_val=out) if formula is not None else 0
         dot = DOT_OPS.get(func)
         dot_bytes = (_nbytes(args[dot[0]]) + _nbytes(args[dot[1]]) + _nbytes(out)
@@ -251,8 +319,9 @@ def analyze_step(step, args: tuple, parts: Dict[str, Any], train: bool = False,
     tracker = _Tracker(memo=memo)
     for part, tree in parts.items():
         for t in _tensors(tree):
-            if t.device.type != "meta":
-                raise ValueError(f"{part}: a {t.device.type} tensor; the dry run "
+            local = t._local_tensor if isinstance(t, DTensor) else t
+            if local.device.type != "meta":
+                raise ValueError(f"{part}: a {local.device.type} tensor; the dry run "
                                  "runs on the meta device only")
             tracker.track(t, part)
     grads = _gradients_marked(tracker) if train else contextlib.nullcontext()
@@ -261,20 +330,15 @@ def analyze_step(step, args: tuple, parts: Dict[str, Any], train: bool = False,
     del out
     peak, by_part = tracker.peak()
     return StepCost(flops=float(tracker.flops), dot_bytes=float(tracker.dot_bytes),
-                    peak_bytes=peak, parts=by_part, n_ops=tracker.n_ops)
+                    peak_bytes=peak, parts=by_part, n_ops=tracker.n_ops,
+                    collective_bytes={k: float(v) for k, v in tracker.collective.items()})
 
 
-def analyze_case(case, memo: bool = True) -> StepCost:
-    """`analyze_step` of a `specs.Case`, its arguments split into parts by
-    the step's kind."""
-    if case.shape.kind == "train":
-        params, state, batch = case.args
-        parts = {"params": params, "moments": state, "inputs": batch}
-    elif case.shape.kind == "prefill":
-        params, prompt = case.args
-        parts = {"params": params, "inputs": prompt}
-    else:
-        params, cache, token, pos = case.args
-        parts = {"params": params, "cache": cache, "inputs": (token, pos)}
-    return analyze_step(case.step, case.args, parts, train=case.shape.kind == "train",
-                        memo=memo)
+def analyze_case(case, memo: bool = True, args: Optional[tuple] = None) -> StepCost:
+    """`analyze_step` of a `specs.Case`, its arguments (`args`: the case's
+    own, or the same laid out on a mesh) counted under `case.arg_parts`."""
+    args = case.args if args is None else args
+    parts: Dict[str, list] = {}
+    for part, arg in zip(case.arg_parts, args):
+        parts.setdefault(part, []).append(arg)
+    return analyze_step(case.step, args, parts, train=case.shape.kind == "train", memo=memo)

@@ -8,10 +8,12 @@ counted on the meta device):
     memory term     = dot traffic / HBM bandwidth
     collective term = collective bytes / link bandwidth   (0 on one card)
 
-On the production meshes (`launch.dryrun --mesh`) the dry run counts the
-arguments only: the compute term is `model_flops` over the chips and the
-memory term the device's argument bytes; the collective bytes are not
-counted there (the record holds None).
+all per device. On the production meshes (`launch.dryrun --mesh`) the dry
+run counts one device's step under DTensor: its dot FLOPs and traffic on
+its local shards and its collective bytes, weighted by class, summed
+(`StepCost.total_collective_bytes`, the reference's
+`total_collective_bytes`) over one `link_bw`, as the reference divides by
+its one ICI rate: nothing models links that cross nodes.
 
 `model_flops` is the paper-standard accounting, equal to the reference's:
 6 N_active T to train, 2 N_active T to prefill, 2 N_active B to decode.
@@ -104,17 +106,17 @@ def derive_roofline(
     hw: HwSpec = H100,
 ) -> RooflineTerms:
     """`cost`: a `cost_analysis.StepCost` (or anything with `flops`,
-    `dot_bytes` and `collective_bytes`) of one device's step."""
+    `dot_bytes` and `total_collective_bytes`) of one device's step."""
     mf = model_flops(cfg, shape)
     total = cost.flops * chips
     return RooflineTerms(
         compute_s=cost.flops / hw.flops,
         memory_s=cost.dot_bytes / hw.hbm_bw,
-        collective_s=cost.collective_bytes / hw.link_bw,
+        collective_s=cost.total_collective_bytes / hw.link_bw,
         model_flops=mf,
         counted_flops_device=cost.flops,
         dot_bytes_device=cost.dot_bytes,
-        collective_bytes_device=cost.collective_bytes,
+        collective_bytes_device=cost.total_collective_bytes,
         chips=chips,
         useful_ratio=mf / total if total else 0.0,
     )

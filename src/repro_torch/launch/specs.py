@@ -106,7 +106,8 @@ class Case:
     """One (arch x shape) case on the meta device: `step(*args)` is the
     step a driver runs. train: (params, AdamW state, batch); prefill:
     (params, prompt); decode: (params, cache, token, pos). `rules` is the
-    kind's rule set, `arg_axes` the logical axes of `args`, tree for tree
+    kind's rule set or the override `build_case` was given, `arg_axes` the
+    logical axes of `args`, tree for tree
     (parameters and moments keyed by name), and `arg_parts` the part each
     argument counts under ("params", "moments", "cache" or "inputs"). The reference's `donate` has no
     counterpart: the port's optimizer and decode update their state in
@@ -157,12 +158,15 @@ def build_case(
     shape: Union[str, ShapeSpec],
     opt_cfg: Optional[AdamWConfig] = None,
     rt_override: Optional[RuntimeFlags] = None,
+    rules_override: Optional[AxisRules] = None,
     rt_kwargs: Optional[dict] = None,
     microbatches: int = 1,
     cfg_kwargs: Optional[dict] = None,
 ) -> Case:
-    """`shape`: a name of SHAPES or a ShapeSpec of its own; `cfg_kwargs`
-    replaces fields of the arch's config (a depth cut)."""
+    """`shape`: a name of SHAPES or a ShapeSpec of its own; `rules_override`
+    takes the place of the kind's rule set (`Case.rules`), as the
+    reference's does; `cfg_kwargs` replaces fields of the arch's config (a
+    depth cut)."""
     cfg = get_config(arch)
     if cfg_kwargs:
         cfg = dataclasses.replace(cfg, **cfg_kwargs)
@@ -183,14 +187,15 @@ def build_case(
         batch, batch_axes = _batch_inputs(cfg, shape, with_labels=True)
         opt_axes = {"mu": paxes, "nu": paxes, "step": Axes(())}
         return Case(arch, cfg, shape, model, step, (params, adamw_init(params), batch),
-                    TRAIN_RULES, (paxes, opt_axes, batch_axes), ("params", "moments", "inputs"))
+                    rules_override or TRAIN_RULES, (paxes, opt_axes, batch_axes),
+                    ("params", "moments", "inputs"))
 
     if shape.kind == "prefill":
         batch, batch_axes = _batch_inputs(cfg, shape, with_labels=False)
         if not cfg.n_encoder_layers:
             batch, batch_axes = next(iter(batch.values())), next(iter(batch_axes.values()))
         return Case(arch, cfg, shape, model, model.prefill, (params, batch),
-                    PREFILL_RULES, (paxes, batch_axes), ("params", "inputs"))
+                    rules_override or PREFILL_RULES, (paxes, batch_axes), ("params", "inputs"))
 
     # decode
     B = shape.batch
@@ -200,6 +205,6 @@ def build_case(
     tok = torch.empty((B,), dtype=torch.int32, device=META)
     pos = torch.empty((B,), dtype=torch.int32, device=META)
     return Case(arch, cfg, shape, model, model.decode, (params, cache, tok, pos),
-                DECODE_RULES,
+                rules_override or DECODE_RULES,
                 (paxes, model.cache_axes(B, clen, enc_len), Axes(("batch",)), Axes(("batch",))),
                 ("params", "cache", "inputs", "inputs"))

@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -183,7 +183,9 @@ def attention_core(
     """On the card q_pos/k_pos are arange positions (see decoder_forward).
     While a gradient is recorded through q, k or v, "auto" takes the
     reference's differentiable rule (`RuntimeFlags.attn_impl_for`). Under a
-    mesh naive and chunked attention run on local shards (`_local_core`)."""
+    mesh naive and chunked attention run on local shards (`_local_core`);
+    there q comes as (B, Sq, H, dh) and so does the result (a heads dim
+    sharded over more ranks than K cannot be cut into (K, G) by DTensor)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     impl = rt.attn_impl_for(k.shape[1], q.is_cuda, grad)
     if impl == "pallas":
@@ -204,13 +206,11 @@ def _local_core(q, k, v, causal: bool, window: int, impl: str, rt: RuntimeFlags)
     every caller's are under a mesh, and are built on each rank, so no
     position tensor and no mask goes through DTensor; op by op, the scores,
     masks and online softmax would each pay DTensor's dispatch."""
-    B, Sq, K, G, dh = q.shape
-    qh = q.view(B, Sq, K * G, dh)
-    q_pl, kv_pl, pair = ops._head_placements(qh.shape, k.shape, ("batch", None, "heads", None),
+    q_pl, kv_pl, pair = ops._head_placements(q.shape, k.shape, ("batch", None, "heads", None),
                                              ("batch", None, "kv_heads", None))
 
     def core(ql, kl, vl):
-        b, sq, hl, _ = ql.shape
+        b, sq, hl, dh = ql.shape
         kh, sk = kl.shape[2], kl.shape[1]
         qp = torch.arange(sq, dtype=torch.int32, device=ql.device).expand(b, sq)
         kp = torch.arange(sk, dtype=torch.int32, device=ql.device).expand(b, sk)
@@ -221,9 +221,8 @@ def _local_core(q, k, v, causal: bool, window: int, impl: str, rt: RuntimeFlags)
             out = naive_attention(qg, kl, vl, qp, kp, causal, window)
         return out.reshape(b, sq, hl, dh)
 
-    out = sh.run_local(functools.partial(ops._paired, core, pair), q_pl, (q_pl, kv_pl, kv_pl),
-                       qh, k, v)
-    return out.view(B, Sq, K, G, dh)
+    return sh.run_local(functools.partial(ops._paired, core, pair), q_pl, (q_pl, kv_pl, kv_pl),
+                        q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +231,38 @@ def _local_core(q, k, v, causal: bool, window: int, impl: str, rt: RuntimeFlags)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) @ w (d, N, dh) -> (B, S, N, dh) as one matmul."""
+    """x (B, S, d) @ w (d, N, dh) -> (B, S, N, dh) as one matmul; under a
+    mesh on local shards (`_project_local`)."""
+    if isinstance(w, DTensor):
+        return _project_local(x, w)
     d, n, dh = w.shape
     return (x @ w.view(d, n * dh)).view(*x.shape[:-1], n, dh)
+
+
+def _project_local(x: DTensor, w: DTensor) -> DTensor:
+    """`_project` in one `run_local`, mesh dim by mesh dim (DTensor's own
+    product may shard the flat (N dh) columns over a dim that does not
+    divide N, 2 or 8 KV heads on a 16-way "model" axis, and those cannot be
+    cut back into heads): one that shards w's heads takes x whole and
+    shards the result by heads; one that shards both x's and w's
+    contraction dim keeps them so, and the result is a partial sum; on any
+    other w is whole (its FSDP shard gathered, as the reference's
+    partitioner gathers it) and the result is placed as x, whose
+    contraction dim and partial sums are made whole first."""
+    dh = w.shape[2]
+    heads, contract, last = Shard(1), Shard(0), Shard(x.dim() - 1)
+    x_pl, w_pl, out_pl = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if wp == heads:
+            x_pl.append(Replicate()), w_pl.append(heads), out_pl.append(last)
+        elif wp == contract and xp == last:
+            x_pl.append(last), w_pl.append(contract), out_pl.append(Partial())
+        else:
+            whole = Replicate() if xp == last or isinstance(xp, Partial) else xp
+            x_pl.append(whole), w_pl.append(Replicate()), out_pl.append(whole)
+    return sh.run_local(
+        lambda xl, wl: (xl @ wl.reshape(wl.shape[0], -1)).view(*xl.shape[:-1], -1, dh),
+        out_pl, (x_pl, w_pl), x, w)
 
 
 def _project_q(p: Attention, x: torch.Tensor,
@@ -267,9 +295,36 @@ def _project_qkv(
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """out (..., H, dh) @ wo (H, dh, d) -> (..., d)."""
+    """out (..., H, dh) @ wo (H, dh, d) -> (..., d); under a mesh on local
+    shards (`_out_proj_local`)."""
+    if isinstance(wo, DTensor):
+        return _out_proj_local(out, wo)
     H, dh, d = wo.shape
     return out.reshape(*out.shape[:-2], H * dh) @ wo.view(H * dh, d)
+
+
+def _out_proj_local(out: DTensor, wo: DTensor) -> DTensor:
+    """`_out_proj` in one `run_local`, mesh dim by mesh dim (DTensor's own
+    would cut a (..., H dh) gradient over a dim that does not divide H, as
+    in `_project`, and cannot flatten (B, S) with S sharded under context
+    parallelism): one that shards out's rows (batch, or the query seq)
+    keeps them so, with wo whole (its FSDP shard gathered); one that shards
+    wo's heads cuts out by heads too, and the result is a partial sum; one
+    that shards wo's output (embed) dim keeps it so, with out whole, and
+    the result is sharded so too; on any other both are whole."""
+    heads, embed, nd = Shard(0), Shard(2), out.dim()
+    o_pl, w_pl, y_pl = [], [], []
+    for op, wp in zip(out.placements, wo.placements):
+        if isinstance(op, Shard) and op.dim < nd - 2:
+            o_pl.append(op), w_pl.append(Replicate()), y_pl.append(op)
+        elif wp == heads:
+            o_pl.append(Shard(nd - 2)), w_pl.append(heads), y_pl.append(Partial())
+        elif wp == embed:
+            o_pl.append(Replicate()), w_pl.append(embed), y_pl.append(Shard(nd - 2))
+        else:
+            o_pl.append(Replicate()), w_pl.append(Replicate()), y_pl.append(Replicate())
+    return sh.run_local(lambda ol, wl: ol.flatten(-2) @ wl.reshape(-1, wl.shape[-1]),
+                        y_pl, (o_pl, w_pl), out, wo)
 
 
 def attention_forward(
@@ -296,8 +351,12 @@ def attention_forward(
     else:
         q, (k, v), k_pos = _project_q(p, x, rope), cross_kv, cross_pos
         causal, window = False, 0
-    qg = q.view(B, S, K, G, cfg.head_dim)
+    qg = q if isinstance(q, DTensor) else q.view(B, S, K, G, cfg.head_dim)
     out = attention_core(qg, k, v, positions, k_pos, causal, window, rt)
+    if rt.attn_seq_shard:
+        # context parallelism: the attention output's query-seq dim pinned, as
+        # the reference pins it (the ATTNSP rule sets map it to "model")
+        out = constrain(out, ("batch", "attn_q_seq") + (None,) * (out.dim() - 2))
     y = _out_proj(out.reshape(B, S, cfg.n_heads, cfg.head_dim), p.wo)
     return constrain(y, ("batch", "seq_res", "embed")), (k, v)
 

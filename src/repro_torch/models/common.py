@@ -47,9 +47,9 @@ class RuntimeFlags:
     block (dense/vlm/moe, each encoder and decoder layer) or group (zamba2,
     xlstm) is recomputed in the backward (`torch.utils.checkpoint`), as the
     reference's `jax.checkpoint`. `attn_seq_shard` (context-parallel
-    attention under the reference's ATTNSP rule sets) is kept for the
-    reference's signature; the port's sharded path (`sharding.use_mesh`)
-    runs every family's prefill and decode and does not read it."""
+    attention under the reference's ATTNSP rule sets) pins the attention
+    output's query-seq dim ("attn_q_seq") under a mesh
+    (`attention.attention`)."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024

@@ -250,7 +250,7 @@ class Model:
         else:
             cache = transformer.init_decode_cache(self.cfg, batch, cache_len, dev, dtype)
         if sh.current_mesh() is not None:
-            cache = sh.distribute_cache(cache, self.cache_axes())
+            cache = sh.distribute_tree(cache, self.cache_axes())
         return cache
 
     def prefill(
@@ -279,7 +279,7 @@ class Model:
         if self._on_mesh(params):
             token = sh.on_mesh(token, ("batch", "embed")[:token.dim()])
             pos = sh.on_mesh(pos, ("batch",))
-            cache = sh.distribute_cache(cache, self.cache_axes())
+            cache = sh.distribute_tree(cache, self.cache_axes())
         if self.is_encdec:
             return encdec.encdec_decode(params, self.cfg, self.rt, cache, token, pos)
         return transformer.decoder_decode(params, self.cfg, self.rt, cache, token, pos)

@@ -15,7 +15,7 @@ replication, never a crash. Resolution reads only the mesh's
 `mesh_dim_names` and sizes, so it equals the reference's entry for entry.
 
 Execution is DTensor's: `placements_for` turns a spec into one placement a
-mesh dim, `distribute_params` / `distribute_cache` / `on_mesh` put tensors
+mesh dim, `distribute_params` / `distribute_tree` / `on_mesh` put tensors
 on the mesh by their axes (what jit's `in_shardings` does in the
 reference), and `constrain` redistributes a DTensor to the placements its
 axes resolve to (the reference's `with_sharding_constraint`).
@@ -37,6 +37,7 @@ import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
@@ -80,7 +81,7 @@ __all__ = [
     "local_bytes",
     "local_numel",
     "distribute_params",
-    "distribute_cache",
+    "distribute_tree",
 ]
 
 # logical name -> ordered mesh-axis candidates (joined, in order, while they
@@ -365,11 +366,22 @@ def _distribute(x: torch.Tensor, mesh: DeviceMesh, placements) -> DTensor:
     """Each rank's shard of `x` (which every rank holds whole) as a DTensor,
     cut locally, with no collective (`distribute_tensor` scatters from one
     rank). The placements come from `spec_for`, which shards evenly only."""
-    local = x
+    local, cut = x, False
     for i, pl in enumerate(placements):  # nested in the mesh's order, as DTensor's
-        if isinstance(pl, Shard):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
             local = local.tensor_split(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
-    return DTensor.from_local(local.contiguous(), mesh, placements, run_check=False)
+            cut = True
+    # a cut shard gets storage of its own: a view would keep the whole tensor
+    # alive on every rank
+    local = local.clone(memory_format=torch.contiguous_format) if cut else local.contiguous()
+    # the global shape and strides given: DTensor infers the strides from the
+    # local ones, which a shard of size 1 leaves ambiguous (a (64, 1, 64) shard
+    # of (1024, 16, 64) read as strides (64, 1024, 1), which no view takes)
+    stride = [1] * x.dim()
+    for i in range(x.dim() - 2, -1, -1):
+        stride[i] = stride[i + 1] * x.shape[i + 1]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=x.shape, stride=tuple(stride))
 
 
 def replicated_like(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -420,14 +432,22 @@ def placed(dims: Dict[int, Sequence[int]]) -> List[Placement]:
 
 
 def redistribute(x: DTensor, placements: Sequence[Placement]) -> DTensor:
-    """`x` redistributed to `placements`, through the collectives every
-    backend has: a partial sum or a shard that must become a shard of
-    another dim is first made whole (all-reduce, all-gather), then cut
-    locally. (gloo has no reduce-scatter or all-to-all, which DTensor's
-    direct path takes.) `x` itself when it is already so placed."""
+    """`x` redistributed to `placements`: DTensor's own path (a partial sum
+    to a shard is a reduce-scatter, a shard of one dim to another an
+    all-to-all), except on gloo, which has neither (`_whole_then_cut`). `x`
+    itself when it is already so placed."""
     want = tuple(placements)
     if tuple(x.placements) == want:
         return x
+    if dist.get_backend(x.device_mesh.get_group(0)) != "gloo":
+        return x.redistribute(x.device_mesh, want)
+    return _whole_then_cut(x, want)
+
+
+def _whole_then_cut(x: DTensor, want: Tuple[Placement, ...]) -> DTensor:
+    """`redistribute` through the collectives gloo has: a partial sum or a
+    shard that must become a shard of another dim is first made whole
+    (all-reduce, all-gather), then cut locally."""
     whole = tuple(Replicate() if p != w and (isinstance(p, Partial) or
                                              isinstance(p, Shard) and isinstance(w, Shard))
                   else p for p, w in zip(x.placements, want))
@@ -588,9 +608,10 @@ def distribute_params(params: nn.Module, axes: Dict[str, Axes]) -> nn.Module:
     return copy.deepcopy(params, memo)
 
 
-def distribute_cache(cache: Dict[str, Any], axes: Dict[str, Any]) -> Dict[str, Any]:
-    """The cache tree on the active mesh, each leaf placed by its axes
-    (`Model.cache_axes`)."""
+def distribute_tree(tree, axes):
+    """A tree of tensors (a cache, optimizer moments, a batch; one tensor
+    against one `Axes`) on the active mesh, each leaf placed by its axes
+    (`on_mesh`)."""
     if _ctx.get() is None:
-        raise RuntimeError("distribute_cache needs an active mesh (use_mesh)")
-    return _tree_map(on_mesh, cache, axes)
+        raise RuntimeError("distribute_tree needs an active mesh (use_mesh)")
+    return _tree_map(on_mesh, tree, axes)

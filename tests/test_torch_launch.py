@@ -158,7 +158,7 @@ class TestMetaInit:
 class TestRoofline:
     def test_terms_and_dominance(self):
         cost = StepCost(flops=H100.flops, dot_bytes=H100.hbm_bw * 2, peak_bytes=0, parts={},
-                        n_ops=0, collective_bytes=H100.link_bw * 3)
+                        n_ops=0, collective_bytes={"all-reduce": H100.link_bw * 3})
         r = derive_roofline(cost, get_config("glm4-9b"), SHAPES["train_4k"], chips=256)
         assert r.compute_s == pytest.approx(1.0)
         assert r.memory_s == pytest.approx(2.0)

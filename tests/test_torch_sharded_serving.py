@@ -8,14 +8,14 @@ glm4-9b's GQA smoke config on (1, 2), as K = 2 and as K = 1: there "model"
 divides the query heads but not the KV heads, which are then replicated
 and paired with each rank's query heads. Prefill runs under PREFILL_RULES,
 then greedy decode steps under DECODE_RULES (the cache's slots sharded
-over "model"). `attention_impl="pallas"` takes the kernels' wrappers, which
+over "model"), and for llama2-7b on (2, 1) also under DECODE_RULES_V3. `attention_impl="pallas"` takes the kernels' wrappers, which
 run the plain versions on the local shards through `local_map`, as the
 card runs the kernels. The same weights (the reference's init, converted)
 run unsharded in the port and in JAX in this process: logits agree within
 TOL (tests/test_consistency.py) and greedy tokens are identical.
 
-Also the dry run's argument count on the single production mesh
-(`--mesh single`), on the fake backend.
+Also the dry run's count of a step on the single production mesh (`--mesh
+single`), on the fake backend.
 """
 
 import contextlib
@@ -50,7 +50,12 @@ CASES = [
     ("llama2-7b (2, 1)", "llama2-7b", None, (2, 1)),
     ("glm4-9b (1, 2)", "glm4-9b", None, (1, 2)),
     ("glm4-9b K=1 (1, 2)", "glm4-9b", 1, (1, 2)),
+    ("llama2-7b DECODE_RULES_V3 (2, 1)", "llama2-7b", None, (2, 1)),
 ]
+# a case's decode rule set where it is not DECODE_RULES: under V3 the token's
+# embed dim is sharded over "data" like the weights' (a projection's partial
+# sum over "data", the output projection's result sharded by embed)
+DECODE = {"llama2-7b DECODE_RULES_V3 (2, 1)": "DECODE_RULES_V3"}
 
 
 def _cfg(get, arch, kv):
@@ -67,13 +72,14 @@ def _pad(cache, n):
     return out
 
 
-def _greedy(model, params, prompt, steps, on_mesh=None):
-    """Prefill, then `steps` greedy decode steps -> (the logits of every
-    step, prefill's first, as one (steps + 1, B, V) array; the tokens fed)."""
+def _greedy(model, params, prompt, steps, on_mesh=None, decode="DECODE_RULES"):
+    """Prefill, then `steps` greedy decode steps (under the rule set named
+    `decode`) -> (the logits of every step, prefill's first, as one
+    (steps + 1, B, V) array; the tokens fed)."""
     from repro_torch import sharding as sh
 
     full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
-    rules = (sh.PREFILL_RULES, sh.DECODE_RULES)
+    rules = (sh.PREFILL_RULES, getattr(sh, decode))
     ctx = (lambda r: sh.use_mesh(on_mesh, r)) if on_mesh else (lambda r: contextlib.nullcontext())
     with torch.no_grad():
         with ctx(rules[0]):
@@ -108,7 +114,8 @@ def _rank(rank, store, tmp, cases):
             params = convert_params(_unflatten(w), cfg, device="cpu")
             prompt = torch.from_numpy(np.load(os.path.join(tmp, "prompt.npy")))
             mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-            logits, toks = _greedy(model, params, prompt, STEPS, on_mesh=mesh)
+            logits, toks = _greedy(model, params, prompt, STEPS, on_mesh=mesh,
+                                   decode=DECODE.get(name, "DECODE_RULES"))
             if rank == 0:
                 np.savez(os.path.join(tmp, f"out-{name}.npz"), logits=logits, toks=toks)
     finally:
@@ -204,20 +211,45 @@ class TestShardedServing:
 
 @pytest.mark.parametrize("arch,shape", [("llama2-7b", "decode_32k"), ("glm4-9b", "train_4k")])
 def test_dryrun_mesh_single_writes_counted_records(tmp_path, arch, shape):
-    """`python -m repro_torch.launch.dryrun --mesh single` on one case: a
-    record on the 16 x 16 mesh with the per-device argument bytes and
-    `fits_h100`, and no number for the peak or the collectives."""
+    """`python -m repro_torch.launch.dryrun --mesh single` on one case: the
+    step run as DTensors on the 16 x 16 mesh and one device's share
+    counted: its peak with its parts (the arguments' local shards among
+    them, equal to the argument bytes from the specs), `fits_h100` on the
+    peak, dot FLOPs, collective bytes by the reference's five classes and
+    the three roofline terms from them. Under DECODE_RULES the cache's
+    slots are sharded over "model", and the decode kernel takes them whole
+    with the KV heads over "model" instead (`kernels/ops.py`): llama2-7b's
+    32 KV heads divide 16 ways, so each layer's cache shard moves by an
+    all-to-all every step, the device's whole cache a step."""
     from repro_torch.launch import dryrun
+    from repro_torch.launch.cost_analysis import COLLECTIVES, PARTS
+    from repro_torch.launch.roofline import H100
 
     (rec,) = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
                           "--out", str(tmp_path)])
     with open(tmp_path / f"{arch}__{shape}__single.json") as f:
         assert json.load(f) == json.loads(json.dumps(rec))
     assert rec["status"] == "ok" and rec["mesh"] == {"data": 16, "model": 16}
-    assert rec["chips"] == 256 and rec["collective_counted"] is False
-    m = rec["memory"]
-    parts = sum(m[k + "_gb"] for k in dryrun.MESH_PARTS)
-    assert m["argument_gb"] == pytest.approx(parts) and m["argument_gb"] > 0
-    assert m["fits_h100"] is True and m["peak_counted"] is False and "peak_gb" not in m
-    assert rec["roofline"]["chips"] == 256 and rec["roofline"]["collective_s"] is None
-    assert rec["roofline"]["compute_s"] > 0 and rec["roofline"]["memory_s"] > 0
+    assert rec["chips"] == 256 and rec["rules"] == dryrun.KIND_RULES[dryrun.SHAPES[shape].kind]
+    assert "collective_counted" not in rec and "peak_counted" not in rec["memory"]
+    m, c, r = rec["memory"], rec["cost"], rec["roofline"]
+    assert m["peak_gb"] == pytest.approx(sum(m[k + "_gb"] for k in PARTS))
+    assert m["fits_h100"] == (m["peak_gb"] * 1e9 <= H100.hbm_bytes)
+    args = m["argument_parts_gb"]
+    assert m["argument_gb"] == pytest.approx(sum(args.values())) and m["argument_gb"] > 0
+    for part, gb in args.items():  # the local shards count from the start
+        assert m[part + "_gb"] == pytest.approx(gb), part
+    assert set(c["collective_bytes"]) == set(COLLECTIVES) and c["link_bw"] == H100.link_bw
+    total = sum(c["collective_bytes"].values())
+    assert total > 0 and r["collective_s"] == pytest.approx(total / H100.link_bw)
+    assert r["chips"] == 256 and r["counted_flops_device"] == c["flops"] > 0
+    assert r["compute_s"] == pytest.approx(c["flops"] / H100.flops)
+    assert r["memory_s"] == pytest.approx(c["dot_bytes"] / H100.hbm_bw)
+    assert r["useful_ratio"] == pytest.approx(r["model_flops"] / (256 * c["flops"]))
+    if shape == "decode_32k":
+        cfg = get_config(arch)
+        spec = dryrun.SHAPES[shape]
+        # layers x (k, v) x rows x slots x KV heads x dh x bf16, a 256th of each
+        kv = cfg.n_layers * 2 * spec.batch * spec.seq * cfg.n_kv_heads * cfg.head_dim * 2 / 256
+        assert m["cache_gb"] * 1e9 >= kv
+        assert kv <= c["collective_bytes"]["all-to-all"] <= 1.01 * m["cache_gb"] * 1e9

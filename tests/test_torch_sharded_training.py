@@ -22,7 +22,10 @@ not see the caller's `use_mesh`:
   * hybrid: zamba2-7b with a Mamba2 group, the shared block and a
     remainder layer on (1, 2), and on (2, 1) in chunks of 4;
   * ssm: xlstm-1.3b (an mLSTM group and an sLSTM block) on (1, 2);
-  * enc-dec: seamless-m4t-large-v2 on (1, 2) and (2, 1).
+  * enc-dec: seamless-m4t-large-v2 on (1, 2) and (2, 1);
+  * context-parallel attention: llama2-7b on (1, 2) under
+    TRAIN_RULES_ATTNSP with `attn_seq_shard`, the attention output's
+    query-seq dim over "model" (CASE_RULES).
 
 The same weights (the reference's init with every constant leaf perturbed
 from a seed, converted) and batch run unsharded in the port and through
@@ -88,7 +91,11 @@ CASES = [
     ("xlstm-1.3b (1, 2)", "xlstm-1.3b", {}, {}, (1, 2)),
     ("seamless-m4t-large-v2 (1, 2)", "seamless-m4t-large-v2", {}, {}, (1, 2)),
     ("seamless-m4t-large-v2 (2, 1)", "seamless-m4t-large-v2", {}, {}, (2, 1)),
+    ("llama2-7b ATTNSP (1, 2)", "llama2-7b", {}, {"attn_seq_shard": True}, (1, 2)),
 ]
+# the rule set of a case not under TRAIN_RULES: context-parallel attention, the
+# attention output's query-seq dim over "model" (`RuntimeFlags.attn_seq_shard`)
+CASE_RULES = {"llama2-7b ATTNSP (1, 2)": "TRAIN_RULES_ATTNSP"}
 MICRO_CASE = ("llama2-7b", (2, 1))  # two microbatches against one, batch 2 B
 LOOP_CASE = ("llama2-7b", (1, 2))  # train_loop, 2 steps
 
@@ -266,7 +273,7 @@ def _rank(rank, store, tmp, cases):
                 key = _key(arch, fields, flags)
                 batch = _torch_batch(_batch(cfg))
                 mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-                with sh.use_mesh(mesh, sh.TRAIN_RULES):
+                with sh.use_mesh(mesh, getattr(sh, CASE_RULES.get(name, "TRAIN_RULES"))):
                     model, params = _port(cfg, flags, tmp, key)
                     loss, grads = _loss_and_grads(
                         model, model.distribute_params(params.requires_grad_(True)), batch, seen)

@@ -286,7 +286,7 @@ def test_case_specs_and_bytes_equal_reference(arch, shape, mesh_name):
         sizes = sh.mesh_sizes(mesh)
     parts = port.arg_parts
     assert len(parts) == len(port.args) == len(ref.args)
-    want_bytes = dict.fromkeys(dryrun.MESH_PARTS, 0)
+    want_bytes = dict.fromkeys(dryrun.PARTS, 0)
     for i, part in enumerate(parts):
         want_bytes[part] += _ref_bytes(ref.args[i], ref_specs_[i], sizes)
         if part == "params":  # by name, stacked axes dropped
