@@ -332,7 +332,10 @@ TPU_KERNELS = {  # the Pallas function each kernel replaces
     "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:27",
     "flash_attention": "src/repro/kernels/flash_attention.py:94",
     "decode_attention": "src/repro/kernels/decode_attention.py:86",
+    # its lse mode: the same kernel, over one rank's slots of a sharded cache
+    "decode_attention_lse": "src/repro/kernels/decode_attention.py:86",
 }
+SOURCES = {"rmsnorm_bwd": "rmsnorm", "decode_attention_lse": "decode_attention"}
 
 
 def say(msg: str) -> None:
@@ -589,6 +592,29 @@ def assert_close(torch, out, want, dtype, what):
     return err
 
 
+def launch_counts(**counts):
+    """A launch count for every kernel of `ops.LAUNCHES`, 0 where not given."""
+    from repro_torch.kernels import ops
+
+    return dict(dict.fromkeys(ops.LAUNCHES, 0), **counts)
+
+
+def lse_close(torch, got, want, dtype, what):
+    """decode_attention's lse mode against its plain version: the f32
+    outputs within TOLS[dtype], lse -inf on the same rows (those with no
+    valid slot) and within TOLS[dtype] on the others. -> the larger max|err|."""
+    (o, lse), (o_p, lse_p) = got, want
+    check(o.dtype == lse.dtype == torch.float32 and lse.shape == lse_p.shape,
+          f"{what}: the lse mode returns f32 (B, H, dh) and (B, H)")
+    err = assert_close(torch, o, o_p, dtype, f"{what} output")
+    dead = torch.isneginf(lse_p)
+    check(torch.equal(torch.isneginf(lse), dead) and not torch.isnan(lse).any(),
+          f"{what}: lse is -inf on other rows than the plain version's")
+    if (~dead).any():
+        err = max(err, assert_close(torch, lse[~dead], lse_p[~dead], dtype, f"{what} lse"))
+    return err
+
+
 def device_kernels(torch, fn):
     """Names of the device kernels (and copies, sets) one call of fn runs,
     from torch.profiler, after one warm call."""
@@ -627,7 +653,7 @@ def phase_kernels(torch, timer):
         return torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
 
     worst = {"rmsnorm": 0.0, "rmsnorm_bwd": 0.0, "flash_attention": 0.0,
-             "decode_attention": 0.0}
+             "decode_attention": 0.0, "decode_attention_lse": 0.0}
     n_checks = 0
 
     def bwd_checks(dtype):
@@ -753,7 +779,13 @@ def phase_kernels(torch, timer):
                     torch, out, ref.decode_attention(q, k, v, kv_pos, pos, window=window),
                     dtype, f"decode_attention {(B, H, K, Sc, dh)} window={window} {dtype}")
                 worst["decode_attention"] = max(worst["decode_attention"], err)
-                n_checks += 1
+                err = lse_close(
+                    torch, decode_attention(q, k, v, kv_pos, pos, window=window, return_lse=True),
+                    ref.decode_attention(q, k, v, kv_pos, pos, window=window, return_lse=True),
+                    dtype, f"decode_attention lse mode {(B, H, K, Sc, dh)} window={window} "
+                    f"{dtype}")
+                worst["decode_attention_lse"] = max(worst["decode_attention_lse"], err)
+                n_checks += 2
                 if 0 in lengths:
                     check(float(out[lengths.index(0)].abs().max()) == 0.0,
                           "decode_attention: an all-empty row must emit 0")
@@ -800,6 +832,37 @@ def phase_kernels(torch, timer):
                   f"decode_attention at splits > 1, K = {K} is not bit-identical between "
                   f"calls ({dtype})")
             n_checks += 1
+        # the lse mode over two halves of a cache, merged as the sharded decode merges
+        # two ranks' parts (`ops._merge_over`, `ref.merge_decode_parts`), against the
+        # kernel over the whole cache: llama2-7b's ICC batch at a serving cache, and
+        # glm4-9b decode_32k's shard on 16 x 16 (8 rows, 2048 slots, G = 16), all
+        # slots valid but row 0's (valid in the second half only) and row 1's (none)
+        for B, H, K, Sc, dh in [(8, 32, 32, 576, 128), (8, 32, 2, 2048, 128)]:
+            q = randn((B, H, dh), dtype)
+            k, v = randn((B, Sc, K, dh), dtype), randn((B, Sc, K, dh), dtype)
+            kv_pos, pos = decode_positions(torch, B, Sc, [Sc] * B)
+            half = Sc // 2
+            kv_pos[0] = -1
+            kv_pos[0, half:] = torch.arange(half, dtype=torch.int32, device="cuda")
+            pos[0] = half - 1
+            kv_pos[1] = -1
+            what = f"decode_attention lse mode {(B, H, K, Sc, dh)} {dtype}"
+            err = lse_close(torch, decode_attention(q, k, v, kv_pos, pos, return_lse=True),
+                            ref.decode_attention(q, k, v, kv_pos, pos, return_lse=True),
+                            dtype, what)
+            parts = [decode_attention(q, k[:, sl], v[:, sl], kv_pos[:, sl], pos, return_lse=True)
+                     for sl in (slice(0, half), slice(half, Sc))]
+            check(torch.isneginf(parts[0][1][0]).all() and torch.isneginf(parts[0][1][1]).all()
+                  and torch.isneginf(parts[1][1][1]).all(),
+                  f"{what}: a half with no valid slot of a row must give lse -inf")
+            merged = ref.merge_decode_parts([o for o, _ in parts], [lse for _, lse in parts])
+            whole = decode_attention(q, k, v, kv_pos, pos)
+            err = max(err, assert_close(torch, merged, whole, dtype,
+                                        f"{what}: two halves merged against the whole cache"))
+            check(not torch.isnan(merged).any() and float(merged[1].abs().max()) == 0.0,
+                  f"{what}: a row with no valid slot must merge to 0")
+            worst["decode_attention_lse"] = max(worst["decode_attention_lse"], err)
+            n_checks += 2
     torch.cuda.synchronize()
     say(f"kernels: {n_checks} kernel-vs-plain checks passed; worst max|err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
@@ -821,8 +884,7 @@ def phase_kernels(torch, timer):
         b_ms, b_by = bound(nbytes, flops, peak)
         r = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/rmsnorm.cu" if name == "rmsnorm_bwd"
-            else f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{SOURCES.get(name, name)}.cu",
             "replaces": TPU_KERNELS[name], "shape": shape, "dtype": dtype,
             "ms": timer(fn)}
         spread = timer.spread
@@ -958,6 +1020,32 @@ def phase_kernels(torch, timer):
             4.0 * n_valid * H * dh,
             lambda: max_err(decode_attention(q, k, v, kv_pos, pos),
                             ref.decode_attention(q, k, v, kv_pos, pos)))
+
+    # the lse mode (f32 output and lse, the sharded decode's parts): phase 10's llama2-7b
+    # cache on the (1, 1) mesh (15 prompt and 15 decode slots, all valid), and glm4-9b
+    # decode_32k's shard on 16 x 16 (8 rows, 2048 slots, G = 16, all valid). Bound: K
+    # and V's valid rows, positions, q read; the f32 output and lse written
+    for B, H, K, Sc, dh, label in [(8, 32, 32, 30, 128, "llama2-7b on the (1, 1) mesh"),
+                                   (8, 32, 2, 2048, 128, "glm4-9b decode_32k's 16 x 16 shard")]:
+        q = randn((B, H, dh), "bfloat16")
+        k, v = randn((B, Sc, K, dh), "bfloat16"), randn((B, Sc, K, dh), "bfloat16")
+        kv_pos, pos = decode_positions(torch, B, Sc, [Sc] * B)
+        mask = ((kv_pos >= 0) & (kv_pos <= pos[:, None]))[:, None, None, :]
+        heads = f"H=K={H}" if K == H else f"H={H} K={K}"
+
+        def lse_err():
+            got = decode_attention(q, k, v, kv_pos, pos, return_lse=True)
+            want = ref.decode_attention(q, k, v, kv_pos, pos, return_lse=True)
+            return max(max_err(a, b) for a, b in zip(got, want))
+
+        row("decode_attention_lse", f"B={B} Sc={Sc} {heads} dh={dh} ({label}), all valid",
+            lambda: decode_attention(q, k, v, kv_pos, pos, return_lse=True),
+            lambda: ref.decode_attention(q, k, v, kv_pos, pos, return_lse=True),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=K != H),
+            2 * B * Sc * K * dh * 2 + B * Sc * 4 + B * 4 + B * H * dh * 2 + B * H * (dh + 1) * 4,
+            4.0 * B * Sc * H * dh, lse_err)
 
     # seamless-m4t's cross decode: the static cross cache of 15 encoder frames
     # (Table I's N_input), every frame valid, the query position past them all
@@ -1246,7 +1334,7 @@ def train_card_vs_cpu(torch, arch, cut, B, S, steps):
     launched = dict(ops.LAUNCHES)
     loss_c, grads_c = grads_of(torch, model, p_cpu, batch)
     n_fwd, n_bwd = train_step_launches(cfg)
-    want = {"rmsnorm": n_fwd, "rmsnorm_bwd": n_bwd, "flash_attention": 0, "decode_attention": 0}
+    want = launch_counts(rmsnorm=n_fwd, rmsnorm_bwd=n_bwd)
     check(launched == want, f"{arch} train step launches {launched} != {want}")
     check(abs(loss_g - loss_c) <= MODEL_TOL, f"{arch} train step: loss card {loss_g} vs CPU "
           f"{loss_c}")
@@ -1412,8 +1500,8 @@ def check_launch_identity(arch, cfg, n, fwd):
     family runs launched at least once."""
     (r_p, a_p), (r_d, a_d) = per_forward(cfg)
     P, D = fwd["prefill"], fwd["decode"]
-    want = {"rmsnorm": r_p * P + r_d * D, "rmsnorm_bwd": 0,  # serving builds no graph
-            "flash_attention": a_p * P, "decode_attention": a_d * D}
+    want = launch_counts(rmsnorm=r_p * P + r_d * D,  # serving builds no graph
+                         flash_attention=a_p * P, decode_attention=a_d * D)
     check(n == want, f"{arch}: launches {n} != {want} predicted for {P} prefills and {D} "
           f"decode steps ({r_p} rmsnorm + {a_p} flash per prefill, {r_d} rmsnorm + {a_d} "
           "decode_attention per step)")
@@ -1916,8 +2004,7 @@ def train_full_width(torch, card, arch, cut, steps, hold):
     mem = torch.cuda.max_memory_allocated()
     n_fwd, n_bwd = train_step_launches(cfg)
     say(f"launches on the {arch} training path: {launches}")
-    want = {"rmsnorm": steps * n_fwd, "rmsnorm_bwd": steps * n_bwd,
-            "flash_attention": 0, "decode_attention": 0}
+    want = launch_counts(rmsnorm=steps * n_fwd, rmsnorm_bwd=steps * n_bwd)
     check(launches == want, f"{arch} training launches {launches} != {want} ({steps} steps of "
           f"{n_fwd} rmsnorm (forward, remat) and {n_bwd} rmsnorm_bwd, no attention kernel)")
     check(len(hist) == steps and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
@@ -1955,8 +2042,8 @@ def train_full_width(torch, card, arch, cut, steps, hold):
     groups, n_fb, by_name = _device_time(
         torch, lambda: grads.update(grads_of(torch, model, params, batch)[1]), ranges=False)
     one = dict(ops.LAUNCHES)
-    check(one == {"rmsnorm": n_fwd, "rmsnorm_bwd": n_bwd, "flash_attention": 0,
-                  "decode_attention": 0}, f"{arch}: one train step's launches {one}")
+    check(one == launch_counts(rmsnorm=n_fwd, rmsnorm_bwd=n_bwd),
+          f"{arch}: one train step's launches {one}")
     opt, n_opt, opt_names = _device_time(torch, lambda: adamw_update(oc, params, grads, state),
                                          ranges=False)
     fb_ms, opt_ms = sum(groups.values()) / 1e3, sum(opt.values()) / 1e3
@@ -2174,8 +2261,10 @@ def sharded_run(torch, card, mesh, arch, layers, steps):
     torch.cuda.synchronize()
     n = dict(ops.LAUNCHES)
     (r_p, a_p), (r_d, a_d) = per_forward(cfg)
-    want = {"rmsnorm": 2 * r_p + r_d * steps, "rmsnorm_bwd": 0, "flash_attention": 2 * a_p,
-            "decode_attention": a_d * steps}
+    # every decode call's cache (self and cross) has its slots on "model", of size 1: the
+    # kernel's lse mode on the rank's slots, the parts merged (`ops._decode_over_slots`)
+    want = launch_counts(rmsnorm=2 * r_p + r_d * steps, flash_attention=2 * a_p,
+                         decode_attention_lse=a_d * steps)
     diff = float((got - ref).abs().max())
     med = statistics.median
     depth = (f"{cfg.n_encoder_layers} + {cfg.n_layers} layers" if cfg.n_encoder_layers
@@ -2198,7 +2287,8 @@ def sharded_run(torch, card, mesh, arch, layers, steps):
         f"card {card}")
     say(f"sharded serving {arch} launches under the mesh: {n} (predicted {want}: {r_p} rmsnorm "
         f"+ {a_p} flash a prefill, two prefills, {r_d} rmsnorm + {a_d} decode_attention a "
-        f"step)")
+        f"step, every decode launch in the lse mode over the rank's slots: "
+        f"{n['decode_attention_lse']})")
     check(torch.equal(toks, ref_toks), f"{arch}: sharded greedy tokens differ from the "
           f"unsharded run's")
     check(diff <= SHARDED_LOGIT_TOL, f"{arch}: sharded logits differ from the unsharded run's "
@@ -2306,7 +2396,7 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
     d_grad = differences(grads_s, host_g)
     d_param = differences({n: p.detach() for n, p in dparams.named_parameters()}, host_p)
     n_fwd, n_bwd = train_step_launches(cfg)
-    want = {"rmsnorm": n_fwd, "rmsnorm_bwd": n_bwd, "flash_attention": 0, "decode_attention": 0}
+    want = launch_counts(rmsnorm=n_fwd, rmsnorm_bwd=n_bwd)
     layers = ", ".join(f"{k}={v}" for k, v in cut.items())
     say(f"sharded training {arch} full width ({cfg.family}): {layers}, d={cfg.d_model} "
         f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, remat, batch {B} x {S}, mesh (1, 1) "
@@ -2428,7 +2518,7 @@ DRYRUN_FLOPS_HELD = ("llama2-7b", "seamless-m4t-large-v2")  # no recurrent produ
 # every case at full depth in a call of its own
 DRYRUN_MESH_CASES = [
     ("glm4-9b", "train_4k", None), ("glm4-9b", "prefill_32k", {"n_layers": 10}),
-    ("glm4-9b", "decode_32k", None),  # the cache gathered a step: ~10.7 GB a device
+    ("glm4-9b", "decode_32k", None), ("llama2-7b", "decode_32k", None),
     ("qwen2-vl-72b", "train_4k", {"n_layers": 20}),
     ("qwen2-vl-72b", "prefill_32k", {"n_layers": 10}), ("qwen2-vl-72b", "decode_32k", None),
     ("mixtral-8x22b", "train_4k", None), ("mixtral-8x22b", "prefill_32k", {"n_layers": 8}),
@@ -2474,6 +2564,16 @@ DRYRUN_MESH_FLAGS = [
 ]
 
 
+# (case, class, bytes a device a step it must stay under): glm4-9b's 2 KV heads cannot
+# shard 16 ways, so a decode that took the cache's slots whole gathered every layer's
+# slots (11.20 GB a device on 16 x 16, 183.4-183.7 GB under DECODE_RULES_V2/V3; PERF.md)
+DRYRUN_DECODE_BOUNDS = [
+    ("glm4-9b__decode_32k__single", "all-gather", 0.6e9),
+    ("glm4-9b__decode_32k__single__decode_v2", "all-gather", 1e9),
+    ("glm4-9b__decode_32k__single__decode_v3", "all-gather", 1e9),
+]
+
+
 def flag_tag(opts):
     """A record's variant tag from its flags, as `--tag` names one."""
     parts = [opts.get("rules") or ""] + [f"{k}_{v}" for k, v in opts.get("rt_kwargs", {}).items()]
@@ -2485,9 +2585,13 @@ def check_mesh_records(recs, card):
     peak and its parts, `fits_h100` on the peak, dot FLOPs, the collective
     bytes by the reference's five classes and the three roofline terms
     (the collective one over `H100.link_bw`), and no flag saying something
-    was not counted. Prints glm4-9b decode_32k's all-gather against the
-    cache's (40 layers x k and v x 8 rows x 32768 slots x 2 KV heads x 128
-    x 2 B: the decode kernel takes the slots whole, `kernels/ops.py`)."""
+    was not counted. Every decode_32k step of an arch with attention keeps
+    its cache in place (`kernels/ops.py`): the class that moved the cache
+    while the decode kernel took its slots whole holds less than that
+    movement alone, the device's cache shard where "model" divides the KV
+    heads (an all-to-all to a head sharding) and "model" times it where it
+    does not (a gather of the slots); and DRYRUN_DECODE_BOUNDS hold."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.cost_analysis import COLLECTIVES, PARTS
     from repro_torch.launch.roofline import H100
 
@@ -2503,11 +2607,22 @@ def check_mesh_records(recs, card):
               and abs(t["collective_s"] - total / H100.link_bw) <= 1e-9 * max(t["collective_s"], 1)
               and "peak_counted" not in m and "collective_counted" not in r,
               f"{r['case']}: a mesh record lacks a counted quantity")
-    glm = next(r for r in recs if r["case"] == "glm4-9b__decode_32k__single")
-    cache = 40 * 2 * 8 * 32768 * 2 * 128 * 2
-    say(f"glm4-9b decode_32k on 16x16: all-gather {glm['cost']['collective_bytes']['all-gather']:.6g}"
-        f" B a device a step, of which the cache's slots gathered for the decode kernel "
-        f"{cache:.6g} B (counted, not measured); card {card}")
+    by_case = {r["case"]: r for r in recs}
+    for r in recs:
+        arch = r["case"].split("__")[0]
+        if "decode_32k" not in r["case"] or get_config(arch).family == "ssm":
+            continue
+        model, cache = r["mesh"]["model"], r["memory"]["cache_gb"] * 1e9
+        cls, most = (("all-to-all", cache) if get_config(arch).n_kv_heads % model == 0
+                     else ("all-gather", model * cache))
+        got = r["cost"]["collective_bytes"][cls]
+        say(f"decode keeps its cache in place, {r['case']}: {cls} {got:.6g} B a device a step, "
+            f"against the cache's own movement {most:.6g} B (counted, not measured); card {card}")
+        check(got < most, f"{r['case']}: {cls} {got:.6g} B a device a step holds the cache "
+              f"({most:.6g} B)")
+    for case, cls, most in DRYRUN_DECODE_BOUNDS:
+        got = by_case[case]["cost"]["collective_bytes"][cls]
+        check(got < most, f"{case}: {cls} {got:.6g} B a device a step, not under {most:.6g}")
 
 
 def phase_dryrun(torch, peaks, sharded_peaks, card):

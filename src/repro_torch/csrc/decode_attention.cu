@@ -45,6 +45,12 @@
 //    resets the counter to 0. The fixed order makes the output
 //    bit-identical from call to call; one launch per call keeps the
 //    host-bound decode step at one launch per layer.
+//  * With `lse` given (the sharded decode over a cache whose slots are cut
+//    across ranks), the output is f32 and each (row, head) also gets the
+//    log-sum-exp of its valid scores, m + log(l), written where the output
+//    is written (by the single split, or by the merging CTA); a row with no
+//    valid slot gets -inf and 0. The caller merges the ranks' parts by
+//    weights exp(lse - max lse) and rounds the merged f32 output once.
 #include "common.cuh"
 
 namespace {
@@ -72,7 +78,8 @@ template <typename T, int DH, int GC>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kv_pos,
-                        const int* __restrict__ pos, T* __restrict__ o, float* __restrict__ part,
+                        const int* __restrict__ pos, T* __restrict__ o, float* __restrict__ of,
+                        float* __restrict__ lse, float* __restrict__ part,
                         int* __restrict__ counters, int n_hg, int Sc, int tiles_per_split,
                         long long q_sb, long long q_sh, long long k_sb, long long k_ss,
                         long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -294,16 +301,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   // The GC x DH outputs, element i = tid + e * kThreads for e < PER.
   constexpr int PER = (GC * DH + kThreads - 1) / kThreads;
+  // Output element (g, d): rounded to T, or f32 as it is when lse is asked for.
+  auto put = [&](int g, int d, float val) {
+    const long long at = b * o_sb + (y * GC + g) * o_sh + d;
+    if (of != nullptr) of[at] = val;
+    else o[at] = from_f32<T>(val);
+  };
+  // lse of query head g from its (m, l); -inf where no slot was valid.
+  auto put_lse = [&](int g, float m, float l) {
+    lse[(long long)b * Y * GC + y * GC + g] =
+        m <= kNegInf / 2 ? __int_as_float(0xff800000) : m + logf(l);
+  };
 
   if (splits == 1) {
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int i = tid + e * kThreads, g = i / DH, d = i % DH;
-      if (i < GC * DH) {
-        const float inv = 1.f / fmaxf(g_l[g], 1e-30f);
-        o[b * o_sb + (y * GC + g) * o_sh + d] = from_f32<T>(summed(g, d) * inv);
-      }
+      if (i < GC * DH) put(g, d, summed(g, d) * (1.f / fmaxf(g_l[g], 1e-30f)));
     }
+    if (lse != nullptr && tid < GC) put_lse(tid, g_m[tid], g_l[tid]);
     return;
   }
 
@@ -353,6 +369,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       L = fmaf(w, ml[s * 2 * GC + GC + tid], L);
     }
     g_c[tid] = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr) put_lse(tid, M, L);
   }
   if (tid == 0) {
     int n = 0;
@@ -383,7 +400,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int e = 0; e < PER; ++e) {
     const int i = tid + e * kThreads, g = i / DH, d = i % DH;
-    if (i < GC * DH) o[b * o_sb + (y * GC + g) * o_sh + d] = from_f32<T>(a[e] * g_c[g]);
+    if (i < GC * DH) put(g, d, a[e] * g_c[g]);
   }
   if (tid == 0) counters[b * Y + y] = 0;  // every split has arrived: ready for the next call
 }
@@ -398,8 +415,8 @@ constexpr int smem_bytes() {  // the K/V ring (two stages), then the row-group s
 
 template <typename T, int DH, int GC>
 int launch_gc(const void* q, const void* k, const void* v, const int* kv_pos, const int* pos,
-              void* o, float* part, int* counters, int B, int K, int n_hg, int Sc, int splits,
-              const long long* st, int window, float scale, cudaStream_t stream) {
+              void* o, float* lse, float* part, int* counters, int B, int K, int n_hg, int Sc,
+              int splits, const long long* st, int window, float scale, cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, DH, GC>;
   constexpr int bytes = smem_bytes<T, DH, GC>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -408,7 +425,8 @@ int launch_gc(const void* q, const void* k, const void* v, const int* kv_pos, co
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   const dim3 grid((unsigned)splits, (unsigned)(K * n_hg), (unsigned)B);
   kern<<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, kv_pos, pos, (T*)o, part, counters, n_hg, Sc,
+      (const T*)q, (const T*)k, (const T*)v, kv_pos, pos, lse ? nullptr : (T*)o,
+      lse ? (float*)o : nullptr, lse, part, counters, n_hg, Sc,
       tiles_per_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], window, scale);
   return (int)cudaGetLastError();
@@ -416,17 +434,17 @@ int launch_gc(const void* q, const void* k, const void* v, const int* kv_pos, co
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const int* kv_pos, const int* pos,
-           void* o, float* part, int* counters, int B, int K, int GC, int n_hg, int Sc,
-           int splits, const long long* st, int window, float scale, cudaStream_t stream) {
+           void* o, float* lse, float* part, int* counters, int B, int K, int GC, int n_hg,
+           int Sc, int splits, const long long* st, int window, float scale, cudaStream_t stream) {
   switch (GC) {
     case 1:
-      return launch_gc<T, DH, 1>(q, k, v, kv_pos, pos, o, part, counters, B, K, n_hg, Sc,
+      return launch_gc<T, DH, 1>(q, k, v, kv_pos, pos, o, lse, part, counters, B, K, n_hg, Sc,
                                  splits, st, window, scale, stream);
     case 2:
-      return launch_gc<T, DH, 2>(q, k, v, kv_pos, pos, o, part, counters, B, K, n_hg, Sc,
+      return launch_gc<T, DH, 2>(q, k, v, kv_pos, pos, o, lse, part, counters, B, K, n_hg, Sc,
                                  splits, st, window, scale, stream);
     case 4:
-      return launch_gc<T, DH, 4>(q, k, v, kv_pos, pos, o, part, counters, B, K, n_hg, Sc,
+      return launch_gc<T, DH, 4>(q, k, v, kv_pos, pos, o, lse, part, counters, B, K, n_hg, Sc,
                                  splits, st, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -442,9 +460,11 @@ int launch(const void* q, const void* k, const void* v, const int* kv_pos, const
 // G; each KV head's G query heads go to n_hg CTAs of GC = G / n_hg heads,
 // GC in {1, 2, 4}. With splits > 1, `part` holds B * K * splits * G *
 // (dh + 2) floats and `counters` B * K * n_hg int32 zeros, left zero on
-// return.
+// return. With `lse` (B, H) f32 (contiguous), o is f32 and lse gets each
+// (row, head)'s log-sum-exp of its valid scores (-inf where none is).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* kv_pos, const void* pos, void* o, void* part,
+                                    const void* kv_pos, const void* pos, void* o, void* lse,
+                                    void* part,
                                     void* counters, int B, int H, int K, int n_hg, int Sc,
                                     int splits,
                                     long long q_sb, long long q_sh, long long k_sb,
@@ -467,9 +487,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
 #define DECODE_CASE(D)                                                                   \
   case D:                                                                                \
-    DISPATCH_DTYPE(dtype, return launch<scalar_t, D>(q, k, v, kp, ps, o, pt, ct, B, K, GC, \
-                                                     n_hg, Sc, splits, st, window, scale, \
-                                                     s));                                  \
+    DISPATCH_DTYPE(dtype, return launch<scalar_t, D>(q, k, v, kp, ps, o, (float*)lse, pt, ct, \
+                                                     B, K, GC, n_hg, Sc, splits, st,      \
+                                                     window, scale, s));                   \
     break;
   switch (dh) {
     DECODE_CASE(16)

@@ -35,10 +35,11 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel launches, one count per kernel, raised by each wrapper where it
-# launches its kernel and nowhere else.
+# Kernel launches, one count per kernel (decode_attention's lse mode under a
+# key of its own), raised by each wrapper where it launches its kernel and
+# nowhere else.
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "decode_attention_lse": 0}
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -48,7 +49,7 @@ _SIGNATURES = {
     "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F] + [_I] * 6 + [_P],
     "rmsnorm_bwd": [_P] * 6 + [_L] * 4 + [_F] + [_I] * 7 + [_P],
     "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
-    "decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
+    "decode_attention_fwd": [_P] * 9 + [_I] * 6 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

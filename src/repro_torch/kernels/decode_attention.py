@@ -12,6 +12,12 @@ ranges of whole 64-slot tiles (`decode_splits`), one CTA each, merged by the
 last CTA of each (row, head group) in the same launch. The merge counters are zeroed
 once per device and left zero by every call; calls that share them must run
 on one stream.
+
+With `return_lse=True` the same launch returns the f32 output and each (row,
+head)'s log-sum-exp of its valid scores (-inf, and an output of 0, where no
+slot is valid): the parts that the sharded decode over a cache cut by slots
+merges across ranks (`ops.decode_attention`). Those launches count under
+`LAUNCHES["decode_attention_lse"]`.
 """
 
 from __future__ import annotations
@@ -72,8 +78,11 @@ def decode_attention(
     pos: torch.Tensor,  # (B,) int32
     *,
     window: int = 0,
-) -> torch.Tensor:
-    """One query token per sequence against its cache; returns (B, H, dh)."""
+    return_lse: bool = False,
+):
+    """One query token per sequence against its cache; returns (B, H, dh) in
+    q's dtype, or with `return_lse` (the output (B, H, dh) f32, its lse (B, H)
+    f32)."""
     B, H, dh = q.shape
     Bk, Sc, K, dhk = k.shape
     _build.refuse_grad("decode_attention", q, k, v)  # no backward, in either package
@@ -101,7 +110,9 @@ def decode_attention(
                              t.element_size())
     n_hg = head_groups(H // K)
     splits = decode_splits(B, K * n_hg, Sc, _build.sm_count(q.device.index))
-    out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, dh), dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     part = counters = None
     if splits > 1:
         part = torch.empty(B * K * splits * (H // K) * (dh + 2), dtype=torch.float32,
@@ -110,7 +121,7 @@ def decode_attention(
     lib = _build.library()
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-        pos.data_ptr(), out.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
         None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(),
         B, H, K, n_hg, Sc, splits,
@@ -119,5 +130,5 @@ def decode_attention(
         _build.dtype_code(q, "decode_attention"), _build.stream_of(q),
     )
     _build.check(err, "decode_attention")
-    _build.LAUNCHES["decode_attention"] += 1
-    return out
+    _build.LAUNCHES["decode_attention_lse" if return_lse else "decode_attention"] += 1
+    return (out, lse) if return_lse else out

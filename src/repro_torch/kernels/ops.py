@@ -17,8 +17,21 @@ kernel, or on the CPU its plain version, on the local shards through
 redistributes inputs whose placements differ first:
 
   * flash: batch over the data axes, heads over "model";
-  * decode: batch and heads likewise, the cache's slots (`kv_seq`)
-    replicated, so a sequence-sharded cache is gathered for the call;
+  * decode over a cache whose slots are sharded (`kv_seq`: "model" under
+    every decode rule set, on a mesh dim of size 1 too): the cache stays
+    where it is. Each rank runs the kernel in its lse mode over its own
+    slots, for the cache's rows (q's rows cut to the cache's `kv_batch`
+    rows locally) and every head (q's heads gathered: B x H x dh); the
+    ranks' (output, lse) parts are merged across the slot dims by two
+    all-reduces (the max of lse, then the sum of the weighted outputs and
+    the weights, `ref.merge_weights`), and the merged f32 output is
+    rounded once and leaves with q's placements (its heads cut locally).
+    The fresh token needs no third part: decode writes it into its slot
+    first (`sharding.write_slots`), on the rank that holds the slot. This
+    is the reference's decode, whose score, softmax and mix chain GSPMD
+    shards along the cache's slots, moving only the softmax's reductions;
+  * decode over a cache whose slots are not sharded: batch and heads as
+    flash's;
   * rmsnorm: rows (the batch dim) sharded, the last dim and gamma
     replicated; a row whose last dim is sharded (Mamba2's and the mLSTM's
     norms over "inner") is gathered for the call and cut again after it.
@@ -40,6 +53,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import sharding as sh
@@ -129,7 +143,9 @@ def decode_attention(
     window: int = 0,
 ) -> torch.Tensor:
     fn = functools.partial(_decode_local, window=window)
-    if isinstance(q, DTensor):  # the cache's slots gathered: kv_seq replicated
+    if isinstance(q, DTensor):
+        if sh.dims_sharding(k.placements, 1):
+            return _decode_over_slots(q, k, v, kv_pos, pos, window)
         q_pl, kv_pl, pair = _head_placements(q.shape, k.shape, ("batch", "heads", None),
                                              ("batch", None, "kv_heads", None))
         pos_pl = [p if p == Shard(0) else Replicate() for p in q_pl]
@@ -138,10 +154,47 @@ def decode_attention(
     return fn(q, k, v, kv_pos, pos)
 
 
-def _decode_local(q, k, v, kv_pos, pos, *, window):
+def _decode_local(q, k, v, kv_pos, pos, *, window, return_lse=False):
     if q.is_cuda:
-        return _decode_kernel(q, k, v, kv_pos, pos, window=window)
-    return ref.decode_attention(q, k, v, kv_pos, pos, window=window)
+        return _decode_kernel(q, k, v, kv_pos, pos, window=window, return_lse=return_lse)
+    return ref.decode_attention(q, k, v, kv_pos, pos, window=window, return_lse=return_lse)
+
+
+def _decode_over_slots(q, k, v, kv_pos, pos, window):
+    """Decode over a cache whose slots are sharded, the cache left in place
+    (module docstring): k, v and kv_pos keep their rows and slots as they
+    lie (any other sharding of theirs, none under the rule sets, is made
+    whole), q and pos take the cache's rows, and each rank's (output, lse)
+    over its slots is merged across the slot dims in the same `run_local`.
+    The result leaves in the placements q's axes give it."""
+    mesh = sh.current_mesh()
+    cache_pl = [p if p in (Shard(0), Shard(1)) else Replicate() for p in k.placements]
+    rows = [p if p == Shard(0) else Replicate() for p in cache_pl]
+    slot_dims = [i for i in sh.dims_sharding(cache_pl, 1) if mesh.size(i) > 1]
+
+    def local(ql, kl, vl, kpl, pl):
+        o, lse = _decode_local(ql, kl, vl, kpl, pl, window=window, return_lse=True)
+        return _merge_over(mesh, slot_dims, o, lse).to(ql.dtype)
+
+    out = sh.run_local(local, rows, (rows, cache_pl, cache_pl, cache_pl, rows),
+                       q, k, v, kv_pos, pos)
+    return sh.redistribute(out, sh.placements_of(q.shape, ("batch", "heads", None)))
+
+
+def _merge_over(mesh, dims, o, lse):
+    """The (output (B, H, dh), lse (B, H)) parts of the ranks along mesh
+    `dims` merged (`ref.merge_weights`): M = the max of lse, one all-reduce;
+    the weighted outputs and their weights, summed in one more; f32. With
+    no dims (one rank holds every slot) the weights are exactly 1."""
+    M = lse
+    for i in dims:
+        M = funcol.all_reduce(M, "max", mesh.get_group(i))
+    w = ref.merge_weights(lse, M)[..., None]
+    parts = torch.cat([w * o, w], dim=-1)
+    for i in dims:
+        parts = funcol.all_reduce(parts, "sum", mesh.get_group(i))
+    num, den = parts[..., :-1], parts[..., -1:]
+    return num / torch.where(den > 0, den, torch.ones_like(den))
 
 
 class RMSNormFn(torch.autograd.Function):

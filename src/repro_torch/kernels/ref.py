@@ -12,6 +12,9 @@ kernels, these follow the kernels:
 The CPU path of `ops` runs these; `chip_smoke.py` holds each kernel against
 its plain version on the card. `decode_attention_split` is the decode
 kernel's split-and-merge rule written out plainly, for the tests.
+`decode_attention(..., return_lse=True)` also returns the log-sum-exp of
+the valid scores, and `merge_decode_parts` merges such (output, lse) parts
+of a cache cut by slots, as the sharded decode merges them across ranks.
 `rmsnorm_bwd` is rmsnorm's gradient written out as a formula, the plain
 version of the backward kernel.
 """
@@ -23,8 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention", "decode_attention", "decode_attention_split", "rmsnorm",
-           "rmsnorm_bwd"]
+__all__ = ["flash_attention", "decode_attention", "decode_attention_split",
+           "merge_decode_parts", "merge_weights", "rmsnorm", "rmsnorm_bwd"]
 
 NEG_INF = -1e30
 
@@ -79,8 +82,11 @@ def decode_attention(
     pos: torch.Tensor,  # (B,) query positions
     *,
     window: int = 0,
-) -> torch.Tensor:
-    """One query token per sequence against its cache; returns (B, H, dh)."""
+    return_lse: bool = False,
+):
+    """One query token per sequence against its cache; returns (B, H, dh) in
+    q's dtype, or with `return_lse` (the output (B, H, dh) f32, the
+    log-sum-exp of each row's valid scores (B, H) f32, -inf where none is)."""
     B, H, dh = q.shape
     K = k.shape[2]
     G = H // K
@@ -92,8 +98,33 @@ def decode_attention(
     ok = (kv_pos >= 0) & (kv_pos <= p)
     if window > 0:
         ok = ok & (kv_pos > p - window)
-    out = _masked_softmax_mix(s, ok[:, None, None, :], vf)  # (B,K,G,dh)
-    return out.reshape(B, H, dh).to(q.dtype)
+    ok = ok[:, None, None, :]
+    out = _masked_softmax_mix(s, ok, vf).reshape(B, H, dh)  # (B,K,G,dh) as (B,H,dh)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.logsumexp(s.masked_fill(~ok, -math.inf), dim=-1)
+    return out, lse.reshape(B, H)
+
+
+def merge_weights(lse: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """Each part's weight exp(lse - M) for M the largest lse over the parts;
+    0 where a part has no valid slot (lse = -inf), and so where no part has
+    one (M = -inf), never NaN. A single part gets exactly 1."""
+    live = lse > -math.inf
+    return torch.where(live, torch.exp(lse - torch.where(live, M, lse.new_zeros(()))),
+                       lse.new_zeros(()))
+
+
+def merge_decode_parts(outs, lses) -> torch.Tensor:
+    """The decode output over a whole cache from `decode_attention(...,
+    return_lse=True)` over each part of it (slots cut into ranges): the parts'
+    outputs weighted by `merge_weights`, summed, over the summed weights;
+    f32, 0 where no part has a valid slot."""
+    lse = torch.stack(list(lses))  # (P, B, H)
+    w = merge_weights(lse, lse.amax(dim=0))
+    num = (w[..., None] * torch.stack(list(outs))).sum(dim=0)
+    den = w.sum(dim=0)[..., None]
+    return num / torch.where(den > 0, den, torch.ones_like(den))
 
 
 def decode_attention_split(

@@ -42,9 +42,10 @@ case.rules)`:
 and the device's argument bytes by part (`argument_bytes`, from the specs).
 DTensor picks the collectives as it would on the card's NCCL: a partial
 sum to a shard is a reduce-scatter, a shard of one dim to another an
-all-to-all (`sharding.redistribute`). Where a path gathers what the
-reference keeps sharded (decode's cache under DECODE_RULES: the kernel's
-`local_map` takes `kv_seq` replicated), the all-gather is counted.
+all-to-all (`sharding.redistribute`). Decode keeps a cache whose slots
+are sharded in place (`kernels/ops.py`): its step counts q's head gather
+and the two all-reduces that merge the ranks' (output, lse) parts, not the
+cache.
 
 Results land in benchmarks/results/dryrun_h100/<arch>__<shape>__<mesh>.json
 (mesh: h100, single or multi; `--tag` names a variant).

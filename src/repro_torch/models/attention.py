@@ -20,7 +20,11 @@ attends over the cache (`ops.decode_attention`). That equals the
 reference's two-part softmax (cache + fresh token) whenever the slot it
 overwrites was already masked: an empty slot (pos < Sc), or pos - Sc outside
 a window <= Sc. `InferenceEngine` sizes requests so that pos < Sc holds, and
-the stack refuses a ring cache smaller than its window.
+the stack refuses a ring cache smaller than its window. Under a mesh whose
+rules shard the cache's slots (`kv_seq` over "model" in every decode rule
+set), the cache stays where it lies, as the reference keeps it: the token is
+written on the rank that holds its slot, each rank attends over its own
+slots and the ranks' parts are merged by their log-sum-exp (`kernels/ops.py`).
 
 Cross attention (the enc-dec decoder): K/V come from `project_kv` over the
 encoder output (no RoPE), q is projected and rotated as usual, and the mask
@@ -378,7 +382,8 @@ def decode_attention(
     The cache tensors are updated in place (the reference rebuilds them
     functionally); at full width a per-step copy would double the KV
     traffic. Under a mesh (`flat_slot` None) each rank writes the slots it
-    holds (`sharding.write_slots`). Returns out (B, d)."""
+    holds (`sharding.write_slots`) and attends over them, the ranks' parts
+    merged across the slot dims; no cache byte moves. Returns out (B, d)."""
     q, k, v = _project_qkv(p, x[:, None, :], rope)
     if flat_slot is None:
         sh.write_slots(cache_k, k[:, 0], pos)
@@ -404,9 +409,10 @@ def cross_decode_attention(
     frames (cache_pos >= 0). The kernel also masks kv_pos > pos, so it gets
     `beyond` as the query position and window 0, which mask nothing else.
     Returns out (B, d); the cache is not written. Under a mesh the cross
-    cache comes laid out by `cache_axes` (its slots over "model" under
-    DECODE_RULES) and the kernel's wrapper gathers it, as it does the self
-    cache."""
+    cache comes laid out by `cache_axes` (its slots over "model" under the
+    decode rule sets, where "model" divides the frames) and stays so: each
+    rank attends over its own frames and the parts are merged, as for the
+    self cache."""
     q = _project_q(p, x[:, None, :], rope)
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, cache_pos, beyond, window=0)
     return constrain(_out_proj(out, p.wo), ("batch", "embed"))

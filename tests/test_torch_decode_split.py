@@ -1,9 +1,13 @@
 """Split-K decode without a card: the split count, the split-and-merge rule
 (`ref.decode_attention_split`, the kernel's arithmetic written out plainly)
 against `ref.decode_attention` and the Pallas decode kernel in interpret
-mode, and the 16-byte alignment rule of the kernels' TMA and cp.async
-copies. f32 throughout, at `TOLS["float32"]` (2e-5, as tests/test_kernels.py).
+mode, the lse mode and the merge of (output, lse) parts of a cache cut by
+slots (`ref.merge_decode_parts`, the sharded decode's merge across ranks),
+and the 16-byte alignment rule of the kernels' TMA and cp.async copies. f32
+throughout, at `TOLS["float32"]` (2e-5, as tests/test_kernels.py).
 """
+
+import math
 
 import types
 
@@ -112,6 +116,87 @@ class TestSplitMergeRule:
         got = ref.decode_attention_split(*(torch.from_numpy(x) for x in (q, k, v, kv_pos, pos)),
                                          window=window, splits=splits)
         np.testing.assert_allclose(got.numpy(), np.asarray(o, np.float32), rtol=TOL, atol=TOL)
+
+
+def lse_cache(G, window):
+    """Rows of a 96-slot cache, K = 2, dh 16: row 0 positions 0..95 in order,
+    row 1 positions 0..19 in slots 60..79 only (no valid slot before slot
+    60), row 2 empty (dead in every part)."""
+    B, K, Sc, dh = 3, 2, 96, 16
+    q, k, v = randn(3, (B, K * G, dh)), randn(4, (B, Sc, K, dh)), randn(5, (B, Sc, K, dh))
+    kv_pos = np.full((B, Sc), -1, np.int32)
+    kv_pos[0] = np.arange(Sc)
+    kv_pos[1, 60:80] = np.arange(20)
+    pos = np.asarray([Sc - 1, 19, 0], np.int32)
+    return [torch.from_numpy(a) for a in (q, k, v, kv_pos, pos)], window
+
+
+def cut(args, parts):
+    """(q, and each part's k, v, kv_pos, pos): the slots cut into `parts`
+    equal ranges, as a cache's slots are sharded over `parts` ranks."""
+    q, k, v, kv_pos, pos = args
+    n = k.shape[1] // parts
+    return [(q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n], kv_pos[:, i * n:(i + 1) * n],
+             pos) for i in range(parts)]
+
+
+LSE_CASES = [pytest.param(G, window, id=f"G{G}-window{window}")
+             for G in (1, 4, 16) for window in (0, 24)]
+
+
+class TestLseMerge:
+    @pytest.mark.parametrize("parts", [2, 3])
+    @pytest.mark.parametrize("G,window", LSE_CASES)
+    def test_parts_merged_equal_whole(self, G, window, parts):
+        args, window = lse_cache(G, window)
+        got = [ref.decode_attention(*a, window=window, return_lse=True) for a in cut(args, parts)]
+        merged = ref.merge_decode_parts([o for o, _ in got], [lse for _, lse in got])
+        whole, whole_lse = ref.decode_attention(*args, window=window, return_lse=True)
+        assert merged.dtype == whole.dtype == torch.float32
+        torch.testing.assert_close(merged, ref.decode_attention(*args, window=window),
+                                   rtol=TOL, atol=TOL)
+        torch.testing.assert_close(whole, merged, rtol=TOL, atol=TOL)
+        # the parts' lse merged the same way: log of the summed exp
+        lses = torch.stack([lse for _, lse in got])
+        torch.testing.assert_close(torch.logsumexp(lses, dim=0), whole_lse, rtol=TOL, atol=TOL)
+
+    @pytest.mark.parametrize("G,window", LSE_CASES)
+    def test_lse_equals_logsumexp_of_valid_scores(self, G, window):
+        (q, k, v, kv_pos, pos), window = lse_cache(G, window)
+        B, H, dh = q.shape
+        K = k.shape[2]
+        s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, K, H // K, dh), k) / math.sqrt(dh)
+        ok = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+        if window:
+            ok &= kv_pos > pos[:, None] - window
+        want = torch.logsumexp(s.masked_fill(~ok[:, None, None, :], -math.inf), dim=-1)
+        _, lse = ref.decode_attention(q, k, v, kv_pos, pos, window=window, return_lse=True)
+        torch.testing.assert_close(lse, want.reshape(B, H), rtol=TOL, atol=TOL)
+        assert torch.isneginf(lse[2]).all() and torch.isfinite(lse[:2]).all()
+
+    @pytest.mark.parametrize("parts", [2, 3])
+    @pytest.mark.parametrize("G,window", LSE_CASES)
+    def test_dead_rows_give_zero(self, G, window, parts):
+        """Row 2 has no valid slot in any part: 0, never NaN. Row 1's first
+        part holds none of its slots: that part's lse is -inf, its weight 0."""
+        args, window = lse_cache(G, window)
+        got = [ref.decode_attention(*a, window=window, return_lse=True) for a in cut(args, parts)]
+        merged = ref.merge_decode_parts([o for o, _ in got], [lse for _, lse in got])
+        assert not torch.isnan(merged).any()
+        assert float(merged[2].abs().max()) == 0.0
+        for o, lse in got:
+            assert torch.isneginf(lse[2]).all() and float(o[2].abs().max()) == 0.0
+        o0, lse0 = got[0]
+        assert torch.isneginf(lse0[1]).all() and float(o0[1].abs().max()) == 0.0
+        assert float(merged[1].abs().max()) > 0.0
+
+    def test_one_part_weight_is_exactly_one(self):
+        """One part (a mesh dim of size 1): the merge returns its output bit
+        for bit, so a one-rank mesh's logits equal the unsharded run's."""
+        args, _ = lse_cache(4, 0)
+        o, lse = ref.decode_attention(*args, return_lse=True)
+        assert torch.equal(ref.merge_weights(lse, lse)[:2], torch.ones_like(lse[:2]))
+        assert torch.equal(ref.merge_decode_parts([o], [lse]), o)
 
 
 class TestAlignmentRule:

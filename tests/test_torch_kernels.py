@@ -188,6 +188,9 @@ class TestDispatchOnCpu:
         pos = torch.tensor([5], dtype=torch.int32)
         d = ops.decode_attention(q[:, 0].reshape(1, 4, 16), k, k, kv_pos, pos)
         assert d.shape == (1, 4, 16)
+        o, lse = ref.decode_attention(q[:, 0].reshape(1, 4, 16), k, k, kv_pos, pos,
+                                      return_lse=True)
+        assert torch.equal(o.to(d.dtype), d) and lse.shape == (1, 4)
         assert ops.LAUNCHES == before
 
 
@@ -301,6 +304,50 @@ class TestKernelsOnCard:
         for b in range(B):
             if (kv_pos[b] < 0).all():
                 assert float(o[b].abs().max()) == 0.0
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sc,dh", [
+        (8, 32, 32, 576, 128),  # one split a (row, head group)
+        (1, 32, 32, 576, 128),  # split, merged in the launch
+        (8, 32, 2, 2048, 128),  # glm4-9b decode_32k's shard on 16 x 16, split
+        (2, 4, 4, 130, 112),
+    ])
+    def test_decode_attention_lse_mode(self, card, dtype, B, H, K, Sc, dh):
+        """The lse mode against the plain version (the f32 output; lse, -inf
+        on a row with no valid slot), bit-identical from call to call; its
+        two halves' parts merged equal the kernel over the whole cache, and a
+        row valid in one half only merges right."""
+        from repro_torch.kernels.decode_attention import decode_attention
+
+        t = TORCH[dtype]
+        half = Sc // 2
+        kv_pos = np.tile(np.arange(Sc, dtype=np.int32), (B, 1))
+        pos = np.full((B,), Sc - 1, np.int32)
+        kv_pos[0, :half], kv_pos[0, half:], pos[0] = -1, np.arange(Sc - half), Sc - half - 1
+        if B > 1:
+            kv_pos[1] = -1  # no valid slot
+        args = (torch.from_numpy(randn(0, (B, H, dh))).to(card, t),
+                torch.from_numpy(randn(1, (B, Sc, K, dh))).to(card, t),
+                torch.from_numpy(randn(2, (B, Sc, K, dh))).to(card, t),
+                torch.from_numpy(kv_pos).to(card), torch.from_numpy(pos).to(card))
+        o, lse = decode_attention(*args, return_lse=True)
+        again = decode_attention(*args, return_lse=True)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        r, r_lse = ref.decode_attention(*args, return_lse=True)
+        assert o.dtype == lse.dtype == torch.float32
+        torch.testing.assert_close(o, r, rtol=TOLS[dtype], atol=TOLS[dtype])
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(r_lse))
+        live = ~torch.isneginf(r_lse)
+        torch.testing.assert_close(lse[live], r_lse[live], rtol=TOLS[dtype], atol=TOLS[dtype])
+        q, k, v, kp, p = args
+        parts = [decode_attention(q, k[:, sl], v[:, sl], kp[:, sl], p, return_lse=True)
+                 for sl in (slice(0, half), slice(half, Sc))]
+        merged = ref.merge_decode_parts([a for a, _ in parts], [b for _, b in parts])
+        torch.testing.assert_close(merged.to(t).float(), decode_attention(*args).float(),
+                                   rtol=TOLS[dtype], atol=TOLS[dtype])
+        assert not torch.isnan(merged).any()
+        if B > 1:
+            assert float(merged[1].abs().max()) == 0.0
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("B,H,K,Sc,dh", [

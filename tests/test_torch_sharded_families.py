@@ -22,7 +22,14 @@ kernels:
   * ssm: xlstm-1.3b (an mLSTM group and an sLSTM block) on (1, 2): C
     sharded on its value dim, n on its key dim;
   * enc-dec: seamless-m4t-large-v2 on (1, 2) and (2, 1), encoder frames
-    from the seed: the non-causal encoder, cross prefill and cross decode.
+    from the seed: the non-causal encoder, cross prefill and cross decode;
+    and on (1, 2) with 16 frames, which "model" divides, so that the cross
+    cache too is cut by slots.
+
+Decode over a cache whose slots are sharded runs the kernel on each rank's
+own slots and merges the ranks' parts (`kernels/ops.py`): rank 0 logs every
+collective of the decode steps (`CollectiveLog`), and none moves a tensor
+of a cache's shape.
 
 The same weights (the reference's init with every constant leaf, norms and
 biases, perturbed from a seed; converted) run unsharded in the port and in
@@ -35,6 +42,7 @@ of the sharded cache in place.
 import contextlib
 import dataclasses
 import datetime
+import json
 import os
 import time
 
@@ -54,6 +62,7 @@ from repro.models import transformer as jax_transformer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import convert_params  # noqa: E402
 from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
+from test_torch_sharded_serving import CollectiveLog, cache_moved  # noqa: E402
 
 TOL = 2e-3
 B, S, STEPS = 2, 12, 4
@@ -73,11 +82,14 @@ CASES = [
     ("xlstm-1.3b (1, 2)", "xlstm-1.3b", {}, (1, 2)),
     ("seamless-m4t-large-v2 (1, 2)", "seamless-m4t-large-v2", {}, (1, 2)),
     ("seamless-m4t-large-v2 (2, 1)", "seamless-m4t-large-v2", {}, (2, 1)),
+    ("seamless-m4t-large-v2 16 frames (1, 2)", "seamless-m4t-large-v2", {"enc_frames": S + 4},
+     (1, 2)),
 ]
+FLAGS = ("moe_dispatch", "enc_frames")  # case fields that are not config fields
 
 
 def _cfg(get, arch, fields):
-    fields = {k: v for k, v in fields.items() if k != "moe_dispatch"}
+    fields = {k: v for k, v in fields.items() if k not in FLAGS}
     return dataclasses.replace(get(arch, smoke=True), dtype="float32", **fields)
 
 
@@ -91,13 +103,18 @@ def _key(arch, fields):
     return arch + "".join(f"-{k}{v}" for k, v in sorted(fields.items()))
 
 
-def _inputs(cfg):
+def _frames(fields):
+    """The enc-dec case's encoder frames."""
+    return fields.get("enc_frames", S + 3)
+
+
+def _inputs(cfg, fields):
     """The prompt (tokens, vlm embeds or enc-dec's dict), its M-RoPE streams
     (vlm; None otherwise), as numpy, from seed 0."""
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, 1000, (B, S), np.int32)
     if cfg.n_encoder_layers:
-        enc = (0.5 * rng.standard_normal((B, S + 3, cfg.d_model))).astype(np.float32)
+        enc = (0.5 * rng.standard_normal((B, _frames(fields), cfg.d_model))).astype(np.float32)
         return {"enc_embeds": enc, "dec_tokens": tokens}, None
     if cfg.embeds_input:
         embeds = (0.5 * rng.standard_normal((B, S, cfg.d_model))).astype(np.float32)
@@ -132,12 +149,14 @@ def _pad(cache, n):
 RECURRENT = ("mamba", "rest", "mlstm", "slstm")  # the cache's recurrent state trees
 
 
-def _greedy(model, params, prompt, mrope, steps, on_mesh=None, in_place=None):
-    """Prefill, then `steps` greedy decode steps -> (the logits of every
-    step, prefill's first, as one (steps + 1, B, V) array; the tokens fed).
-    Under a mesh, from the second step on (the cache is laid out by then),
-    `in_place` gets one flag a recurrent state leaf and step: the step
-    returned the same DTensor and changed its local storage."""
+def _greedy(model, params, prompt, mrope, steps, on_mesh=None, in_place=None,
+            log=contextlib.nullcontext()):
+    """Prefill, then `steps` greedy decode steps (inside `log`) -> (the
+    logits of every step, prefill's first, as one (steps + 1, B, V) array;
+    the tokens fed). Under a mesh, from the second step on (the cache is
+    laid out by then), `in_place` gets one flag a recurrent state leaf and
+    step: the step returned the same DTensor and changed its local
+    storage."""
     from repro_torch import sharding as sh
 
     full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
@@ -149,7 +168,7 @@ def _greedy(model, params, prompt, mrope, steps, on_mesh=None, in_place=None):
             logits, cache = model.prefill(params, prompt, mrope_positions=mrope)
         cache = _pad(_tree(full, cache), steps)
         out, toks = [full(logits)], []
-        with ctx(sh.DECODE_RULES):
+        with ctx(sh.DECODE_RULES), log:
             for i in range(steps):
                 tok = out[-1].argmax(-1).to(torch.int32)
                 toks.append(tok)
@@ -197,17 +216,20 @@ def _rank(rank, store, tmp, cases):
         for name, arch, fields, shape in cases:
             cfg = _cfg(get_config, arch, fields)
             model, params = _port(cfg, fields, tmp, _key(arch, fields))
-            prompt, mrope = _torch_inputs(*_inputs(cfg))
+            prompt, mrope = _torch_inputs(*_inputs(cfg, fields))
             mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-            in_place = []
+            in_place, log = [], CollectiveLog()
             logits, toks = _greedy(model, params, prompt, mrope, STEPS, on_mesh=mesh,
-                                   in_place=in_place)
+                                   in_place=in_place, log=log)
             with sh.use_mesh(mesh, sh.DECODE_RULES):  # a zeroed cache, on the mesh by its axes
-                cache = model.init_cache(B, S + STEPS, device="cpu", enc_len=S + 3)
+                cache = model.init_cache(B, S + STEPS, device="cpu", enc_len=_frames(fields))
                 placed = [isinstance(t, DTensor) and list(t.placements) == sh.placements_of(
                     t.shape, ax) for t, ax in zip(_leaves(cache), _leaves(model.cache_axes()))]
             np.savez(os.path.join(tmp, f"out-{name}-{rank}.npz"), logits=logits, toks=toks,
                      in_place=np.array(in_place, bool), init_cache=np.array(placed, bool))
+            if rank == 0:
+                with open(os.path.join(tmp, f"log-{name}.json"), "w") as f:
+                    json.dump({"seen": log.seen, "calls": log.calls}, f)
     finally:
         dist.destroy_process_group()
 
@@ -318,7 +340,7 @@ def sharded(tmp_path_factory):
             if key in refs:
                 continue
             cfg = _cfg(get_config, arch, fields)
-            inputs = _inputs(cfg)
+            inputs = _inputs(cfg, fields)
             model, params = _port(cfg, fields, tmp, key)
             with _router_gaps([]) as gaps:
                 logits, toks = _greedy(model, params, *_torch_inputs(*inputs), STEPS)
@@ -333,19 +355,21 @@ def sharded(tmp_path_factory):
     out = {}
     for name, arch, fields, _ in CASES:
         got = [np.load(os.path.join(tmp, f"out-{name}-{r}.npz")) for r in range(2)]
+        with open(os.path.join(tmp, f"log-{name}.json")) as f:
+            log = json.load(f)
         out[name] = (got[0]["logits"], got[0]["toks"], *refs[_key(arch, fields)],
-                     [g["init_cache"] for g in got], [g["in_place"] for g in got])
+                     [g["init_cache"] for g in got], [g["in_place"] for g in got], log)
     return out
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 class TestShardedFamilies:
     def test_logits_match_unsharded_port(self, sharded, case):
-        logits, _, ref_logits, _, _, _, _, _ = sharded[case]
+        logits, _, ref_logits, *_ = sharded[case]
         np.testing.assert_allclose(logits, ref_logits, rtol=TOL, atol=TOL)
 
     def test_logits_match_jax(self, sharded, case):
-        logits, _, _, _, jax_logits, _, _, _ = sharded[case]
+        logits, _, _, _, jax_logits, *_ = sharded[case]
         np.testing.assert_allclose(logits, jax_logits, rtol=TOL, atol=TOL)
 
     def test_init_cache_on_mesh(self, sharded, case):
@@ -355,8 +379,26 @@ class TestShardedFamilies:
         assert all(f.size and f.all() for f in flags), flags
 
     def test_greedy_tokens_identical(self, sharded, case):
-        _, toks, _, ref_toks, _, _, _, _ = sharded[case]
+        _, toks, _, ref_toks, *_ = sharded[case]
         np.testing.assert_array_equal(toks, ref_toks)
+
+    def test_decode_keeps_the_cache_in_place(self, sharded, case):
+        """Each decode call over a cache whose slots "model" divides (the
+        self cache's S + STEPS; the cross cache's frames where they divide)
+        takes the merge path, the others do not; no collective of the decode
+        steps moves K, V or positions of a cache's shape."""
+        _, arch, fields, shape = next(c for c in CASES if c[0] == case)
+        cfg, log = _cfg(get_config, arch, fields), sharded[case][8]
+        if cfg.family == "ssm":  # no attention
+            assert not log["calls"]
+            return
+        assert all(slots == merged for slots, merged in log["calls"]), log["calls"]
+        cuts = [S + STEPS] + ([_frames(fields)] if cfg.n_encoder_layers else [])
+        sharded_slots = [n for n in cuts if n % shape[1] == 0]
+        assert sum(merged for _, merged in log["calls"]) == (
+            len(log["calls"]) * len(sharded_slots) // len(cuts)) > 0, log["calls"]
+        slots = {n // d for n in cuts for d in (1, shape[1])}
+        assert not cache_moved(log["seen"], slots, cfg.head_dim), log["seen"]
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES if c[1] in ("mixtral-8x22b",

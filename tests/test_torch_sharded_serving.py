@@ -5,14 +5,21 @@ One `torch.multiprocessing` spawn of two gloo ranks (a `FileStore` under
 the test's tmp dir, a 60 s process-group timeout) runs llama2-7b's smoke
 config (f32) under `sharding.use_mesh` on a (1, 2) and a (2, 1) mesh, and
 glm4-9b's GQA smoke config on (1, 2), as K = 2 and as K = 1: there "model"
-divides the query heads but not the KV heads, which are then replicated
-and paired with each rank's query heads. Prefill runs under PREFILL_RULES,
-then greedy decode steps under DECODE_RULES (the cache's slots sharded
-over "model"), and for llama2-7b on (2, 1) also under DECODE_RULES_V3. `attention_impl="pallas"` takes the kernels' wrappers, which
-run the plain versions on the local shards through `local_map`, as the
-card runs the kernels. The same weights (the reference's init, converted)
-run unsharded in the port and in JAX in this process: logits agree within
-TOL (tests/test_consistency.py) and greedy tokens are identical.
+divides the query heads but not the KV heads. Prefill runs under
+PREFILL_RULES, then greedy decode steps under DECODE_RULES (the cache's
+slots sharded over "model"), for llama2-7b on (2, 1) also under
+DECODE_RULES_V3 and for glm4-9b on (1, 2) under DECODE_RULES_V2 and V3.
+Decode runs the kernel on each rank's own slots and merges the ranks' parts
+(`kernels/ops.py`); one more case decodes llama2-7b from an empty cache of
+2 x STEPS slots at positions STEPS.., so that every fresh token lies on rank
+1 and rank 0's slots are all empty at every step. `attention_impl="pallas"`
+takes the kernels' wrappers, which run the plain versions on the local
+shards through `local_map`, as the card runs the kernels. The same weights
+(the reference's init, converted) run unsharded in the port and in JAX in
+this process: logits agree within TOL (tests/test_consistency.py) and
+greedy tokens are identical. Rank 0 logs every collective of the decode
+steps (`CollectiveLog`): none moves a tensor of the cache's shape, and every
+decode call over a cache whose slots are sharded takes the merge path.
 
 Also the dry run's count of a step on the single production mesh (`--mesh
 single`), on the fake backend.
@@ -33,6 +40,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
+from torch.distributed._functional_collectives import AsyncCollectiveTensor  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import RuntimeFlags as JaxFlags  # noqa: E402
@@ -51,11 +61,20 @@ CASES = [
     ("glm4-9b (1, 2)", "glm4-9b", None, (1, 2)),
     ("glm4-9b K=1 (1, 2)", "glm4-9b", 1, (1, 2)),
     ("llama2-7b DECODE_RULES_V3 (2, 1)", "llama2-7b", None, (2, 1)),
+    ("glm4-9b DECODE_RULES_V2 (1, 2)", "glm4-9b", None, (1, 2)),
+    ("glm4-9b DECODE_RULES_V3 (1, 2)", "glm4-9b", None, (1, 2)),
+    ("llama2-7b fresh token on rank 1 (1, 2)", "llama2-7b", None, (1, 2)),
 ]
 # a case's decode rule set where it is not DECODE_RULES: under V3 the token's
 # embed dim is sharded over "data" like the weights' (a projection's partial
-# sum over "data", the output projection's result sharded by embed)
-DECODE = {"llama2-7b DECODE_RULES_V3 (2, 1)": "DECODE_RULES_V3"}
+# sum over "data", the output projection's result sharded by embed); under V2
+# and V3 the token's rows are replicated, the cache's cut by rows
+DECODE = {"llama2-7b DECODE_RULES_V3 (2, 1)": "DECODE_RULES_V3",
+          "glm4-9b DECODE_RULES_V2 (1, 2)": "DECODE_RULES_V2",
+          "glm4-9b DECODE_RULES_V3 (1, 2)": "DECODE_RULES_V3"}
+# cases decoded from an empty cache (no prefill): its 2 x STEPS slots are cut
+# in two over "model", and the steps' positions STEPS.. land on rank 1's
+EMPTY = {"llama2-7b fresh token on rank 1 (1, 2)"}
 
 
 def _cfg(get, arch, kv):
@@ -72,10 +91,14 @@ def _pad(cache, n):
     return out
 
 
-def _greedy(model, params, prompt, steps, on_mesh=None, decode="DECODE_RULES"):
+def _greedy(model, params, prompt, steps, on_mesh=None, decode="DECODE_RULES", empty=False,
+            log=contextlib.nullcontext()):
     """Prefill, then `steps` greedy decode steps (under the rule set named
-    `decode`) -> (the logits of every step, prefill's first, as one
-    (steps + 1, B, V) array; the tokens fed)."""
+    `decode`, inside `log`) -> (the logits of every step, prefill's first, as
+    one (steps + 1, B, V) array; the tokens fed). With `empty` no prefill:
+    the steps start from an empty cache of 2 x `steps` slots at position
+    `steps`, the first fed the prompt's first token, and the array holds
+    the steps' logits only."""
     from repro_torch import sharding as sh
 
     full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
@@ -85,17 +108,79 @@ def _greedy(model, params, prompt, steps, on_mesh=None, decode="DECODE_RULES"):
         with ctx(rules[0]):
             if on_mesh:
                 params = model.distribute_params(params)
-            logits, cache = model.prefill(params, prompt)
-        cache = _pad({k: full(v) for k, v in cache.items()}, steps)
-        out, toks = [full(logits)], []
-        with ctx(rules[1]):
+            if not empty:
+                logits, cache = model.prefill(params, prompt)
+        if empty:
+            cache, out, start = model.init_cache(prompt.shape[0], 2 * steps, device="cpu"), [], steps
+        else:
+            cache = _pad({k: full(v) for k, v in cache.items()}, steps)
+            out, start = [full(logits)], prompt.shape[1]
+        toks = []
+        with ctx(rules[1]), log:
             for i in range(steps):
-                tok = out[-1].argmax(-1).to(torch.int32)
+                tok = out[-1].argmax(-1).to(torch.int32) if out else prompt[:, 0]
                 toks.append(tok)
-                pos = torch.full((prompt.shape[0],), prompt.shape[1] + i, dtype=torch.int32)
+                pos = torch.full((prompt.shape[0],), start + i, dtype=torch.int32)
                 logits, cache = model.decode(params, cache, tok, pos)
                 out.append(full(logits))
     return torch.stack(out).numpy(), torch.stack(toks).numpy()
+
+
+class CollectiveLog(TorchDispatchMode):
+    """While inside: every collective that runs (DTensor's redistributions
+    and the decode's merge alike), as (its class, the shape and dtype of the
+    tensor it moves), classed as `launch.cost_analysis` classes them; and
+    the decode calls, each as (its cache's slots sharded, the merge path
+    taken)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen, self.calls = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from repro_torch.launch.cost_analysis import _collective
+
+        if any(issubclass(t, (DTensor, AsyncCollectiveTensor)) for t in types):
+            return NotImplemented  # DTensor runs it: its local ops come back here
+        coll = _collective(func)
+        if coll is not None:
+            self.seen.append((coll[0], list(args[0].shape), str(args[0].dtype)))
+        return func(*args, **(kwargs or {}))
+
+    def __enter__(self):
+        from repro_torch import sharding as sh
+        from repro_torch.kernels import ops
+
+        self._saved = ops.decode_attention, ops._decode_over_slots
+        decode, over_slots = self._saved
+        merged = []
+
+        def traced_decode(q, k, *a, **kw):
+            merged.clear()
+            out = decode(q, k, *a, **kw)
+            self.calls.append((bool(sh.dims_sharding(k.placements, 1)), bool(merged)))
+            return out
+
+        def traced_over_slots(*a, **kw):
+            merged.append(True)
+            return over_slots(*a, **kw)
+
+        ops.decode_attention, ops._decode_over_slots = traced_decode, traced_over_slots
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.decode_attention, ops._decode_over_slots = self._saved
+        return super().__exit__(*exc)
+
+
+def cache_moved(seen, slots, dh):
+    """The logged collectives that move a tensor of the cache's shape: K or
+    V rows (..., slots, heads, dh) or slot positions (..., slots) int32, for
+    any count of slots in `slots` (a whole cache's or one rank's)."""
+    return [c for c in seen if (len(c[1]) >= 3 and c[1][-1] == dh and c[1][-3] in slots)
+            or (c[2] == "torch.int32" and len(c[1]) >= 2 and c[1][-1] in slots)]
 
 
 def _rank(rank, store, tmp, cases):
@@ -114,10 +199,14 @@ def _rank(rank, store, tmp, cases):
             params = convert_params(_unflatten(w), cfg, device="cpu")
             prompt = torch.from_numpy(np.load(os.path.join(tmp, "prompt.npy")))
             mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+            log = CollectiveLog()
             logits, toks = _greedy(model, params, prompt, STEPS, on_mesh=mesh,
-                                   decode=DECODE.get(name, "DECODE_RULES"))
+                                   decode=DECODE.get(name, "DECODE_RULES"), empty=name in EMPTY,
+                                   log=log)
             if rank == 0:
                 np.savez(os.path.join(tmp, f"out-{name}.npz"), logits=logits, toks=toks)
+                with open(os.path.join(tmp, f"log-{name}.json"), "w") as f:
+                    json.dump({"seen": log.seen, "calls": log.calls}, f)
     finally:
         dist.destroy_process_group()
 
@@ -143,16 +232,20 @@ def _unflatten(flat):
     return tree
 
 
-def _jax_logits(mj, pj, prompt, toks):
-    """The reference's prefill, then its decode steps fed `toks`."""
-    l0, cache = mj.prefill(pj, jnp.asarray(prompt))
-    cache = dict(cache)
-    for k in ("k", "v"):
-        cache[k] = jnp.pad(cache[k], ((0, 0), (0, 0), (0, len(toks)), (0, 0), (0, 0)))
-    cache["pos"] = jnp.pad(cache["pos"], ((0, 0), (0, len(toks))), constant_values=-1)
-    out = [np.asarray(l0)]
+def _jax_logits(mj, pj, prompt, toks, empty=False):
+    """The reference's prefill, then its decode steps fed `toks`; with
+    `empty`, the steps alone from an empty cache, as `_greedy`'s."""
+    if empty:
+        cache, out, start = dict(mj.init_cache(prompt.shape[0], 2 * len(toks))[0]), [], len(toks)
+    else:
+        l0, cache = mj.prefill(pj, jnp.asarray(prompt))
+        cache = dict(cache)
+        for k in ("k", "v"):
+            cache[k] = jnp.pad(cache[k], ((0, 0), (0, 0), (0, len(toks)), (0, 0), (0, 0)))
+        cache["pos"] = jnp.pad(cache["pos"], ((0, 0), (0, len(toks))), constant_values=-1)
+        out, start = [np.asarray(l0)], prompt.shape[1]
     for i, tok in enumerate(toks):
-        pos = jnp.full((prompt.shape[0],), prompt.shape[1] + i, jnp.int32)
+        pos = jnp.full((prompt.shape[0],), start + i, jnp.int32)
         lj, cache = mj.decode(pj, cache, jnp.asarray(tok), pos)
         out.append(np.asarray(lj))
     return np.stack(out)
@@ -165,20 +258,23 @@ def sharded(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("sharded"))
     prompt = np.random.default_rng(0).integers(0, 1000, (B, S), np.int32)
     np.save(os.path.join(tmp, "prompt.npy"), prompt)
-    refs = {}
+    refs, weights = {}, {}
     for name, arch, kv, _ in CASES:
-        key = f"{arch}-{kv}"
-        if key not in refs:
+        key, empty = f"{arch}-{kv}", name in EMPTY
+        if key not in weights:
             cfg_j = _cfg(jax_get_config, arch, kv)
             mj = jax_build_model(cfg_j, JaxFlags(remat=False))
             pj, _ = mj.init(jax.random.PRNGKey(0))
             flat = _flatten(jax.tree.map(np.asarray, pj))
             np.savez(os.path.join(tmp, key + ".npz"), **flat)
+            weights[key] = (mj, pj)
+        if (key, empty) not in refs:
+            mj, pj = weights[key]
             cfg = _cfg(get_config, arch, kv)
             model = build_model(cfg, RuntimeFlags(attention_impl="pallas"))
             params = convert_params(jax.tree.map(np.asarray, pj), cfg, device="cpu")
-            logits, toks = _greedy(model, params, torch.from_numpy(prompt), STEPS)
-            refs[key] = (logits, toks, _jax_logits(mj, pj, prompt, toks))
+            logits, toks = _greedy(model, params, torch.from_numpy(prompt), STEPS, empty=empty)
+            refs[key, empty] = (logits, toks, _jax_logits(mj, pj, prompt, toks, empty))
     t0 = time.time()
     ctx = mp.start_processes(_rank, args=(os.path.join(tmp, "store"), tmp, CASES), nprocs=2,
                              join=False, start_method="spawn")
@@ -190,23 +286,42 @@ def sharded(tmp_path_factory):
     out = {}
     for name, arch, kv, _ in CASES:
         got = np.load(os.path.join(tmp, f"out-{name}.npz"))
-        out[name] = (got["logits"], got["toks"], *refs[f"{arch}-{kv}"])
+        with open(os.path.join(tmp, f"log-{name}.json")) as f:
+            log = json.load(f)
+        out[name] = (got["logits"], got["toks"], *refs[f"{arch}-{kv}", name in EMPTY], log)
     return out
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 class TestShardedServing:
     def test_logits_match_unsharded_port(self, sharded, case):
-        logits, toks, ref_logits, ref_toks, _ = sharded[case]
+        logits, toks, ref_logits, ref_toks, _, _ = sharded[case]
         np.testing.assert_allclose(logits, ref_logits, rtol=TOL, atol=TOL)
 
     def test_logits_match_jax(self, sharded, case):
-        logits, toks, _, _, jax_logits = sharded[case]
+        logits, toks, _, _, jax_logits, _ = sharded[case]
         np.testing.assert_allclose(logits, jax_logits, rtol=TOL, atol=TOL)
 
     def test_greedy_tokens_identical(self, sharded, case):
-        _, toks, _, ref_toks, _ = sharded[case]
+        _, toks, _, ref_toks, _, _ = sharded[case]
         np.testing.assert_array_equal(toks, ref_toks)
+
+    def test_decode_keeps_the_cache_in_place(self, sharded, case):
+        """Every decode step's calls over the self cache (whose 2 x STEPS or
+        S + STEPS slots divide over "model") take the merge path, and no
+        collective of the steps moves K, V or positions of the cache's
+        shape: the merge all-reduces (B, H) and (B, H, dh + 1) parts."""
+        name, arch, kv, shape = next(c for c in CASES if c[0] == case)
+        cfg = _cfg(get_config, arch, kv)
+        log = sharded[case][5]
+        Sc = 2 * STEPS if case in EMPTY else S + STEPS
+        assert len(log["calls"]) == cfg.n_layers * STEPS
+        assert all(slots and merged for slots, merged in log["calls"]), log["calls"]
+        assert not cache_moved(log["seen"], {Sc, Sc // shape[1]}, cfg.head_dim), log["seen"]
+        rows, H = B // shape[0], cfg.n_heads  # the cache's rows: "kv_batch" over "data"
+        merges = [c[1] for c in log["seen"] if c[0] == "all-reduce"
+                  and c[1] in ([rows, H], [rows, H, cfg.head_dim + 1])]
+        assert len(merges) == (2 * cfg.n_layers * STEPS if shape[1] > 1 else 0), log["seen"]
 
 
 @pytest.mark.parametrize("arch,shape", [("llama2-7b", "decode_32k"), ("glm4-9b", "train_4k")])
@@ -217,10 +332,12 @@ def test_dryrun_mesh_single_writes_counted_records(tmp_path, arch, shape):
     them, equal to the argument bytes from the specs), `fits_h100` on the
     peak, dot FLOPs, collective bytes by the reference's five classes and
     the three roofline terms from them. Under DECODE_RULES the cache's
-    slots are sharded over "model", and the decode kernel takes them whole
-    with the KV heads over "model" instead (`kernels/ops.py`): llama2-7b's
-    32 KV heads divide 16 ways, so each layer's cache shard moves by an
-    all-to-all every step, the device's whole cache a step."""
+    slots are sharded over "model" and stay so (`kernels/ops.py`): no class
+    holds the device's cache shard any more (until the decode merged its
+    slot-sharded parts, llama2-7b's 32 KV heads, which divide 16 ways, took
+    each layer's shard to a head sharding by an all-to-all, the whole cache
+    a step); what moves is the weights' gathers, the activations and the
+    merge's all-reduces of (B, H) and (B, H, dh + 1) f32 a layer."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.cost_analysis import COLLECTIVES, PARTS
     from repro_torch.launch.roofline import H100
@@ -252,4 +369,8 @@ def test_dryrun_mesh_single_writes_counted_records(tmp_path, arch, shape):
         # layers x (k, v) x rows x slots x KV heads x dh x bf16, a 256th of each
         kv = cfg.n_layers * 2 * spec.batch * spec.seq * cfg.n_kv_heads * cfg.head_dim * 2 / 256
         assert m["cache_gb"] * 1e9 >= kv
-        assert kv <= c["collective_bytes"]["all-to-all"] <= 1.01 * m["cache_gb"] * 1e9
+        rows, H = spec.batch // 16, cfg.n_heads  # a device's rows ("kv_batch" over "data")
+        merge = cfg.n_layers * 2 * (rows * H * 4 + rows * H * (cfg.head_dim + 1) * 4)
+        assert merge <= c["collective_bytes"]["all-reduce"]
+        assert c["collective_bytes"]["all-to-all"] < kv / 100
+        assert sum(c["collective_bytes"].values()) < kv / 20
