@@ -30,12 +30,17 @@ Phases, each of which must pass or the script exits non-zero:
      and the scalar instantiation: a misaligned gamma, rows d + 1 apart,
      d = 37; for decode G = 1 to 24, head groups, splits, dh = 112 and
      enc-dec cross decode over a padded cross cache; for flash G = 16,
-     windows, dh = 112, non-causal and Sq != Sk); then a timer-floor line
+     windows, dh = 112, non-causal, Sq != Sk, and one rank's block of
+     query rows at its `q_offset`: 128 rows of a 2048-token prefill at
+     offsets 0, 896 and 1920, llama2-7b's and glm4-9b's heads and a window
+     of 512); then a timer-floor line
      (the timer around a launch that does no work), and at the main paths'
      shapes (llama2-7b, glm4-9b, d = 6144, the moe paths': mixtral-8x22b's
      G = 6 with window 4096, llama4-scout's G = 5 and d = 5120; zamba2-7b's
      dh = 112 and d = 3584 / 7168, xlstm-1.3b's d = 2048, seamless-m4t's
-     encoder, cross attention and cross decode) the kernel's time
+     encoder, cross attention and cross decode; the last of 16 ranks' rows
+     of llama2-7b's 2048-token prefill, against SDPA with a boolean mask for
+     the same rows) the kernel's time
      (with the plan rmsnorm_plan chose), the plain version's, one PyTorch
      library call's (yardstick only) and the least time the card could take
      (bytes at 3.35 TB/s or flops at the dtype's dense peak); and rmsnorm's
@@ -76,7 +81,7 @@ Phases, each of which must pass or the script exits non-zero:
      2e-3, every gradient leaf finite and within 2e-4 of its largest
      magnitude, and the losses of the AdamW steps (3 for llama2-7b, 1 for
      the others) within 2e-3;
-  5. the main paths at full width and depth (glm4-9b at 20 of 40 layers),
+  5. the main paths at full width and depth (glm4-9b at 10 of 40 layers),
      bf16, random weights from a seed, each with the launch counts set to 0
      just before it: llama2-7b
      and glm4-9b calibrated with `measure_service_time` (15/15 and 512/64),
@@ -127,7 +132,7 @@ Phases, each of which must pass or the script exits non-zero:
      its 32 layers (3.50 B parameters, 42 GB of weights, gradients and
      moments), 10 steps; zamba2-7b, 39 of its 81 layers (6 groups of 6
      Mamba2 layers and the shared block, 3 remainder layers; ~3.47 B),
-     xlstm-1.3b, 24 of its 48 layers, and seamless-m4t, 24 + 24 layers
+     xlstm-1.3b, 16 of its 48 layers, and seamless-m4t, 24 + 24 layers
      (~2.0 B, vocab 256206), 5 steps each, each model freed before the
      next: wall time a step (synchronised) split into forward + backward
      and the optimizer beside its bound (model flops at 989 TFLOP/s plus
@@ -159,7 +164,9 @@ Phases, each of which must pass or the script exits non-zero:
      prefill_32k and decode_32k at full width, the depth cut where a case
      would take minutes; `DRYRUN_MESH_FLAGS`: each of the reference's nine
      `--rules` overrides and both `--moe-dispatch` values once on a
-     full-size case, context-parallel sets with `--attn-seq-shard`) and on
+     full-size case, context-parallel sets with `--attn-seq-shard`, and
+     llama4-scout-17b-a16e's train_4k under `train_ep_cp`, whose 40 heads
+     divide no 16-way "model") and on
      the 2 x 16 x 16 one over 512 ranks (`DRYRUN_MULTI_CASES`: every
      assigned arch's decode_32k, one step a family at cut depth, one
      long_500k), one line a case with the peak and its parts, dot flops, the collective
@@ -237,6 +244,11 @@ Phases, each of which must pass or the script exits non-zero:
      leaf that differs is named and held to SHARDED_TRAIN_BAR, 2e-2 of its
      largest value), the sharded step's rmsnorm and rmsnorm_bwd launches
      must be `train_step_launches`'s, and the two step walls are printed.
+     Last, context parallelism under TRAIN_RULES_EP_CP with `attn_seq_shard`
+     (`cp_prefill_run`, CP_TRAIN): llama2-7b's prefill (8 layers, 2 x 512
+     tokens), its logits and every kernel's launches equal to the unsharded
+     run's, and one AdamW step of llama4-scout-17b-a16e (1 layer: 40 heads,
+     16 experts) held as the steps above.
 
 With --rmsnorm-sweep it only builds the kernels and times rmsnorm's CTA
 shapes against `F.rms_norm` (`rmsnorm_sweep`), where the regimes' threshold
@@ -250,8 +262,8 @@ times another checkout's wrapper with the same timer. With
 --rmsnorm-bwd-profile it builds a copy of the backward with clock reads at
 its phase boundaries and prints where a call's time goes
 (`rmsnorm_bwd_profile`).
-With --sharded it only builds the kernels and runs phase 10 (sharded serving
-and training).
+With --sharded it only builds the kernels and runs phase 10 (sharded serving,
+training and context parallelism).
 With --decode-sweep it only builds the kernels and times decode_attention at
 each head-group size against SDPA (`decode_sweep`), where `head_groups`'s
 rule in `kernels/decode_attention.py` comes from. With --decode-profile ARCH
@@ -322,6 +334,11 @@ RMSNORM_BWD_TIMED = [(2048, 4096, "bfloat16"), (2048, 5120, "bfloat16"),
                      (2048, 12288, "bfloat16"), (8192, 4096, "bfloat16"), (64, 4096, "float32"),
                      (2048, 1024, "bfloat16"), (2048, 2048, "bfloat16"),
                      (2048, 3584, "bfloat16"), (2048, 7168, "bfloat16")]
+# phase 3's context-parallel flash checks: one of 16 ranks' query rows of a
+# 2048-token prefill, at the first, a middle and the last rank's offset;
+# (H, K, window): llama2-7b, glm4-9b's GQA, and a window below Sk
+CP_SEQ, CP_ROWS, CP_OFFSETS = 2048, 128, (0, 896, 1920)
+CP_FLASH_CASES = ((32, 32, 0), (32, 2, 0), (32, 32, 512))
 MODEL_TOL = 2e-3
 GRAD_TOL = 2e-4  # each gradient leaf, against its largest magnitude
 ENC_FRAMES = 10  # encoder frames of the enc-dec card-vs-CPU checks
@@ -749,6 +766,21 @@ def phase_kernels(torch, timer):
                     f"window={window} kv_len={kv_len} {dtype}")
                 worst["flash_attention"] = max(worst["flash_attention"], err)
                 n_checks += 1
+        # context parallelism: one rank's block of query rows at its offset
+        # (`q_offset`), a 16-way row shard of a 2048-token prefill: llama2-7b
+        # (H = K = 32) and glm4-9b (K = 2) causal, and llama2-7b under a window
+        # below Sk; offsets of the first, a middle and the last rank
+        for H, K, window in CP_FLASH_CASES:
+            q = randn((1, CP_ROWS, H, 128), dtype)
+            k, v = randn((1, CP_SEQ, K, 128), dtype), randn((1, CP_SEQ, K, 128), dtype)
+            for off in CP_OFFSETS:
+                err = assert_close(
+                    torch, flash_attention(q, k, v, window=window, q_offset=off),
+                    ref.flash_attention(q, k, v, window=window, q_offset=off), dtype,
+                    f"flash_attention rows {off}..{off + CP_ROWS} of {CP_SEQ} H={H} K={K} "
+                    f"causal window={window} {dtype}")
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+                n_checks += 1
         for B, H, K, Sc, dh, lengths in [
             (2, 4, 2, 64, 16, [57, 0]),  # second row all empty: emits 0
             (1, 8, 8, 70, 32, [63]),
@@ -966,6 +998,28 @@ def phase_kernels(torch, timer):
             2 * S * (H + K) * dh * 2, 4.0 * pairs * dh * H,
             lambda: max_err(flash_attention(q, k, v, window=window),
                             ref.flash_attention(q, k, v, window=window)))
+
+    # context parallelism: the last of 16 ranks' 128 query rows of llama2-7b's
+    # 2048-token prefill (q_offset 1920, every key of the sequence before them).
+    # Library: SDPA over the same rows with a boolean mask (key <= the row's
+    # position). Bound: q read and o written, K and V read once; the (q, k)
+    # pairs of the rows' causal triangle
+    H, K, off = 32, 32, CP_OFFSETS[-1]
+    q = randn((1, CP_ROWS, H, dh), "bfloat16")
+    k, v = randn((1, CP_SEQ, K, dh), "bfloat16"), randn((1, CP_SEQ, K, dh), "bfloat16")
+    rows_pos = torch.arange(off, off + CP_ROWS, device="cuda")
+    cp_mask = torch.arange(CP_SEQ, device="cuda")[None, :] <= rows_pos[:, None]
+    pairs = CP_ROWS * off + CP_ROWS * (CP_ROWS + 1) // 2
+    row("flash_attention",
+        f"B=1 Sq={CP_ROWS} Sk={CP_SEQ} H=K={H} dh={dh} causal q_offset={off} (the last rank's "
+        f"rows of a 16-way row shard)",
+        lambda: flash_attention(q, k, v, q_offset=off),
+        lambda: ref.flash_attention(q, k, v, q_offset=off),
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2), attn_mask=cp_mask),
+        2 * (CP_ROWS * H + CP_SEQ * K) * dh * 2, 4.0 * pairs * dh * H,
+        lambda: max_err(flash_attention(q, k, v, q_offset=off),
+                        ref.flash_attention(q, k, v, q_offset=off)))
 
     # zamba2-7b (dh = 112, causal), seamless-m4t's encoder (non-causal, Sq = Sk)
     # and its cross attention (15 decoder rows over 512 encoder frames)
@@ -1423,9 +1477,10 @@ FULL_WIDTH = [  # (arch, what runs, layers kept of the full depth, None: all). "
     ("llama2-7b", "serve", None),  # the paper's serving model
     # glm4-9b and zamba2-7b at half depth since phase 10 took in sharded training,
     # zamba2-7b at a quarter since phase 8 counts the mesh steps, at 13 layers since
-    # it counts them on 2 x 16 x 16 too (the script's 1200 s): per-layer cost, G = 16
-    # and the hybrid groups are as at full depth
-    ("glm4-9b", "serve", 20),  # G = 16, QKV bias, vocab 151552; 20 of 40 layers
+    # it counts them on 2 x 16 x 16 too, glm4-9b at a quarter since phase 10 runs
+    # context parallelism (the script's 1200 s): per-layer cost, G = 16 and the
+    # hybrid groups are as at full depth
+    ("glm4-9b", "serve", 10),  # G = 16, QKV bias, vocab 151552; 10 of 40 layers
     ("nemotron-4-15b", "calibrate", None),  # relu2, d_model 6144, G = 6
     # moe: the whole depth does not fit one 80 GB card (~282 and ~217 GB in bf16)
     ("mixtral-8x22b", "serve", 8),  # 8 experts top-2, window 4096 over 576 slots, G = 6
@@ -1783,9 +1838,9 @@ TRAIN_RUNS = [
     # 39 of 81 layers: 6 groups of 6 Mamba2 layers (each followed by the shared
     # block) and 3 remainder layers, ~3.47 B parameters, ~41.6 GB; all 81 need ~81 GB
     ("zamba2-7b", {"n_layers": 39}, 5, False),
-    # 24 of 48 layers (3 groups of 7 mLSTM + 1 sLSTM; cut for
-    # the script's 1200 s: its host-bound steps took ~15 s each on a slow host)
-    ("xlstm-1.3b", {"n_layers": 24}, 5, False),
+    # 16 of 48 layers (2 groups of 7 mLSTM + 1 sLSTM; cut for the script's 1200 s:
+    # its host-bound steps took ~15 s each on a slow host at 48 layers, 7.1 s at 24)
+    ("xlstm-1.3b", {"n_layers": 16}, 5, False),
     ("seamless-m4t-large-v2", {}, 5, True),  # 24 + 24 layers, vocab 256206: ~2.0 B, ~24.5 GB
 ]
 
@@ -2332,12 +2387,13 @@ def first_batch(torch, model, cfg, B, S):
     return model_batch(model, batch, torch.bfloat16)
 
 
-def sharded_train_run(torch, card, mesh, arch, cut, B, S):
+def sharded_train_run(torch, card, mesh, arch, cut, B, S, rules="TRAIN_RULES", flags=None):
     """One arch of phase 10's training: from `Model.init(seed=0)`, the first
     batch's loss and gradients (`grads_of`) and one AdamW step
     (`make_train_step`) unsharded; then the same from weights drawn again
     from seed 0 (the step updates them in place) under
-    `sharding.use_mesh(mesh, TRAIN_RULES)`, the parameters distributed as
+    `sharding.use_mesh(mesh, rules)` (the rule set named; `flags`: the
+    model's RuntimeFlags fields besides remat), the parameters distributed as
     DTensors that require grad. The unsharded gradients and updated parameters wait
     on the host. The loss, every gradient leaf and every updated parameter
     are held to SHARDED_TRAIN_TOL (a leaf past it is named, and must stay
@@ -2353,7 +2409,7 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
 
     t_run = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), **cut)
-    model = build_model(cfg, RuntimeFlags(remat=True))
+    model = build_model(cfg, RuntimeFlags(remat=True, **(flags or {})))
     batch = first_batch(torch, model, cfg, B, S)
     opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
 
@@ -2380,7 +2436,7 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    with sh.use_mesh(mesh, sh.TRAIN_RULES):
+    with sh.use_mesh(mesh, getattr(sh, rules)):
         dparams = model.distribute_params(
             model.init(seed=0, device="cuda").requires_grad_(True))
         loss_s, grads_s, dparams, wall_s, launched, step_loss_s = one_step(dparams)
@@ -2400,7 +2456,8 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
     layers = ", ".join(f"{k}={v}" for k, v in cut.items())
     say(f"sharded training {arch} full width ({cfg.family}): {layers}, d={cfg.d_model} "
         f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, remat, batch {B} x {S}, mesh (1, 1) "
-        f"('data', 'model') over NCCL, 1 rank, TRAIN_RULES; peak {peak / 2**30:.2f} GiB")
+        f"('data', 'model') over NCCL, 1 rank, {rules}{' ' + str(flags) if flags else ''}; "
+        f"peak {peak / 2**30:.2f} GiB")
     for what, diffs in (("gradient", d_grad), ("updated parameter", d_param)):
         worst = max(diffs, key=lambda n: diffs[n][0])
         off = {n: d for n, d in diffs.items() if d[0] > SHARDED_TRAIN_TOL}
@@ -2425,6 +2482,70 @@ def sharded_train_run(torch, card, mesh, arch, cut, B, S):
     torch.cuda.empty_cache()
     say(f"sharded training {arch}: {time.perf_counter() - t_run:.1f} s")
     return launched, peak
+
+
+# phase 10's context parallelism (TRAIN_RULES_EP_CP with `attn_seq_shard`, as the
+# reference pairs them; on the (1, 1) mesh "model" is of size 1, so each core takes
+# every query row at offset 0, through the same kernels in the same order): a
+# prefill, (arch, layers kept, batch, tokens), and one AdamW step, (arch, config
+# fields replaced, batch, tokens): llama4-scout's 40 heads, which divide no 16-way
+# "model", are what EP_CP is for; one layer of ~4.1 B parameters (two 1.03 B vocab
+# tables, 16 experts) fits 16 bytes a parameter
+CP_PREFILL = ("llama2-7b", 8, 2, 512)
+CP_TRAIN = ("llama4-scout-17b-a16e", {"n_layers": 1}, 2, 256)
+CP_RULES, CP_FLAGS = "TRAIN_RULES_EP_CP", {"attn_seq_shard": True}
+
+
+def cp_prefill_run(torch, card, mesh):
+    """CP_PREFILL's prefill unsharded, then under `sharding.use_mesh(mesh,
+    TRAIN_RULES_EP_CP)` with `attn_seq_shard` from the same weights, the
+    launch counts set to 0 just before each and read just after: the logits
+    must be the unsharded run's (SHARDED_LOGIT_TOL) and so must every
+    kernel's launches, one flash call a layer. -> the launches under the
+    mesh."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import RuntimeFlags, build_model
+
+    t_run = time.perf_counter()
+    arch, layers, B, S = CP_PREFILL
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = build_model(cfg, RuntimeFlags(**CP_FLAGS))
+    params = model.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+
+    def run(mesh=None):
+        with torch.no_grad(), (sh.use_mesh(mesh, getattr(sh, CP_RULES)) if mesh
+                               else contextlib.nullcontext()):
+            p = model.distribute_params(params) if mesh else params
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(p, prompt)
+            logits = sh.whole(logits)
+            torch.cuda.synchronize()
+            return logits.float(), time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+    ref, ref_s, want = run()
+    got, got_s, n = run(mesh)
+    diff = float((got - ref).abs().max())
+    say(f"context-parallel prefill {arch} full width: {layers} of {get_config(arch).n_layers} "
+        f"layers, {B} x {S} tokens, mesh (1, 1) ('data', 'model') over NCCL, 1 rank, "
+        f"{CP_RULES} {CP_FLAGS}: largest |logit difference| {diff:.6g} over "
+        f"{tuple(got.shape)}; prefill {got_s * 1e3:.3f} ms sharded vs {ref_s * 1e3:.3f} ms "
+        f"unsharded (first calls); launches {n} (unsharded {want}); card {card}")
+    check(diff <= SHARDED_LOGIT_TOL, f"{arch}: context-parallel logits differ from the "
+          f"unsharded run's by {diff:.6g} (> {SHARDED_LOGIT_TOL})")
+    check(bool(torch.isfinite(got).all()), f"{arch}: context-parallel logits are not finite")
+    check(n == want and n["flash_attention"] == layers,
+          f"{arch}: context-parallel prefill launches {n} != the unsharded run's {want}")
+    del params, model
+    torch.cuda.empty_cache()
+    say(f"context-parallel prefill {arch}: {time.perf_counter() - t_run:.1f} s")
+    return n
 
 
 def phase_sharded(torch, card):
@@ -2477,11 +2598,18 @@ def phase_sharded(torch, card):
             launched, peaks[arch] = sharded_train_run(torch, card, mesh, arch, cut, B, S)
             for k, v in launched.items():
                 total[k] = total.get(k, 0) + v
+        t_cp = time.perf_counter()
+        arch, cut, B, S = CP_TRAIN
+        for n in (cp_prefill_run(torch, card, mesh),
+                  sharded_train_run(torch, card, mesh, arch, cut, B, S, CP_RULES, CP_FLAGS)[0]):
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
     finally:
         dist.destroy_process_group()
     now = time.perf_counter()
     say(f"phase 10 (sharded serving {t_train - t_phase:.1f} s, sharded training "
-        f"{now - t_train:.1f} s) took {now - t_phase:.1f} s")
+        f"{t_cp - t_train:.1f} s, context parallelism {now - t_cp:.1f} s) took "
+        f"{now - t_phase:.1f} s")
     return total, peaks
 
 
@@ -2556,6 +2684,9 @@ DRYRUN_MESH_FLAGS = [
                                    "rt_kwargs": {"attn_seq_shard": True}}),
     ("mixtral-8x22b", "train_4k", {"rules": "train_ep_cp_sp",
                                    "rt_kwargs": {"attn_seq_shard": True}}),
+    # context parallelism where the 40 heads divide no 16-way "model"
+    ("llama4-scout-17b-a16e", "train_4k", {"rules": "train_ep_cp",
+                                           "rt_kwargs": {"attn_seq_shard": True}}),
     ("glm4-9b", "decode_32k", {"rules": "decode_v2"}),
     ("glm4-9b", "decode_32k", {"rules": "decode_v3"}),
     ("mixtral-8x22b", "decode_32k", {"rules": "decode_v3_ep"}),

@@ -4,7 +4,9 @@
 // `_kernel`): causal, sliding-window and padded-KV (kv_len) masks over
 // arange positions, GQA by head h -> h / G, (m, l, acc) kept in f32, and
 // rows with no valid key emit 0 (m starts at -1e30 and p is zeroed while
-// m <= -5e29).
+// m <= -5e29). Query row i sits at position q_off + i, key j at j: q may be
+// one rank's block of rows of a longer sequence (context parallelism), and
+// every mask and tile range below reads the shifted positions.
 //
 // Bound on the H100: operations at long prompts (~4 Sq Sk dh flops per head
 // against ~(Sq + 2 Sk) dh elements read; S = 2048 is bound by the tensor
@@ -40,9 +42,9 @@
 //    f32; scores and P.V as plain f32 FMA, each thread owning a 4 x 4 block
 //    of scores and a 4 x dh/16 block of the accumulator.
 //
-// Both skip tiles wholly above the causal diagonal or before the window,
-// which changes no result (their p is exactly 0), and mask element by
-// element only on tiles that straddle a mask edge.
+// Both skip tiles wholly above the (shifted) causal diagonal or before the
+// window, which changes no result (their p is exactly 0), and mask element
+// by element only on tiles that straddle a mask edge.
 #include <cuda.h>
 
 #include <type_traits>
@@ -65,7 +67,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Sk, long long q_sb, long long q_ss, long long q_sh,
                        long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                        long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-                       long long o_sh, int causal, int window, int kv_len, float scale) {
+                       long long o_sh, int causal, int window, int kv_len, int q_off,
+                       float scale) {
   constexpr int DP = DH + 1;   // padded Q/K rows: conflict-free column reads
   constexpr int PP = kBK + 1;  // padded P rows
   constexpr int NJ = DH / 16;  // accumulator columns per thread
@@ -80,6 +83,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int p0 = q_off + q0;  // position of the tile's first row
   const int kvh = h / G;
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + kvh * k_sh;
@@ -96,8 +100,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Key range that can hold a valid key for some row of this tile.
   int k_end = min(Sk, kv_len);
-  if (causal) k_end = min(k_end, q0 + kBQ);
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  if (causal) k_end = min(k_end, p0 + kBQ);
+  int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   k_begin = (k_begin / kBK) * kBK;
 
   const int tx = tid % 16, ty = tid / 16;  // rows ty + 16 i, columns tx + 16 j
@@ -137,7 +141,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qpos = q0 + r;
+      const int r = ty + 16 * i, qpos = p0 + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, kpos = k0 + c;
@@ -212,7 +216,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int DH>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
                int Sq, int Sk, const long long* st, int causal, int window, int kv_len,
-               float scale, cudaStream_t stream) {
+               int q_off, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
   auto kern = flash_attention_kernel<float, DH>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -221,7 +225,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int 
   kern<<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, H / K, Sq, Sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal,
-      window, kv_len, scale);
+      window, kv_len, q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -325,7 +329,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, int G,
                           int Sq, int Sk, long long o_sb, long long o_ss, long long o_sh,
-                          int causal, int window, int kv_len, float scale_log2) {
+                          int causal, int window, int kv_len, int q_off,
+                          float scale_log2) {
   constexpr bool F16 = std::is_same<T, __half>::value;
   using L = TcTile<DH>;
   constexpr int NO = L::PW / 2;  // accumulator floats per thread
@@ -340,11 +345,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const int p0 = q_off + q0;  // position of the tile's first row
   const int ra = warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);  // rows ra, ra + 8
 
   const int klim = min(Sk, kv_len);
-  const int k_end = causal ? min(klim, q0 + kBQ) : klim;
-  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBK * kBK;
+  const int k_end = causal ? min(klim, p0 + kBQ) : klim;
+  const int k_begin = (window > 0 ? max(0, p0 - window + 1) : 0) / kBK * kBK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
   float acc[NO];
@@ -413,13 +419,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // key k0 + 8 i + col0 + (e & 1). m is kept in raw score units (masked
     // scores are -1e30 there, so a row is dead while m <= -5e29), and each p
     // is one FFMA and one exp2: exp2((s - m) * scale * log2 e).
-    if (!(k0 + kBK <= klim && (!causal || k0 + kBK - 1 <= q0) &&
-          (window <= 0 || k0 > q0 + kBQ - 1 - window))) {
+    if (!(k0 + kBK <= klim && (!causal || k0 + kBK - 1 <= p0) &&
+          (window <= 0 || k0 > p0 + kBQ - 1 - window))) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kp = k0 + 8 * i + col0 + (e & 1), qp = q0 + ra + 8 * (e >> 1);
+          const int kp = k0 + 8 * i + col0 + (e & 1), qp = p0 + ra + 8 * (e >> 1);
           const bool ok = kp < klim && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
           if (!ok) s[4 * i + e] = kNegInf;
         }
@@ -539,7 +545,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B, long l
 template <typename T, int DH>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
               int Sq, int Sk, const long long* st, int causal, int window, int kv_len,
-              float scale, cudaStream_t stream) {
+              int q_off, float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!make_map<T, DH>(&qm, q, H, Sq, B, st[0], st[1], st[2]) ||
       !make_map<T, DH>(&km, k, K, Sk, B, st[3], st[4], st[5]) ||
@@ -551,7 +557,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   kern<<<grid, kTcThreads, bytes, stream>>>(qm, km, vm, (T*)o, H / K, Sq, Sk, st[9], st[10],
-                                            st[11], causal, window, kv_len,
+                                            st[11], causal, window, kv_len, q_off,
                                             scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -559,7 +565,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H
 }  // namespace
 
 // q, o: (B, Sq, H, dh); k, v: (B, Sk, K, dh); element strides (batch, seq,
-// head) for q, k, v, o in that order; the dh axis is contiguous. f32 takes
+// head) for q, k, v, o in that order; the dh axis is contiguous; query row i
+// sits at position q_off + i. f32 takes
 // the FMA kernel, bf16 and f16 the tensor-core kernel, whose TMA maps need
 // 16-byte aligned q/k/v base pointers and strides (checked by the wrapper).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -568,7 +575,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    long long o_sb, long long o_ss, long long o_sh,
-                                   int dh, int causal, int window, int kv_len,
+                                   int dh, int causal, int window, int kv_len, int q_off,
                                    float scale, int dtype, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
@@ -577,13 +584,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 #define FLASH_CASE(D)                                                                     \
   case D:                                                                                 \
     if (dtype == kF32)                                                                    \
-      return launch_fma<D>(q, k, v, o, B, H, K, Sq, Sk, st, causal, window, kv_len, scale, s); \
+      return launch_fma<D>(q, k, v, o, B, H, K, Sq, Sk, st, causal, window, kv_len, q_off, \
+                           scale, s);                                                     \
     if (dtype == kBF16)                                                                   \
       return launch_tc<__nv_bfloat16, D>(q, k, v, o, B, H, K, Sq, Sk, st, causal, window, \
-                                         kv_len, scale, s);                               \
+                                         kv_len, q_off, scale, s);                        \
     if (dtype == kF16)                                                                    \
       return launch_tc<__half, D>(q, k, v, o, B, H, K, Sq, Sk, st, causal, window, kv_len, \
-                                  scale, s);                                              \
+                                  q_off, scale, s);                                       \
     return (int)cudaErrorInvalidValue;
   switch (dh) {
     FLASH_CASE(16)

@@ -48,7 +48,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "rmsnorm_fwd": [_P] * 3 + [_L] * 3 + [_F] + [_I] * 6 + [_P],
     "rmsnorm_bwd": [_P] * 6 + [_L] * 4 + [_F] + [_I] * 7 + [_P],
-    "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _I, _P],
+    "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 5 + [_F, _I, _P],
     "decode_attention_fwd": [_P] * 9 + [_I] * 6 + [_L] * 11 + [_I] * 2 + [_F, _I, _P],
 }
 

@@ -33,8 +33,11 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     kv_len: Optional[int] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Attention over arange positions; returns (B, Sq, H, dh), q's dtype."""
+    """Attention over arange positions, query row i at position `q_offset`
+    + i (one rank's block of rows under context parallelism); returns (B,
+    Sq, H, dh), q's dtype."""
     B, Sq, H, dh = q.shape
     Bk, Sk, K, dhk = k.shape
     _build.refuse_grad("flash_attention", q, k, v)  # no backward, in either package
@@ -47,6 +50,8 @@ def flash_attention(
         )
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention kernel: q, k, v dtypes differ")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention kernel: q_offset {q_offset} < 0")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: dh={dh} not in {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -62,7 +67,7 @@ def flash_attention(
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, K, Sq, Sk, *strides[0], *strides[1], *strides[2], *out.stride()[:3],
-        dh, int(causal), int(window), kv_len, 1.0 / math.sqrt(dh),
+        dh, int(causal), int(window), kv_len, int(q_offset), 1.0 / math.sqrt(dh),
         _build.dtype_code(q, "flash_attention"), _build.stream_of(q),
     )
     _build.check(err, "flash_attention")

@@ -16,7 +16,13 @@ kernel, or on the CPU its plain version, on the local shards through
 `local_map`, with declared placements resolved by the active rules, and
 redistributes inputs whose placements differ first:
 
-  * flash: batch over the data axes, heads over "model";
+  * flash: batch over the data axes, heads over "model"; with `seq_shard`
+    (context parallelism, `RuntimeFlags.attn_seq_shard`) q's query rows
+    over the mesh dims "attn_q_seq" resolves to (before heads claim them),
+    as the reference pins its attention output: each rank runs the kernel
+    on its contiguous block of rows at its own `q_offset`, against K and V
+    whole along the sequence (gathered over those dims if they come cut),
+    so that the causal and window masks read the rows' global positions;
   * decode over a cache whose slots are sharded (`kv_seq`: "model" under
     every decode rule set, on a mesh dim of size 1 too): the cache stays
     where it is. Each rank runs the kernel in its lse mode over its own
@@ -80,23 +86,44 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
+    seq_shard: bool = False,
 ) -> torch.Tensor:
     """Attention over arange positions (the kernel's only position layout),
-    shaped as q."""
-    fn = functools.partial(_flash_local, causal=causal, window=window)
+    shaped as q; under a mesh with `seq_shard`, q's rows cut over
+    "attn_q_seq" (module docstring)."""
     if isinstance(q, DTensor):  # (B, Sq, H, dh): DTensor cannot cut sharded heads into (K, G)
-        q_pl, kv_pl, pair = _head_placements(q.shape, k.shape, ("batch", None, "heads", None),
-                                             ("batch", None, "kv_heads", None))
-        return sh.run_local(functools.partial(_paired, fn, pair), q_pl, (q_pl, kv_pl, kv_pl),
+        q_pl, kv_pl, pair, rows = attention_layout(q.shape, k.shape, seq_shard)
+        mesh = sh.current_mesh()
+
+        def local(ql, kl, vl):
+            return _flash_local(ql, kl, vl, causal=causal, window=window,
+                                q_offset=sh.shard_start(mesh, rows, ql.shape[1]))
+
+        return sh.run_local(functools.partial(_paired, local, pair), q_pl, (q_pl, kv_pl, kv_pl),
                             q, k, v)
     B, Sq, K, G, dh = q.shape
-    return fn(q.view(B, Sq, K * G, dh), k, v).view(B, Sq, K, G, dh)  # views: raise, not copy
+    out = _flash_local(q.view(B, Sq, K * G, dh), k, v, causal=causal, window=window)
+    return out.view(B, Sq, K, G, dh)  # views: raise, not copy
 
 
-def _flash_local(qh, k, v, *, causal, window):
+def _flash_local(qh, k, v, *, causal, window, q_offset=0):
     if qh.is_cuda:
-        return _flash_kernel(qh, k, v, causal=causal, window=window)
-    return ref.flash_attention(qh, k, v, causal=causal, window=window)
+        return _flash_kernel(qh, k, v, causal=causal, window=window, q_offset=q_offset)
+    return ref.flash_attention(qh, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def attention_layout(q_shape, k_shape, seq_shard: bool):
+    """(q's placements, k and v's, the KV-head pairing, the mesh dims that
+    cut q's query rows) of an attention core on (B, Sq, H, dh) q and (B,
+    Sk, K, dh) k and v under the active rules: batch over the data axes;
+    with `seq_shard` the query rows over "attn_q_seq" (which resolves
+    before "heads", so a mesh dim it takes shards no heads), K and V whole
+    along the sequence; heads over what is left of "model"
+    (`_head_placements`)."""
+    q_pl, kv_pl, pair = _head_placements(
+        q_shape, k_shape, ("batch", "attn_q_seq" if seq_shard else None, "heads", None),
+        ("batch", None, "kv_heads", None))
+    return q_pl, kv_pl, pair, sh.dims_sharding(q_pl, 1)
 
 
 def _head_placements(q_shape, k_shape, q_axes, k_axes):

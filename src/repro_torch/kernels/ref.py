@@ -52,8 +52,11 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     kv_len: Optional[int] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Prefill attention over arange positions; GQA maps head h to h // G.
+    Query row i sits at position `q_offset` + i (a block of rows of a longer
+    sequence, as context parallelism cuts it), key j at j.
 
     Returns (B, Sq, H, dh) in q's dtype."""
     B, Sq, H, dh = q.shape
@@ -63,7 +66,7 @@ def flash_attention(
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]  # (B,K,1,Sk,dh)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(dh))  # (B,K,G,Sq,Sk)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     ok = kpos < (Sk if kv_len is None else kv_len)
     if causal:

@@ -31,7 +31,10 @@ tensor is not on the card, so `RuntimeFlags.attn_impl_for` takes the CPU
 rule: attention counts as naive up to `naive_below` keys and chunked above
 it, never as the flash kernel (whose products the counter could not see
 anyway; the reference's HLO count is blind to its Pallas custom calls in the
-same way); rmsnorm counts as `kernels.ref.rmsnorm`, and decode attention as
+same way), under context parallelism on each rank's block of query rows
+against the whole sequence's keys, as the reference's partitioned score
+chain: neither side skips the causal triangle's masked half; rmsnorm counts
+as `kernels.ref.rmsnorm`, and decode attention as
 `kernels.ref.decode_attention`, whose f32 copy of the cache inflates a
 decode step's transient bytes above the kernel's.
 

@@ -45,7 +45,12 @@ sum to a shard is a reduce-scatter, a shard of one dim to another an
 all-to-all (`sharding.redistribute`). Decode keeps a cache whose slots
 are sharded in place (`kernels/ops.py`): its step counts q's head gather
 and the two all-reduces that merge the ranks' (output, lse) parts, not the
-cache.
+cache. Under a context-parallel rule set with `--attn-seq-shard` each rank
+computes its own block of query rows, as the reference's partition does:
+the attention core (counted as its naive or chunked form, the meta device
+having no kernel) and the block's Q/K/V and MLP products on those rows,
+K and V gathered over the sequence (`models/attention.py`,
+`models/mlp.py`).
 
 Results land in benchmarks/results/dryrun_h100/<arch>__<shape>__<mesh>.json
 (mesh: h100, single or multi; `--tag` names a variant).

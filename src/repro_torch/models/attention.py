@@ -189,11 +189,14 @@ def attention_core(
     reference's differentiable rule (`RuntimeFlags.attn_impl_for`). Under a
     mesh naive and chunked attention run on local shards (`_local_core`);
     there q comes as (B, Sq, H, dh) and so does the result (a heads dim
-    sharded over more ranks than K cannot be cut into (K, G) by DTensor)."""
+    sharded over more ranks than K cannot be cut into (K, G) by DTensor).
+    Under `rt.attn_seq_shard` every core, the kernel's too, runs on each
+    rank's block of query rows (`ops.attention_layout`)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     impl = rt.attn_impl_for(k.shape[1], q.is_cuda, grad)
     if impl == "pallas":
-        return ops.flash_attention(q, k, v, causal=causal, window=window)
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   seq_shard=rt.attn_seq_shard)
     if isinstance(q, DTensor):
         return _local_core(q, k, v, causal, window, impl, rt)
     if impl == "chunked":
@@ -204,19 +207,23 @@ def attention_core(
 
 def _local_core(q, k, v, causal: bool, window: int, impl: str, rt: RuntimeFlags):
     """Naive or chunked attention in one `run_local`, laid out as the flash
-    kernel's wrapper lays it out: batch over the data axes, heads over
-    "model", each rank's KV heads those of its query heads
-    (`ops._head_placements`, `ops._paired`). The positions are arange, as
-    every caller's are under a mesh, and are built on each rank, so no
-    position tensor and no mask goes through DTensor; op by op, the scores,
-    masks and online softmax would each pay DTensor's dispatch."""
-    q_pl, kv_pl, pair = ops._head_placements(q.shape, k.shape, ("batch", None, "heads", None),
-                                             ("batch", None, "kv_heads", None))
+    kernel's wrapper lays it out (`ops.attention_layout`): batch over the
+    data axes, heads over "model", each rank's KV heads those of its query
+    heads (`ops._paired`); under `rt.attn_seq_shard` the query rows over
+    "attn_q_seq" instead, K and V whole. The positions are arange, as every
+    caller's are under a mesh, and are built on each rank (its query rows
+    from its first row's global position), so no position tensor and no
+    mask goes through DTensor; op by op, the scores, masks and online
+    softmax would each pay DTensor's dispatch. Under autograd K's and V's
+    gradients leave as partial sums over the row dims (`run_local`)."""
+    q_pl, kv_pl, pair, rows = ops.attention_layout(q.shape, k.shape, rt.attn_seq_shard)
+    mesh = sh.current_mesh()
 
     def core(ql, kl, vl):
         b, sq, hl, dh = ql.shape
         kh, sk = kl.shape[2], kl.shape[1]
-        qp = torch.arange(sq, dtype=torch.int32, device=ql.device).expand(b, sq)
+        q0 = sh.shard_start(mesh, rows, sq)
+        qp = torch.arange(q0, q0 + sq, dtype=torch.int32, device=ql.device).expand(b, sq)
         kp = torch.arange(sk, dtype=torch.int32, device=ql.device).expand(b, sk)
         qg = ql.view(b, sq, kh, hl // kh, dh)
         if impl == "chunked":
@@ -234,33 +241,40 @@ def _local_core(q, k, v, causal: bool, window: int, impl: str, rt: RuntimeFlags)
 # ---------------------------------------------------------------------------
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _project(x: torch.Tensor, w: torch.Tensor, seq_shard: bool = False) -> torch.Tensor:
     """x (B, S, d) @ w (d, N, dh) -> (B, S, N, dh) as one matmul; under a
     mesh on local shards (`_project_local`)."""
     if isinstance(w, DTensor):
-        return _project_local(x, w)
+        return _project_local(x, w, seq_shard)
     d, n, dh = w.shape
     return (x @ w.view(d, n * dh)).view(*x.shape[:-1], n, dh)
 
 
-def _project_local(x: DTensor, w: DTensor) -> DTensor:
+def _project_local(x: DTensor, w: DTensor, seq_shard: bool = False) -> DTensor:
     """`_project` in one `run_local`, mesh dim by mesh dim (DTensor's own
     product may shard the flat (N dh) columns over a dim that does not
     divide N, 2 or 8 KV heads on a 16-way "model" axis, and those cannot be
     cut back into heads): one that shards w's heads takes x whole and
     shards the result by heads; one that shards both x's and w's
-    contraction dim keeps them so, and the result is a partial sum; on any
-    other w is whole (its FSDP shard gathered, as the reference's
-    partitioner gathers it) and the result is placed as x, whose
-    contraction dim and partial sums are made whole first."""
+    contraction dim keeps them so, and the result is a partial sum; with
+    `seq_shard` (context parallelism) one that "attn_q_seq" takes, where x
+    is replicated, cuts x's rows there (locally: nothing moves) and the
+    result keeps them, w whole; on any other w is whole (its FSDP shard
+    gathered, as the reference's partitioner gathers it) and the result is
+    placed as x, whose contraction dim and partial sums are made whole
+    first."""
     dh = w.shape[2]
     heads, contract, last = Shard(1), Shard(0), Shard(x.dim() - 1)
+    rows = (sh.dims_sharding(sh.placements_of(x.shape, ("batch", "attn_q_seq", None)), 1)
+            if seq_shard and x.dim() == 3 else [])
     x_pl, w_pl, out_pl = [], [], []
-    for xp, wp in zip(x.placements, w.placements):
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
         if wp == heads:
             x_pl.append(Replicate()), w_pl.append(heads), out_pl.append(last)
         elif wp == contract and xp == last:
             x_pl.append(last), w_pl.append(contract), out_pl.append(Partial())
+        elif i in rows and isinstance(xp, Replicate):
+            x_pl.append(Shard(1)), w_pl.append(Replicate()), out_pl.append(Shard(1))
         else:
             whole = Replicate() if xp == last or isinstance(xp, Partial) else xp
             x_pl.append(whole), w_pl.append(Replicate()), out_pl.append(whole)
@@ -270,17 +284,21 @@ def _project_local(x: DTensor, w: DTensor) -> DTensor:
 
 
 def _project_q(p: Attention, x: torch.Tensor,
-               rope: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
-    q = _project(x, p.wq)
+               rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+               seq_shard: bool = False) -> torch.Tensor:
+    q = _project(x, p.wq, seq_shard)
     if p.bq is not None:
         q = q + p.bq
     return q if rope is None else rotate(q, rope)
 
 
-def project_kv(p: Attention, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def project_kv(p: Attention, x: torch.Tensor,
+               seq_shard: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """K/V projections only, no RoPE (cross-attention memory).
-    x: (B, S, d) -> k, v: (B, S, K, dh)."""
-    k, v = _project(x, p.wk), _project(x, p.wv)
+    x: (B, S, d) -> k, v: (B, S, K, dh). With `seq_shard` each rank
+    projects its query rows, and the constraint below gathers the
+    sequence, which every rank's rows attend to."""
+    k, v = _project(x, p.wk, seq_shard), _project(x, p.wv, seq_shard)
     if p.bk is not None:
         k, v = k + p.bk, v + p.bv
     return (constrain(k, ("batch", "seq", "kv_heads", None)),
@@ -291,11 +309,14 @@ def _project_qkv(
     p: Attention,
     x: torch.Tensor,  # (B, S, d)
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rope tables, None = NoPE
+    seq_shard: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    k, v = project_kv(p, x)
+    k, v = project_kv(p, x, seq_shard)
     if rope is not None:
         k = constrain(rotate(k, rope), ("batch", "seq", "kv_heads", None))
-    return constrain(_project_q(p, x, rope), ("batch", "seq", "heads", None)), k, v
+    # under context parallelism q keeps the query rows the core takes
+    q_axes = ("batch", "attn_q_seq" if seq_shard else "seq", "heads", None)
+    return constrain(_project_q(p, x, rope, seq_shard), q_axes), k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -349,18 +370,17 @@ def attention_forward(
     full; on the card `cross_pos` must be the encoder's arange positions."""
     B, S, _ = x.shape
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    cp = rt.attn_seq_shard
     if cross_kv is None:
-        q, k, v = _project_qkv(p, x, rope)
+        q, k, v = _project_qkv(p, x, rope, cp)
         k_pos = positions
     else:
-        q, (k, v), k_pos = _project_q(p, x, rope), cross_kv, cross_pos
+        q, (k, v), k_pos = _project_q(p, x, rope, cp), cross_kv, cross_pos
         causal, window = False, 0
     qg = q if isinstance(q, DTensor) else q.view(B, S, K, G, cfg.head_dim)
+    # under context parallelism the core leaves its output's query rows on
+    # "attn_q_seq", where the reference pins them
     out = attention_core(qg, k, v, positions, k_pos, causal, window, rt)
-    if rt.attn_seq_shard:
-        # context parallelism: the attention output's query-seq dim pinned, as
-        # the reference pins it (the ATTNSP rule sets map it to "model")
-        out = constrain(out, ("batch", "attn_q_seq") + (None,) * (out.dim() - 2))
     y = _out_proj(out.reshape(B, S, cfg.n_heads, cfg.head_dim), p.wo)
     return constrain(y, ("batch", "seq_res", "embed")), (k, v)
 

@@ -47,9 +47,12 @@ class RuntimeFlags:
     block (dense/vlm/moe, each encoder and decoder layer) or group (zamba2,
     xlstm) is recomputed in the backward (`torch.utils.checkpoint`), as the
     reference's `jax.checkpoint`. `attn_seq_shard` (context-parallel
-    attention under the reference's ATTNSP rule sets) pins the attention
-    output's query-seq dim ("attn_q_seq") under a mesh
-    (`attention.attention`)."""
+    attention under the rule sets that map "attn_q_seq") cuts the query
+    rows under a mesh: each rank's attention core, Q/K/V projections and
+    dense MLP run on its own contiguous block of rows, K and V gathered
+    over the sequence (`attention.attention_forward`, `mlp.mlp_forward`),
+    where the reference pins its attention output's query-seq dim and
+    GSPMD carries the cut."""
 
     attention_impl: str = "auto"  # auto | naive | chunked | pallas
     q_chunk: int = 1024

@@ -315,7 +315,7 @@ def _attn_block_apply(lp: Block, x, cfg, rt, positions, rope, window: int, aux: 
     if cfg.n_experts:
         m, losses = moe_forward(lp.moe, h, cfg, rt.moe_dispatch, aux=aux)
     else:
-        m, losses = mlp_forward(lp.mlp, h, cfg), {}
+        m, losses = mlp_forward(lp.mlp, h, cfg, seq_shard=rt.attn_seq_shard), {}
     return constrain(x + m, ("batch", "seq_res", "embed")), kv, losses
 
 

@@ -69,6 +69,7 @@ __all__ = [
     "placements_of",
     "dims_sharding",
     "shard_index",
+    "shard_start",
     "placed",
     "redistribute",
     "run_local",
@@ -419,6 +420,13 @@ def shard_index(mesh: DeviceMesh, dims: Sequence[int]) -> int:
     for i in dims:
         idx = idx * mesh.size(i) + mesh.get_local_rank(i)
     return idx
+
+
+def shard_start(mesh: DeviceMesh, dims: Sequence[int], local_size: int) -> int:
+    """This rank's first index along a tensor dim split evenly over mesh
+    `dims` into shards of `local_size` (0 with no dims): the global
+    position of local row 0."""
+    return shard_index(mesh, dims) * local_size
 
 
 def placed(dims: Dict[int, Sequence[int]]) -> List[Placement]:

@@ -25,8 +25,12 @@ dry run runs them on the production meshes.
     bytes: the weights' gathers, q's and the fresh K/V's head gathers and
     the merge's all-reduces, and none of its cache;
   * llama2-7b's context-parallel prefill (TRAIN_RULES_EP_CP with
-    `attn_seq_shard`) against the reference's count under the same rules
-    (`-s` prints both sides and the dots by site);
+    `attn_seq_shard`): each rank's block of query rows through the core
+    and the block's products, the core's dot FLOPs equal to the
+    reference's share, no product above the reference's (its dots read by
+    their einsum), the total a four-way cut of one device's, and its
+    collectives by class the hand count's; its train step no more than
+    the reference's (`-s` prints both sides by site and class);
   * `--rules` names the reference's nine overrides and maps them to equal
     tables; each override and both `--moe-dispatch` values run a smoke
     case; `attn_seq_shard` shards the attention output's query-seq dim.
@@ -179,9 +183,10 @@ REPLICATED = {
 }
 
 
-def dots_by_site(run):
+def dots_by_site(run, rhs=False):
     """{(file, function) of the innermost model frame: dot FLOPs} of a
-    forward counted by `run()` (memo off, so every dot runs)."""
+    forward counted by `run()` (memo off, so every dot runs); with `rhs`
+    the key also holds the dot's right operand."""
     by = collections.defaultdict(float)
     real = cost_analysis._Tracker.__torch_dispatch__
 
@@ -193,8 +198,10 @@ def dots_by_site(run):
             # and its lambda) named as the one-device function (`_project`)
             frames = [f for f in traceback.extract_stack() if "repro_torch/models" in f.filename
                       and f.name != "<lambda>"]
-            by[(Path(frames[-1].filename).name,
-                frames[-1].name.removesuffix("_local"))] += self.flops - before
+            key = (Path(frames[-1].filename).name, frames[-1].name.removesuffix("_local"))
+            if rhs:
+                key += (args[cost_analysis.DOT_OPS[func][1]],)
+            by[key] += self.flops - before
         return out
 
     cost_analysis._Tracker.__torch_dispatch__ = dispatch
@@ -250,6 +257,7 @@ smoke = get_config(arch, smoke=True)
 specs.get_config = lambda a: smoke
 mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
 collective = re.compile(r"\\s(all-gather|all-reduce|reduce-scatter|all-to-all|collective-permute)\\(")
+dot = re.compile(r' dot\\(.*op_name="[^"]*/([^/"]+)/dot_general"')
 out = {{}}
 for label, kind, seq, batch, rules, rt_kwargs in {runs!r}:
     specs.SHAPES["smoke"] = specs.ShapeSpec("smoke", kind, seq, batch)
@@ -266,8 +274,15 @@ for label, kind, seq, batch, rules, rt_kwargs in {runs!r}:
     # collective's f32 counted at 2 bytes
     bf16 = analyze_hlo("\\n".join(line.replace("f32[", "bf16[") if collective.search(line)
                                    else line for line in text.splitlines()))
+    # dot FLOPs by the einsum each dot comes from (its op_name): the text with
+    # every other dot renamed, so that analyze_hlo skips it
+    lines = text.splitlines()
+    einsums = set(dot.findall(text))
+    sites = {{e: analyze_hlo("\\n".join(
+        l.replace(" dot(", " skipped-dot(") if " dot(" in l and f"/{{e}}/dot_general" not in l
+        else l for l in lines)).flops for e in einsums}}
     out[label] = {{"flops": cost.flops, "collective_bytes": dict(cost.collective_bytes),
-                  "at_bf16": dict(bf16.collective_bytes)}}
+                  "at_bf16": dict(bf16.collective_bytes), "sites": sites}}
 print(json.dumps(out))
 """
 REF_SEQ, REF_BATCH = 16, 4
@@ -276,6 +291,8 @@ CP_SEQ = 64  # the context-parallel prefill's tokens: 32 a "model" rank
 # RuntimeFlags fields)
 REF_RUNS = [(kind, kind, REF_SEQ, REF_BATCH, None, None) for kind in ("prefill", "train", "decode")]
 REF_RUNS.append(("prefill_ep_cp", "prefill", CP_SEQ, REF_BATCH, "TRAIN_RULES_EP_CP",
+                 {"attn_seq_shard": True}))
+REF_RUNS.append(("train_ep_cp", "train", CP_SEQ, REF_BATCH, "TRAIN_RULES_EP_CP",
                  {"attn_seq_shard": True}))
 # the reference's collective total at bf16 over the port's, at most (and at least
 # 1): the two partitioners move the same step's tensors by different choices,
@@ -362,26 +379,100 @@ def test_llama2_decode_collectives_equal_hand_count():
     assert cost.collective_bytes == {k: float(v) for k, v in want.items()}
 
 
+# the context-parallel step's products by the reference's einsums (the op_name of
+# each dot in its compiled HLO): the sites the port's products are held to
+REF_SITES = {"bsd,dkh->bskh": "Q/K/V", "bqkgh,bskh->bkgqs": "core", "bkgqs,bskh->bqkgh": "core",
+             "bsnh,nhd->bsd": "wo", "...d,df->...f": "gate + up", "...f,fd->...d": "w2",
+             "...d,dv->...v": "logits"}
+
+
+def port_site(cfg, file, function, rhs):
+    """The site of one of the port's dots, named as REF_SITES names the
+    reference's: by its function, the MLP's by its weight operand."""
+    if file == "mlp.py":
+        return "w2" if rhs.shape[0] == cfg.d_ff else "gate + up"
+    return {"_project": "Q/K/V", "naive_attention": "core", "_out_proj": "wo",
+            "logits_from_hidden": "logits"}[function]
+
+
+def cp_case(kind):
+    return smoke_case("llama2-7b", kind, CP_SEQ, REF_BATCH, rules_override=sh.TRAIN_RULES_EP_CP,
+                      rt_kwargs={"attn_seq_shard": True})
+
+
 def test_context_parallel_prefill_against_reference(reference_llama2):
     """llama2-7b smoke prefill, batch 4 over CP_SEQ tokens on (2, 2), under
-    TRAIN_RULES_EP_CP with `attn_seq_shard`: the port's per-device dot FLOPs
-    against the reference's. Recorded, not closed (ROADMAP.md, queue 1):
-    GSPMD carries the attention output's query-seq sharding into the score
-    chain and the MLP, where the port gathers the query sequence for the
-    attention core and runs the MLP's products whole over "model"; so the
-    port does no less than the reference, and no more than one device."""
+    TRAIN_RULES_EP_CP with `attn_seq_shard`: each "model" rank computes its
+    32 query rows through the attention core (the reference's GSPMD
+    partition) and the block's products. Per device, by site: the core's
+    dot FLOPs equal the reference's; Q/K/V, gate + up, `wo` and `w2` each
+    no more than the reference's (XLA cuts the projections' and gate and
+    up's embed dim over "model" where the port cuts their rows, and runs
+    `wo` and `w2` whole, which the port runs on rows); the total within
+    FLOP_TOL of a four-way cut of one device's count, as under the default
+    rules."""
     ref = reference_llama2["prefill_ep_cp"]
-    case = smoke_case("llama2-7b", "prefill", CP_SEQ, REF_BATCH,
-                      rules_override=sh.TRAIN_RULES_EP_CP, rt_kwargs={"attn_seq_shard": True})
+    case = cp_case("prefill")
     ours, one = mesh_cost(case, (2, 2)).flops, analyze_case(case).flops
-    whole = dots_by_site(lambda: analyze_case(case, memo=False))
-    split = dots_by_site(lambda: mesh_cost(case, (2, 2), memo=False))
+    ref_sites = collections.defaultdict(float)
+    for einsum, n in ref["sites"].items():
+        ref_sites[REF_SITES[einsum]] += n
+    assert sum(ref_sites.values()) == ref["flops"]
+    split = collections.defaultdict(float)
+    for (f, n, rhs), flops in dots_by_site(lambda: mesh_cost(case, (2, 2), memo=False),
+                                           rhs=True).items():
+        split[port_site(case.cfg, f, n, rhs)] += flops
+    L = case.cfg.n_layers
     print(f"llama2-7b smoke prefill {REF_BATCH} x {CP_SEQ} under TRAIN_RULES_EP_CP with "
           f"attn_seq_shard on (2, 2), per device: dot FLOPs {ours:.0f} (port) vs "
-          f"{ref['flops']:.0f} (reference), {one:.0f} on one device; port by site, a device "
-          f"x 4 over one device: " + ", ".join(f"{f}:{n} {4 * split[f, n] / whole[f, n]:.3f}"
-                                               for f, n in whole))
-    assert ref["flops"] <= ours <= one, (ours, ref["flops"], one)
+          f"{ref['flops']:.0f} (reference), {one:.0f} on one device; a layer by site, port / "
+          "reference: " + ", ".join(f"{k} {split[k] / L:.0f} / {ref_sites[k] / L:.0f}"
+                                    for k in ref_sites))
+    assert set(split) == set(ref_sites)
+    assert abs(split["core"] / ref_sites["core"] - 1) <= FLOP_TOL, (split, ref_sites)
+    for site in ("Q/K/V", "gate + up", "wo", "w2"):
+        assert split[site] <= ref_sites[site] * (1 + FLOP_TOL), (site, split, ref_sites)
+    assert abs(4 * ours / one - 1) <= FLOP_TOL, (ours, one)
+
+
+def test_context_parallel_prefill_collectives_equal_hand_count(reference_llama2):
+    """The same prefill's collectives, class by class the hand count's (a
+    device holds 2 rows, 32 query rows, all 8 heads and half of each
+    weight's embed dim): the weights' FSDP gathers, K and V gathered over
+    the sequence for the core, and, "seq_res" being unmapped under EP_CP,
+    each block's attention and MLP outputs gathered by rows at the
+    reference's own constraint; the embedding's and logits' as under the
+    default rules. `-s` prints the reference's classes beside them."""
+    L, rows, S, H, dh, d, f, V, bf16 = 2, 2, CP_SEQ, 8, 32, 256, 512, 1024, 2
+    cost = mesh_cost(cp_case("prefill"), (2, 2))
+    want = {
+        "all-gather": (L * 4 * d * H * dh * bf16  # wq, wk, wv, wo: FSDP shards over "data"
+                       + L * 3 * d * f * bf16  # w1, w3, w2
+                       + (V // 2) * d * bf16  # the embedding table's FSDP shard
+                       + (2 * L + 1) * d * bf16  # the norms' gammas
+                       + L * 2 * rows * S * H * dh * bf16  # K and V over the sequence
+                       + L * 2 * rows * S * d * bf16),  # the attention's and MLP's outputs
+        "all-reduce": 2 * rows * S * d * bf16,  # the embedding lookup's partial sum
+        "reduce-scatter": 4 * (V // 2) * bf16,  # logits
+        "all-to-all": rows * d * bf16,  # logits
+        "collective-permute": 0,
+    }
+    ref = reference_llama2["prefill_ep_cp"]
+    print(f"llama2-7b smoke prefill {REF_BATCH} x {CP_SEQ} under TRAIN_RULES_EP_CP with "
+          f"attn_seq_shard on (2, 2), per device: port {cost.collective_bytes}, reference "
+          f"{ref['collective_bytes']}, at bf16 {ref['at_bf16']}")
+    assert cost.collective_bytes == {k: float(v) for k, v in want.items()}
+
+
+def test_context_parallel_train_no_more_than_reference(reference_llama2):
+    """The same rules' train step (loss, gradients and AdamW, 4 x CP_SEQ on
+    (2, 2)): the port's per-device dot FLOPs no more than the reference's."""
+    ref = reference_llama2["train_ep_cp"]
+    ours = mesh_cost(cp_case("train"), (2, 2)).flops
+    print(f"llama2-7b smoke train {REF_BATCH} x {CP_SEQ} under TRAIN_RULES_EP_CP with "
+          f"attn_seq_shard on (2, 2), per device: dot FLOPs {ours:.0f} (port) vs "
+          f"{ref['flops']:.0f} (reference)")
+    assert ours <= ref["flops"] * (1 + FLOP_TOL), (ours, ref["flops"])
 
 
 def collectives_by_op(run):

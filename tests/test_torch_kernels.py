@@ -29,6 +29,7 @@ FLASH_SHAPES = [  # B, H, K, Sq, Sk, dh, bq, bk — as tests/test_kernels.py
     (1, 2, 2, 15, 40, 112, 16, 16),  # dh 112, Sq != Sk (cross attention's shape)
 ]
 MASKS = [(True, 0), (True, 8), (False, 0)]
+OFFSET_SHAPES = [(1, 4, 4, 40, 16), (2, 8, 2, 48, 32)]  # B, H, K, S, dh: MHA, GQA 4:1
 DECODE_SHAPES = [(2, 4, 2, 64, 16, 16), (1, 8, 8, 70, 32, 32),  # B, H, K, Sc, dh, bk
                  (2, 2, 2, 40, 112, 16)]  # zamba2-7b's dh
 
@@ -116,6 +117,32 @@ class TestPlainAgainstPallas:
         r = ref.flash_attention(q, k, v, causal=False, kv_len=5)
         torch.testing.assert_close(
             r, ref.flash_attention(q, k[:, :5], v[:, :5], causal=False), rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,S,dh", OFFSET_SHAPES)
+    def test_flash_q_offset_is_a_block_of_rows(self, pallas, dtype, B, H, K, S, dh):
+        """A block of query rows at its offset (one rank's rows under
+        context parallelism) equals those rows of the whole sequence's plain
+        attention, causal and windowed, and the JAX package's
+        `naive_attention` over the same positions."""
+        from repro.models.attention import naive_attention
+
+        q, k, v = randn(0, (B, S, H, dh)), randn(1, (B, S, K, dh)), randn(2, (B, S, K, dh))
+        qt, kt, vt = (torch.from_numpy(a).to(TORCH[dtype]) for a in (q, k, v))
+        jnp, tol = pallas.jnp, TOLS[dtype]
+        for causal, window in MASKS:
+            whole = ref.flash_attention(qt, kt, vt, causal=causal, window=window)
+            for lo, hi in ((0, S // 2), (S // 2, S), (5, 17), (S - 3, S)):
+                part = ref.flash_attention(qt[:, lo:hi], kt, vt, causal=causal, window=window,
+                                           q_offset=lo)
+                np.testing.assert_allclose(f32(part), f32(whole[:, lo:hi]), rtol=tol, atol=tol)
+                qj = jnp.asarray(q[:, lo:hi].reshape(B, hi - lo, K, H // K, dh)).astype(
+                    getattr(jnp, dtype))
+                kj, vj = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (k, v))
+                pos = lambda a, b: jnp.broadcast_to(jnp.arange(a, b, dtype=jnp.int32), (B, b - a))
+                o = naive_attention(qj, kj, vj, pos(lo, hi), pos(0, S), causal, window)
+                np.testing.assert_allclose(f32(part), f32(o).reshape(B, hi - lo, H, dh),
+                                           rtol=tol, atol=tol)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("B,H,K,Sc,dh,bk", DECODE_SHAPES)
@@ -246,6 +273,24 @@ class TestKernelsOnCard:
             o = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
             r = ref.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
             torch.testing.assert_close(o.float(), r.float(), rtol=TOLS[dtype], atol=TOLS[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
+    def test_flash_attention_q_offset(self, card, dtype, H, K):
+        """One rank's block of query rows at its offset: causal, windowed
+        (a window below Sk) and non-causal, offsets that start a tile, fall
+        inside one and end the sequence, against the plain version."""
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        t, Sk, rows, dh = TORCH[dtype], 512, 96, 128
+        q = torch.from_numpy(randn(0, (1, rows, H, dh))).to(card, t)
+        k, v = (torch.from_numpy(randn(i, (1, Sk, K, dh))).to(card, t) for i in (1, 2))
+        for causal, window in [(True, 0), (True, 100), (False, 0)]:
+            for off in (0, 64, 200, Sk - rows):
+                o = flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+                r = ref.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+                torch.testing.assert_close(o.float(), r.float(), rtol=CARD_TOLS[dtype],
+                                           atol=CARD_TOLS[dtype])
 
     def test_flash_attention_rejects_misaligned_bf16(self, card):
         """The tensor-core kernel's TMA maps need 16-byte strides: raise, no detour."""

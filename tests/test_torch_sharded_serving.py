@@ -17,7 +17,12 @@ takes the kernels' wrappers, which run the plain versions on the local
 shards through `local_map`, as the card runs the kernels. The same weights
 (the reference's init, converted) run unsharded in the port and in JAX in
 this process: logits agree within TOL (tests/test_consistency.py) and
-greedy tokens are identical. Rank 0 logs every collective of the decode
+greedy tokens are identical. Two more cases prefill llama2-7b under
+TRAIN_RULES_EP_CP with `attn_seq_shard` (context parallelism: each rank's
+attention core takes its block of query rows, rank 1's from S / 2), once
+through the flash kernel's wrapper and once through the chunked core with
+query chunks shorter than a rank's rows; each core call records where its
+rows start. Rank 0 logs every collective of the decode
 steps (`CollectiveLog`): none moves a tensor of the cache's shape, and every
 decode call over a cache whose slots are sharded takes the merge path.
 
@@ -64,7 +69,16 @@ CASES = [
     ("glm4-9b DECODE_RULES_V2 (1, 2)", "glm4-9b", None, (1, 2)),
     ("glm4-9b DECODE_RULES_V3 (1, 2)", "glm4-9b", None, (1, 2)),
     ("llama2-7b fresh token on rank 1 (1, 2)", "llama2-7b", None, (1, 2)),
+    ("llama2-7b EP_CP prefill, flash (1, 2)", "llama2-7b", None, (1, 2)),
+    ("llama2-7b EP_CP prefill, chunked (1, 2)", "llama2-7b", None, (1, 2)),
 ]
+# context-parallel prefills: the rule set and the RuntimeFlags fields (the
+# chunked core's query chunks of 4 below a rank's S / 2 = 6 rows)
+CP = {"llama2-7b EP_CP prefill, flash (1, 2)":
+      ("TRAIN_RULES_EP_CP", dict(attn_seq_shard=True, attention_impl="pallas")),
+      "llama2-7b EP_CP prefill, chunked (1, 2)":
+      ("TRAIN_RULES_EP_CP", dict(attn_seq_shard=True, attention_impl="chunked", q_chunk=4,
+                                 kv_chunk=4))}
 # a case's decode rule set where it is not DECODE_RULES: under V3 the token's
 # embed dim is sharded over "data" like the weights' (a projection's partial
 # sum over "data", the output projection's result sharded by embed); under V2
@@ -92,7 +106,7 @@ def _pad(cache, n):
 
 
 def _greedy(model, params, prompt, steps, on_mesh=None, decode="DECODE_RULES", empty=False,
-            log=contextlib.nullcontext()):
+            log=contextlib.nullcontext(), prefill="PREFILL_RULES"):
     """Prefill, then `steps` greedy decode steps (under the rule set named
     `decode`, inside `log`) -> (the logits of every step, prefill's first, as
     one (steps + 1, B, V) array; the tokens fed). With `empty` no prefill:
@@ -102,7 +116,7 @@ def _greedy(model, params, prompt, steps, on_mesh=None, decode="DECODE_RULES", e
     from repro_torch import sharding as sh
 
     full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
-    rules = (sh.PREFILL_RULES, getattr(sh, decode))
+    rules = (getattr(sh, prefill), getattr(sh, decode))
     ctx = (lambda r: sh.use_mesh(on_mesh, r)) if on_mesh else (lambda r: contextlib.nullcontext())
     with torch.no_grad():
         with ctx(rules[0]):
@@ -183,8 +197,41 @@ def cache_moved(seen, slots, dh):
             or (c[2] == "torch.int32" and len(c[1]) >= 2 and c[1][-1] in slots)]
 
 
+def _flags(name):
+    return RuntimeFlags(**CP[name][1]) if name in CP else RuntimeFlags(attention_impl="pallas")
+
+
+@contextlib.contextmanager
+def _recorded_rows(starts):
+    """While inside, each attention core call (the flash kernel's plain
+    version, the chunked and naive cores) appends (its first query
+    position, its query rows) to `starts`."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    saved = ref.flash_attention, attention.naive_attention, attention.chunked_attention
+
+    def flash(q, *a, q_offset=0, **kw):
+        starts.append((q_offset, q.shape[1]))
+        return saved[0](q, *a, q_offset=q_offset, **kw)
+
+    def wrap(fn):
+        def core(q, k, v, q_pos, *rest):
+            starts.append((int(q_pos[0, 0]), q.shape[1]))
+            return fn(q, k, v, q_pos, *rest)
+        return core
+
+    ref.flash_attention = flash
+    attention.naive_attention, attention.chunked_attention = map(wrap, saved[1:])
+    try:
+        yield
+    finally:
+        ref.flash_attention, attention.naive_attention, attention.chunked_attention = saved
+
+
 def _rank(rank, store, tmp, cases):
-    """One gloo rank: every case under its mesh; rank 0 saves the results."""
+    """One gloo rank: every case under its mesh; rank 0 saves the results,
+    each rank where its attention cores' rows started."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -194,15 +241,18 @@ def _rank(rank, store, tmp, cases):
     try:
         for name, arch, kv, shape in cases:
             cfg = _cfg(get_config, arch, kv)
-            model = build_model(cfg, RuntimeFlags(attention_impl="pallas"))
+            model = build_model(cfg, _flags(name))
             w = np.load(os.path.join(tmp, f"{arch}-{kv}.npz"))
             params = convert_params(_unflatten(w), cfg, device="cpu")
             prompt = torch.from_numpy(np.load(os.path.join(tmp, "prompt.npy")))
             mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-            log = CollectiveLog()
-            logits, toks = _greedy(model, params, prompt, STEPS, on_mesh=mesh,
-                                   decode=DECODE.get(name, "DECODE_RULES"), empty=name in EMPTY,
-                                   log=log)
+            log, starts = CollectiveLog(), []
+            with _recorded_rows(starts):
+                logits, toks = _greedy(model, params, prompt, STEPS, on_mesh=mesh,
+                                       decode=DECODE.get(name, "DECODE_RULES"),
+                                       empty=name in EMPTY, log=log,
+                                       prefill=CP.get(name, ("PREFILL_RULES",))[0])
+            np.save(os.path.join(tmp, f"starts-{name}-{rank}.npy"), np.array(starts, int))
             if rank == 0:
                 np.savez(os.path.join(tmp, f"out-{name}.npz"), logits=logits, toks=toks)
                 with open(os.path.join(tmp, f"log-{name}.json"), "w") as f:
@@ -261,6 +311,7 @@ def sharded(tmp_path_factory):
     refs, weights = {}, {}
     for name, arch, kv, _ in CASES:
         key, empty = f"{arch}-{kv}", name in EMPTY
+        ref_key = (key, empty, name if name in CP else None)
         if key not in weights:
             cfg_j = _cfg(jax_get_config, arch, kv)
             mj = jax_build_model(cfg_j, JaxFlags(remat=False))
@@ -268,13 +319,13 @@ def sharded(tmp_path_factory):
             flat = _flatten(jax.tree.map(np.asarray, pj))
             np.savez(os.path.join(tmp, key + ".npz"), **flat)
             weights[key] = (mj, pj)
-        if (key, empty) not in refs:
+        if ref_key not in refs:
             mj, pj = weights[key]
             cfg = _cfg(get_config, arch, kv)
-            model = build_model(cfg, RuntimeFlags(attention_impl="pallas"))
+            model = build_model(cfg, _flags(name))
             params = convert_params(jax.tree.map(np.asarray, pj), cfg, device="cpu")
             logits, toks = _greedy(model, params, torch.from_numpy(prompt), STEPS, empty=empty)
-            refs[key, empty] = (logits, toks, _jax_logits(mj, pj, prompt, toks, empty))
+            refs[ref_key] = (logits, toks, _jax_logits(mj, pj, prompt, toks, empty))
     t0 = time.time()
     ctx = mp.start_processes(_rank, args=(os.path.join(tmp, "store"), tmp, CASES), nprocs=2,
                              join=False, start_method="spawn")
@@ -288,22 +339,25 @@ def sharded(tmp_path_factory):
         got = np.load(os.path.join(tmp, f"out-{name}.npz"))
         with open(os.path.join(tmp, f"log-{name}.json")) as f:
             log = json.load(f)
-        out[name] = (got["logits"], got["toks"], *refs[f"{arch}-{kv}", name in EMPTY], log)
+        starts = [np.load(os.path.join(tmp, f"starts-{name}-{r}.npy")) for r in range(2)]
+        out[name] = (got["logits"], got["toks"],
+                     *refs[f"{arch}-{kv}", name in EMPTY, name if name in CP else None], log,
+                     starts)
     return out
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 class TestShardedServing:
     def test_logits_match_unsharded_port(self, sharded, case):
-        logits, toks, ref_logits, ref_toks, _, _ = sharded[case]
+        logits, toks, ref_logits, ref_toks, _, _, _ = sharded[case]
         np.testing.assert_allclose(logits, ref_logits, rtol=TOL, atol=TOL)
 
     def test_logits_match_jax(self, sharded, case):
-        logits, toks, _, _, jax_logits, _ = sharded[case]
+        logits, toks, _, _, jax_logits, _, _ = sharded[case]
         np.testing.assert_allclose(logits, jax_logits, rtol=TOL, atol=TOL)
 
     def test_greedy_tokens_identical(self, sharded, case):
-        _, toks, _, ref_toks, _, _ = sharded[case]
+        _, toks, _, ref_toks, _, _, _ = sharded[case]
         np.testing.assert_array_equal(toks, ref_toks)
 
     def test_decode_keeps_the_cache_in_place(self, sharded, case):
@@ -322,6 +376,17 @@ class TestShardedServing:
         merges = [c[1] for c in log["seen"] if c[0] == "all-reduce"
                   and c[1] in ([rows, H], [rows, H, cfg.head_dim + 1])]
         assert len(merges) == (2 * cfg.n_layers * STEPS if shape[1] > 1 else 0), log["seen"]
+
+
+@pytest.mark.parametrize("case", list(CP))
+def test_context_parallel_rows_start_at_the_rank_offset(sharded, case):
+    """The context-parallel prefill's attention cores ran on S / 2 query
+    rows a rank, one call a layer, rank r's from position r S / 2 (the
+    flash wrapper's `q_offset`; the chunked core's positions, its query
+    chunks shorter than the rows)."""
+    cfg = _cfg(get_config, "llama2-7b", None)
+    for r, starts in enumerate(sharded[case][6]):
+        assert len(starts) == cfg.n_layers and (starts == [r * S // 2, S // 2]).all(), (r, starts)
 
 
 @pytest.mark.parametrize("arch,shape", [("llama2-7b", "decode_32k"), ("glm4-9b", "train_4k")])

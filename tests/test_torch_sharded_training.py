@@ -23,9 +23,11 @@ not see the caller's `use_mesh`:
     remainder layer on (1, 2), and on (2, 1) in chunks of 4;
   * ssm: xlstm-1.3b (an mLSTM group and an sLSTM block) on (1, 2);
   * enc-dec: seamless-m4t-large-v2 on (1, 2) and (2, 1);
-  * context-parallel attention: llama2-7b on (1, 2) under
-    TRAIN_RULES_ATTNSP with `attn_seq_shard`, the attention output's
-    query-seq dim over "model" (CASE_RULES).
+  * context-parallel attention (`attn_seq_shard`, CASE_RULES): llama2-7b
+    on (1, 2) under TRAIN_RULES_ATTNSP and TRAIN_RULES_CP_SP (the residual
+    cut by rows too), llama4-scout-17b-a16e under TRAIN_RULES_EP_CP (experts
+    over "model", heads whole): each rank's attention core takes its block
+    of query rows, rank 1's starting at S / 2 (the cores record where).
 
 The same weights (the reference's init with every constant leaf perturbed
 from a seed, converted) and batch run unsharded in the port and through
@@ -92,10 +94,15 @@ CASES = [
     ("seamless-m4t-large-v2 (1, 2)", "seamless-m4t-large-v2", {}, {}, (1, 2)),
     ("seamless-m4t-large-v2 (2, 1)", "seamless-m4t-large-v2", {}, {}, (2, 1)),
     ("llama2-7b ATTNSP (1, 2)", "llama2-7b", {}, {"attn_seq_shard": True}, (1, 2)),
+    ("llama2-7b CP_SP (1, 2)", "llama2-7b", {}, {"attn_seq_shard": True}, (1, 2)),
+    ("llama4-scout-17b-a16e EP_CP (1, 2)", "llama4-scout-17b-a16e", {},
+     {"attn_seq_shard": True}, (1, 2)),
 ]
 # the rule set of a case not under TRAIN_RULES: context-parallel attention, the
-# attention output's query-seq dim over "model" (`RuntimeFlags.attn_seq_shard`)
-CASE_RULES = {"llama2-7b ATTNSP (1, 2)": "TRAIN_RULES_ATTNSP"}
+# attention core's query rows over "model" (`RuntimeFlags.attn_seq_shard`)
+CASE_RULES = {"llama2-7b ATTNSP (1, 2)": "TRAIN_RULES_ATTNSP",
+              "llama2-7b CP_SP (1, 2)": "TRAIN_RULES_CP_SP",
+              "llama4-scout-17b-a16e EP_CP (1, 2)": "TRAIN_RULES_EP_CP"}
 MICRO_CASE = ("llama2-7b", (2, 1))  # two microbatches against one, batch 2 B
 LOOP_CASE = ("llama2-7b", (1, 2))  # train_loop, 2 steps
 
@@ -230,6 +237,28 @@ def _ops_recorder(seen):
     return Recorder()
 
 
+@contextlib.contextmanager
+def _recorded_rows(starts):
+    """While inside, each call of the plain attention cores appends (its
+    first query position, its query rows) to `starts`: on local shards
+    under a mesh, the rank's own rows (`attention._local_core`)."""
+    from repro_torch.models import attention
+
+    saved = attention.naive_attention, attention.chunked_attention
+
+    def wrap(fn):
+        def core(q, k, v, q_pos, *rest):
+            starts.append((int(q_pos[0, 0]), q.shape[1]))
+            return fn(q, k, v, q_pos, *rest)
+        return core
+
+    attention.naive_attention, attention.chunked_attention = map(wrap, saved)
+    try:
+        yield
+    finally:
+        attention.naive_attention, attention.chunked_attention = saved
+
+
 def _replicated_weight_grads(mesh):
     """y = x * g on local shards, x's rows (4, 3) sharded over the mesh's
     first dim, g (3,) replicated; the loss sums y. -> (g's gradient through
@@ -273,7 +302,9 @@ def _rank(rank, store, tmp, cases):
                 key = _key(arch, fields, flags)
                 batch = _torch_batch(_batch(cfg))
                 mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-                with sh.use_mesh(mesh, getattr(sh, CASE_RULES.get(name, "TRAIN_RULES"))):
+                starts = []
+                with sh.use_mesh(mesh, getattr(sh, CASE_RULES.get(name, "TRAIN_RULES"))), \
+                        _recorded_rows(starts):
                     model, params = _port(cfg, flags, tmp, key)
                     loss, grads = _loss_and_grads(
                         model, model.distribute_params(params.requires_grad_(True)), batch, seen)
@@ -281,7 +312,7 @@ def _rank(rank, store, tmp, cases):
                     metrics, after, placed = _step(
                         model, model.distribute_params(params.requires_grad_(True)), batch)
                 np.savez(os.path.join(tmp, f"out-{name}-{rank}.npz"), loss=loss,
-                         placed=np.array(placed, bool),
+                         placed=np.array(placed, bool), q_starts=np.array(starts, int),
                          **{"grad/" + n: g for n, g in grads.items()}, **after,
                          **{"metric/" + k: v for k, v in metrics.items()})
 
@@ -473,6 +504,17 @@ class TestShardedTraining:
         ranks, _ = sharded["cases"][case]
         for out in ranks:
             assert out["placed"].size and out["placed"].all()
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CASES if c[3].get("attn_seq_shard")])
+def test_context_parallel_rows_start_at_the_rank_offset(sharded, case):
+    """Under context parallelism every attention core call of the loss and
+    the step (forward and remat's recompute) runs on S / 2 query rows,
+    rank r's starting at position r S / 2."""
+    ranks, _ = sharded["cases"][case]
+    for r, out in enumerate(ranks):
+        starts = out["q_starts"]
+        assert len(starts) and (starts == [r * S // 2, S // 2]).all(), (r, starts)
 
 
 def test_two_microbatches_equal_one(sharded):
